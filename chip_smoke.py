@@ -9,28 +9,47 @@ Run from the repository root:
 Phases (any failure raises and the script exits non-zero):
 
 1. the card: requires CUDA, prints ``nvidia-smi`` name and power limit;
-2. builds the hand-written kernels (kernels/csrc/bvh8_walk.cu) and prints
-   the build seconds and ptxas' register counts;
+2. builds every hand-written kernel source (kernels/csrc/*.cu, one
+   ``nvcc`` each, all started together) and prints the build seconds and
+   ptxas' register, stack and spill lines;
 3. each kernel against its plain PyTorch version (run on CPU copies of
    the same tensors) at the inputs the main path gives it: one frame of
-   each of phase 4's renderers is rendered with its walk's inputs
-   recorded, and every recorded sweep is replayed through the kernel and
-   the plain version (K2: config 3's fourteen 262,144-ray sweeps, camera,
-   sorted bounce and shadow rays with their dead lanes; K1: the small
-   torus's seven 16,384-ray sweeps).  Besides, 262,144 random rays with
-   finite t_max and every 97th lane dead on config 3's tables (K2) and on
-   a 3000-triangle soup (K1).  Closest hit: masks equal, t within rtol
-   1e-6, slots equal except exact t ties; any hit: masks equal.  Then
-   each kernel's time per 262,144-ray sweep beside the plain version's on
-   the card;
+   each of phase 4's renderers is rendered with its walk's (or sort's)
+   inputs recorded, and the recorded calls are replayed through the
+   kernel and the plain version:
+   - K2 ``stream_walk8``: config 3's fourteen 262,144-ray sweeps (camera,
+     sorted bounce and shadow rays with their dead lanes);
+   - K1 ``wide_walk8``: the small torus's seven 16,384-ray sweeps;
+   - K4 ``stream_walk2``, K4b ``stream_walk2_fused``, K6 ``skip_walk``:
+     config 3's seven chunk-0 sweeps under ``walk="binary"``,
+     ``"binary_fused"`` and ``"skip"``;
+   - K4 ``ordered_walk2``: the small torus's seven sweeps, ``walk="binary"``;
+   - K5 ``bitonic_local`` + ``bitonic_merge``: every ``co_sort`` of
+     262,144 lanes in a config-3 frame under ``sort="bitonic"`` (12).
+   Besides, 262,144 random rays with finite t_max and every 97th lane
+   dead on each config-3 walk's tables and on a 3000-triangle soup (the
+   whole-tree walks), closest and any hit, and 262,144 random keys with
+   heavy duplicates and bit 31 set on half.  Walks: hit masks equal, t
+   within rtol 1e-6, slots equal except exact t ties, K6's b0/b1 within
+   rtol 1e-6; K5: keys and every payload column bit-equal.  Then each
+   kernel's time (CUDA events) beside its plain version's on the card,
+   its bound (the larger of bytes over 3.35 TB/s and float ops over 67
+   TFLOP/s, counted by the plain version on the same inputs) and, where
+   one PyTorch call computes the same function, that call's time;
 4. the main path through the user entry points (``mesh_scene_renderer``,
    ``Renderer.render``): config 3 at 256x256, 8 spp, maxdepth 4 (50,180
    triangles: streaming walk) and the same scene with a 1152-triangle
-   torus (whole-tree walk), with the launch counters zeroed before and
-   read after: every kernel of the path must have launched;
+   torus (whole-tree walk), under the default walk and sort, then under
+   ``walk`` = binary, binary_fused, skip and ``sort="bitonic"`` (config
+   3) and ``walk="binary"`` (small torus).  Each render runs with the
+   launch counters zeroed before and read after: every kernel of its
+   path must have launched, as many times as the path launches it; each
+   variant's image must be finite, not black and equal to its default
+   image to phase 5's tolerance;
 5. image parity: config 3 at 32x32, 2 spp, maxdepth 3 on the card and on
    the CPU (plain versions), to the tolerance of tests/test_torch_slice.py;
-6. frame seconds and Mray/s ((closest + shadow queries) / s).
+6. frame seconds and Mray/s ((closest + shadow queries) / s) of the
+   default and of each config-3 variant.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -46,6 +65,43 @@ import time
 
 PIXELS = 256 * 256
 SWEEP = 262144  # rays per timed sweep (one config-3 chunk)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+# float operations per box (slab) test and per Moller-Trumbore triangle
+# test, counted from the kernels' code: 6 sub, 6 mul, 10 min/max and 3
+# compares; 15 sub, 27 mul, 9 add, 1 div, 1 abs and 6 compares
+SLAB_OPS = 25
+TRI_OPS = 59
+DEVICE = "cuda"
+SCENES = {"config3": dict(xres=256, yres=256, spp=8, maxdepth=4, ray_batch=1 << 18),
+          "small": dict(xres=64, yres=64, spp=4, maxdepth=4, ray_batch=1 << 18,
+                        nu=24, nv=24)}
+CSRC = "pbrt_tpu_torch/kernels/csrc/"
+KERNELS = {  # name -> (source, TPU kernel it replaces)
+    "stream_walk8": ("bvh8_walk.cu", "pbrt_tpu/ops/stream_bvh.py:471"),
+    "wide_walk8": ("bvh8_walk.cu", "pbrt_tpu/ops/bvh8.py:346"),
+    "stream_walk2": ("bvh2_walk.cu", "pbrt_tpu/ops/stream_bvh.py:200"),
+    "stream_walk2_fused": ("bvh2_walk.cu", "pbrt_tpu/ops/stream_bvh.py:338"),
+    "ordered_walk2": ("bvh2_walk.cu", "pbrt_tpu/ops/pallas_bvh.py:242"),
+    "skip_walk": ("bvh2_walk.cu", "pbrt_tpu/ops/pallas_bvh.py:56"),
+    "bitonic_local": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:94"),
+    "bitonic_merge": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:151"),
+}
+# the renderers of phase 4: config 3 (or the small torus) under a walk and sort
+VARIANTS = {
+    "default": ("config3", "bvh8", "stable"),
+    "small": ("small", "bvh8", "stable"),
+    "binary": ("config3", "binary", "stable"),
+    "binary_fused": ("config3", "binary_fused", "stable"),
+    "skip": ("config3", "skip", "stable"),
+    "small_binary": ("small", "binary", "stable"),
+    "bitonic": ("config3", "bvh8", "bitonic"),
+}
+# which variant's frame drives each kernel
+PATH_OF = {"stream_walk8": "default", "wide_walk8": "small", "stream_walk2": "binary",
+           "stream_walk2_fused": "binary_fused", "skip_walk": "skip",
+           "ordered_walk2": "small_binary", "bitonic_local": "bitonic",
+           "bitonic_merge": "bitonic"}
 
 
 def log(*a):
@@ -60,11 +116,12 @@ def card_info():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=True):
     """Mean milliseconds of fn() over reps runs, CUDA events, after a warm-up."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -76,31 +133,53 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kern, plain, any_hit, tris, o, d, t_max, blocks):
-    """Kernel (t, slot) against plain (t, slot) to the contract of
-    ``bvh8_walk.walk_disagreement``; returns max |dt| over hit lanes."""
-    import numpy as np
+def bound(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the least time for this work."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
-    from pbrt_tpu_torch.kernels.bvh8_walk import walk_disagreement
 
-    n = len(o)
-    t_k, s_k = (x.cpu().numpy()[:n] for x in kern)
-    t_p, s_p = (x.numpy()[:n] for x in plain)
-    problem = walk_disagreement(t_p, s_p, t_k, s_k, any_hit, tris, o, d)
-    if problem is not None:
-        raise AssertionError(f"{name} (any_hit={any_hit}): {problem}")
-    hit = s_p >= 0
-    live = t_max > 1e-4
-    finite = live & (t_max < 1e7)
-    shape = (f"{n} rays{'' if blocks is None else f' ({blocks} blocks)'}, "
-             f"{n - live.sum()} dead, {finite.sum()} with finite t_max")
-    if any_hit:
-        log(f"  {name} any-hit, {shape}: {hit.sum()} occluded, masks equal")
-        return 0.0
-    err = float(np.abs(t_k[hit] - t_p[hit]).max()) if hit.any() else 0.0
-    log(f"  {name} closest, {shape}: {hit.sum()} hit, {(hit & (s_k != s_p)).sum()} tie "
-        f"slots, max |dt| {err:.3e}")
-    return err
+def renderers():
+    """Phase 4's renderers on the card, one per variant."""
+    from pbrt_tpu_torch.testscenes import mesh_scene_renderer
+
+    return {name: mesh_scene_renderer(**SCENES[scene], walk=walk, sort=sort,
+                                      device=DEVICE)[0]
+            for name, (scene, walk, sort) in VARIANTS.items()}
+
+
+def chunk_lanes(renderer):
+    """Lanes per wavefront chunk of ``renderer`` (as ``Renderer.render``)."""
+    spp = renderer.sampler.samples_per_pixel
+    lanes = renderer.film.get_sample_bounds().area() * spp
+    return max(spp, min(renderer.options.ray_batch, lanes) // spp * spp)
+
+
+def frame_chunks(renderer):
+    """Wavefront chunks per frame of ``renderer``."""
+    spp = renderer.sampler.samples_per_pixel
+    return -(-renderer.film.get_sample_bounds().area() * spp // chunk_lanes(renderer))
+
+
+def per_sort(kname, n):
+    """Launches of a bitonic kernel per co_sort of n lanes: one local sort
+    and one local tail per merge level above 2048 lanes, and a merge pass
+    per level for each distance from half the level down to 2048."""
+    levels = max(0, (n - 1).bit_length() - 11)
+    return 1 + levels if kname == "bitonic_local" else levels * (levels + 1) // 2
+
+
+def reset_counts():
+    from pbrt_tpu_torch.kernels import bitonic, bvh2_walk, bvh8_walk
+
+    for mod in (bvh8_walk, bvh2_walk, bitonic):
+        mod.reset_launch_counts()
+
+
+def read_counts():
+    from pbrt_tpu_torch.kernels import bitonic, bvh2_walk, bvh8_walk
+
+    return {**bvh8_walk.LAUNCHES, **bvh2_walk.LAUNCHES, **bitonic.LAUNCHES}
 
 
 def record_walks(renderer):
@@ -129,6 +208,31 @@ def record_walks(renderer):
     return calls
 
 
+def record_sorts(renderer):
+    """Render one frame, keeping the operands of every ``co_sort`` call
+    that takes the bitonic network (N >= 32768)."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.ops import sortnet
+
+    calls = []
+    orig = sortnet.co_sort
+
+    def wrapped(operands, network="stable"):
+        if network == "bitonic" and operands[0].shape[0] >= sortnet.MIN_N:
+            calls.append(tuple(x.clone() for x in operands))
+        return orig(operands, network)
+
+    sortnet.co_sort = path.co_sort = wrapped
+    try:
+        renderer.render()
+        torch.cuda.synchronize()
+    finally:
+        sortnet.co_sort = path.co_sort = orig
+    return calls
+
+
 def random_rays(n, seed, lo, hi):
     """n random rays on the card: t_max uniform in [0.05, 4), every 97th
     lane dead (t_max = 0)."""
@@ -141,177 +245,327 @@ def random_rays(n, seed, lo, hi):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     t_max = rng.uniform(0.05, 4.0, n).astype(np.float32)
     t_max[::97] = 0.0
-    return tuple(torch.as_tensor(a, device="cuda") for a in (o, d, t_max))
+    return tuple(torch.as_tensor(a, device=DEVICE) for a in (o, d, t_max))
 
 
-def check_stream(label, sb, o, d, t_max, any_hit):
-    """K2 against its plain version (CPU copies) on the inputs
-    ``StreamBVH.traverse`` builds for these rays; returns (max |dt|, the
-    kernel's arguments)."""
-    import torch
-
-    from pbrt_tpu_torch.kernels import bvh8_walk
+def walk_call(name, walk, o, d, t_max):
+    """(kernel fn, plain fn, args on the card, keyword args, tris table,
+    bytes per table row (node, leaf), bytes out per ray, rays, blocks)
+    for the walk ``name`` over ``walk``'s tables on these rays."""
+    from pbrt_tpu_torch.kernels import bvh2_walk, bvh8_walk
     from pbrt_tpu_torch.ops.stream_bvh import _stream_candidates, split_pad_rays
 
     comps = split_pad_rays(o, d, t_max, o.shape[0])
-    clist, cnt = _stream_candidates(sb.cl_min, sb.cl_max, comps)
-    args = (sb.nodes, sb.tris, sb.roots, clist, cnt, comps)
-    kern = bvh8_walk.stream_walk8(*args, any_hit=any_hit)
-    torch.cuda.synchronize()
-    plain = bvh8_walk.stream_walk8_plain(
-        *(x.cpu() for x in args[:5]), tuple(c.cpu() for c in comps), any_hit=any_hit)
-    err = compare(f"K2 {label}", kern, plain, any_hit, sb.tris.cpu().numpy(),
-                  o.cpu().numpy(), d.cpu().numpy(), t_max.cpu().numpy(), cnt.shape[0])
-    return err, args
+    kw = {}
+    if name.startswith("stream_"):
+        clist, cnt = _stream_candidates(walk.cl_min, walk.cl_max, comps)
+        args = (walk.nodes, walk.tris, walk.roots, clist, cnt, comps)
+        blocks = cnt.shape[0]
+    elif name == "skip_walk":
+        args = (walk.nodes_f, walk.nodes_i, walk.tris, comps)
+        blocks = None
+    else:
+        args = (walk.nodes, walk.tris, walk.root, comps)
+        blocks = None
+    fns = {"stream_walk8": (bvh8_walk.stream_walk8, bvh8_walk.stream_walk8_plain),
+           "wide_walk8": (bvh8_walk.wide_walk8, bvh8_walk.wide_walk8_plain),
+           "stream_walk2": (bvh2_walk.stream_walk2, bvh2_walk.stream_walk2_plain),
+           "stream_walk2_fused": (bvh2_walk.stream_walk2, bvh2_walk.stream_walk2_plain),
+           "ordered_walk2": (bvh2_walk.ordered_walk2, bvh2_walk.ordered_walk2_plain),
+           "skip_walk": (bvh2_walk.skip_walk, bvh2_walk.skip_walk_plain)}
+    if name.startswith("stream_walk2"):
+        kw["fused"] = name.endswith("fused")
+    node_bytes = {"stream_walk8": 256, "wide_walk8": 256, "skip_walk": 48}.get(name, 64)
+    leaf_bytes = 64 if name == "skip_walk" else 512
+    out_bytes = 16 if name == "skip_walk" else 8
+    return fns[name] + (args, kw, walk.tris, (node_bytes, leaf_bytes), out_bytes,
+                        comps[0].shape[0], blocks)
 
 
-def check_wide(label, wide, o, d, t_max, any_hit):
-    """K1 against its plain version (CPU copies) on the inputs
-    ``WideBVH8.traverse`` builds for these rays; returns (max |dt|, the
-    kernel's arguments)."""
+def check_walk(name, label, walk, o, d, t_max, any_hit):
+    """The kernel ``name`` against its plain version (CPU copies) on the
+    inputs its intersector builds for these rays, to the contract of
+    ``bvh8_walk.walk_disagreement`` (K6: b0/b1 within rtol 1e-6 too).
+    Returns (max |dt| (or |db|) over hit lanes, the kernel's call,
+    (bytes, ops) of the work)."""
+    import numpy as np
     import torch
 
-    from pbrt_tpu_torch.kernels import bvh8_walk
-    from pbrt_tpu_torch.ops.stream_bvh import split_pad_rays
+    from pbrt_tpu_torch.kernels.bvh8_walk import counted, walk_disagreement
 
-    comps = split_pad_rays(o, d, t_max, o.shape[0])
-    args = (wide.nodes, wide.tris, wide.root, comps)
-    kern = bvh8_walk.wide_walk8(*args, any_hit=any_hit)
+    kern_fn, plain_fn, args, kw, tris, row_bytes, out_bytes, n_pad, blocks = walk_call(
+        name, walk, o, d, t_max)
+    kern = kern_fn(*args, any_hit=any_hit, **kw)
     torch.cuda.synchronize()
-    plain = bvh8_walk.wide_walk8_plain(
-        *(x.cpu() for x in args[:3]), tuple(c.cpu() for c in comps), any_hit=any_hit)
-    err = compare(f"K1 {label}", kern, plain, any_hit, wide.tris.cpu().numpy(),
-                  o.cpu().numpy(), d.cpu().numpy(), t_max.cpu().numpy(), None)
-    return err, args
+    counters = {}
+    cpu = tuple(tuple(c.cpu() for c in a) if isinstance(a, tuple) else a.cpu() for a in args)
+    plain = plain_fn(*cpu, any_hit=any_hit, counters=counters, **kw)
+    n = o.shape[0]
+    o, d, t_max = (x.cpu().numpy() for x in (o, d, t_max))
+    t_k, s_k = (x.cpu().numpy()[:n] for x in kern[:2])
+    t_p, s_p = (x.numpy()[:n] for x in plain[:2])
+    tris = tris.cpu().numpy()
+    problem = walk_disagreement(t_p, s_p, t_k, s_k, any_hit, tris, o, d)
+    hit = s_p >= 0
+    err = 0.0 if any_hit or not hit.any() else float(np.abs(t_k[hit] - t_p[hit]).max())
+    if problem is None and name == "skip_walk" and not any_hit:
+        same = hit & (s_k == s_p)
+        for b in (2, 3):
+            b_k, b_p = kern[b].cpu().numpy()[:n][same], plain[b].numpy()[:n][same]
+            if not np.allclose(b_k, b_p, rtol=1e-6, atol=0.0):
+                problem = f"b{b - 2} differs beyond rtol 1e-6"
+            err = max(err, float(np.abs(b_k - b_p).max()) if same.any() else 0.0)
+    if problem is not None:
+        raise AssertionError(f"{name} {label} (any_hit={any_hit}): {problem}")
+    live = t_max > 1e-4
+    finite = live & (t_max < 1e7)
+    shape = (f"{n} rays{'' if blocks is None else f' ({blocks} blocks)'}, "
+             f"{n - live.sum()} dead, {finite.sum()} with finite t_max")
+    if any_hit:
+        log(f"  {name} {label} any-hit, {shape}: {hit.sum()} occluded, masks equal")
+    else:
+        log(f"  {name} {label} closest, {shape}: {hit.sum()} hit, "
+            f"{(hit & (s_k != s_p)).sum()} tie slots, max |dt| {err:.3e}")
+    c = counted(counters)
+    n_bytes = (n_pad * (28 + out_bytes) + c["node_rows"] * row_bytes[0]
+               + c["leaf_rows"] * row_bytes[1]
+               + sum(a.numel() * 4 for a in args[3:5] if name.startswith("stream_")))
+    n_ops = c["slab_tests"] * SLAB_OPS + c["tri_tests"] * TRI_OPS
+    return err, (kern_fn, args, dict(kw, any_hit=any_hit), plain_fn), (n_bytes, n_ops)
 
 
-def main_path_renderers():
-    """The renderers phase 4 drives: config 3 (streaming walk, K2) and the
-    same scene with a 24x24 torus (whole-tree walk, K1)."""
-    from pbrt_tpu_torch.testscenes import mesh_scene_renderer
+def check_sort(label, operands):
+    """``co_sort(network="bitonic")`` on the card against the plain
+    network on CPU copies: keys and every payload column bit-equal."""
+    import torch
 
-    r3, _ = mesh_scene_renderer(xres=256, yres=256, spp=8, maxdepth=4,
-                                ray_batch=1 << 18, device="cuda")
-    small, _ = mesh_scene_renderer(xres=64, yres=64, spp=4, maxdepth=4,
-                                   ray_batch=1 << 18, nu=24, nv=24, device="cuda")
-    return r3, small
+    from pbrt_tpu_torch.ops.sortnet import co_sort
+
+    got = co_sort(operands, "bitonic")
+    torch.cuda.synchronize()
+    want = co_sort(tuple(x.cpu() for x in operands), "bitonic")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g.cpu(), w):
+            raise AssertionError(f"bitonic co_sort {label}: operand {i} differs")
+    cols = sum(x[0].numel() for x in operands)
+    log(f"  bitonic co_sort {label}: {operands[0].shape[0]} lanes, {cols} columns, "
+        f"keys and payload bit-equal")
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the main path's own
-    inputs, recorded from one frame of each of phase 4's renderers, and on
-    random rays; then each kernel's time per sweep beside its plain
-    version's."""
+def soup_tables(leaf):
+    """A 3000-triangle soup's build (host arrays, leaf size ``leaf``)."""
     import numpy as np
 
     from pbrt_tpu_torch.accel.bvh import build_bvh
-    from pbrt_tpu_torch.kernels import bvh8_walk
-    from pbrt_tpu_torch.ops.bvh8 import WideBVH8
 
-    log("== phase 3: kernels against their plain versions")
-    r3, small = main_path_renderers()
-    sb = r3.compiled.intersector.walk
-    wide_small = small.compiled.intersector.walk
-    log(f"  config 3: {r3.compiled.tri_data.count} triangles, stream tables nodes "
-        f"{tuple(sb.nodes.shape)} tris {tuple(sb.tris.shape)}; small torus: "
-        f"{small.compiled.tri_data.count} triangles, whole tree nodes "
-        f"{tuple(wide_small.nodes.shape)}")
-    closest, shadow = r3.integrator.queries_per_sample()
-    calls3 = record_walks(r3)
-    calls_small = record_walks(small)
-    want3 = (closest + shadow) * 2
-    if len(calls3) != want3 or len(calls_small) != closest + shadow:
-        raise AssertionError(f"recorded {len(calls3)} config-3 and {len(calls_small)} "
-                             f"small-torus sweeps, want {want3} and {closest + shadow}")
-
-    k2_err, sweeps3 = 0.0, []
-    for i, (o, d, t_max, any_hit) in enumerate(calls3):
-        err, args = check_stream(f"config-3 sweep {i}", sb, o, d, t_max, any_hit)
-        k2_err = max(k2_err, err)
-        sweeps3.append((args, any_hit))
-    o, d, t_max = random_rays(SWEEP, 7, -2.0, 2.0)
-    for any_hit in (False, True):
-        k2_err = max(k2_err, check_stream("random", sb, o, d, t_max, any_hit)[0])
-
-    k1_err = 0.0
-    for i, (o, d, t_max, any_hit) in enumerate(calls_small):
-        k1_err = max(k1_err, check_wide(f"small-torus sweep {i}", wide_small, o, d, t_max,
-                                        any_hit)[0])
     rng = np.random.default_rng(0)
     c = rng.uniform(-1, 1, (3000, 3)).astype(np.float32)
     soup = (c, c + rng.uniform(-0.08, 0.08, (3000, 3)).astype(np.float32),
             c + rng.uniform(-0.08, 0.08, (3000, 3)).astype(np.float32))
-    m, x, s, f, cc, perm = build_bvh(*soup, leaf_size=16)
-    wide = WideBVH8(m, x, s, f, cc, *(p[perm] for p in soup), leaf_slots=16, device="cuda")
-    o, d, t_max = random_rays(SWEEP, 3, -2.0, 2.0)
-    soup_args = {}
-    for any_hit in (False, True):
-        err, soup_args[any_hit] = check_wide("3000-triangle soup", wide, o, d, t_max, any_hit)
-        k1_err = max(k1_err, err)
-
-    log(f"  timing per {SWEEP}-ray sweep (kernel: mean of 20 launches after one; "
-        "plain: the PyTorch version on the card, one run after one)")
-    k2_ms, k2_plain_ms = [], []
-    for args, any_hit in sweeps3[: closest + shadow]:  # the first chunk's sweeps
-        k2_ms.append(cuda_ms(lambda: bvh8_walk.stream_walk8(*args, any_hit=any_hit), 20))
-        k2_plain_ms.append(cuda_ms(
-            lambda: bvh8_walk.stream_walk8_plain(*args, any_hit=any_hit), 1))
-    log(f"  K2 stream_walk8, config-3 chunk-0 sweeps: kernel "
-        f"{[round(t, 4) for t in k2_ms]} ms, plain {[round(t, 1) for t in k2_plain_ms]} ms")
-    args = soup_args[False]
-    k1_ms = cuda_ms(lambda: bvh8_walk.wide_walk8(*args), 20)
-    k1_plain_ms = cuda_ms(lambda: bvh8_walk.wide_walk8_plain(*args), 1)
-    log(f"  K1 wide_walk8, soup random rays (closest): kernel {k1_ms:.4f} ms, "
-        f"plain {k1_plain_ms:.2f} ms")
-    return {"stream_walk8": (k2_err, float(np.mean(k2_ms)), float(np.mean(k2_plain_ms))),
-            "wide_walk8": (k1_err, k1_ms, k1_plain_ms)}
+    m, x, s, f, cc, perm = build_bvh(*soup, leaf_size=leaf)
+    return (m, x, s, f, cc) + tuple(p[perm] for p in soup)
 
 
-def phase_main_path():
+def time_walks(name, calls):
+    """Kernel and plain-version (on the card) ms per sweep over ``calls``
+    (kernel: mean of 20 launches after one; plain: one run)."""
+    import numpy as np
+
+    ms, plain_ms = [], []
+    for fn, args, kw, plain_fn in calls:
+        ms.append(cuda_ms(lambda: fn(*args, **kw), 20))
+        plain_ms.append(cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False))
+    log(f"  {name}: kernel {[round(t, 4) for t in ms]} ms, plain "
+        f"{[round(t, 1) for t in plain_ms]} ms")
+    return float(np.mean(ms)), float(np.mean(plain_ms))
+
+
+def phase_kernels(rs):
+    """Each kernel against its plain version at the main path's own
+    inputs, recorded from one frame of each of phase 4's renderers, and on
+    random inputs; then each kernel's time beside its plain version's, its
+    bound and the PyTorch call that computes the same function."""
     import numpy as np
     import torch
 
-    from pbrt_tpu_torch.kernels import bvh8_walk
+    from pbrt_tpu_torch.kernels import bitonic
+    from pbrt_tpu_torch.ops.bvh8 import WideBVH8
+    from pbrt_tpu_torch.ops.pallas_bvh import OrderedBVH2
+    from pbrt_tpu_torch.ops.sortnet import co_sort
 
-    log("== phase 4: the main path (config 3, 256x256, 8 spp, maxdepth 4)")
-    r3, small = main_path_renderers()
-    torch.cuda.synchronize()
-    bvh8_walk.reset_launch_counts()
-    t0 = time.time()
-    state = r3.render()
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    state_small = small.render()
-    torch.cuda.synchronize()
-    launches = dict(bvh8_walk.LAUNCHES)
-    log(f"  launches {launches}; first config-3 frame {first_s:.3f} s")
-    # sweeps per chunk: maxdepth closest + (maxdepth - 1) shadow
+    log("== phase 3: kernels against their plain versions")
+    r3 = rs["default"]
     closest, shadow = r3.integrator.queries_per_sample()
-    want_k2 = (closest + shadow) * r3.counters["chunks"]
-    want_k1 = (closest + shadow) * small.counters["chunks"]
-    if launches["stream_walk8"] != want_k2 or want_k2 != 14:
-        raise AssertionError(f"stream_walk8 launched {launches['stream_walk8']}, want 14")
-    if launches["wide_walk8"] != want_k1 or want_k1 == 0:
-        raise AssertionError(f"wide_walk8 launched {launches['wide_walk8']}, want {want_k1}")
-    for name, r, st in (("config 3", r3, state), ("small torus", small, state_small)):
-        img = r.image(st)
+    per_chunk = closest + shadow
+    for name, r in rs.items():
+        w = r.compiled.intersector.walk
+        shapes = {k: tuple(getattr(w, k).shape) for k in ("nodes", "nodes_f", "tris")
+                  if hasattr(w, k)}
+        log(f"  {name}: {r.compiled.tri_data.count} triangles, {type(w).__name__} {shapes}")
+    out = {}  # name -> [max_err, timed calls, (bytes, ops) of the timed calls]
+
+    def run(name, label, walk, rays, any_hit, timed):
+        err, call, work = check_walk(name, label, walk, *rays, any_hit)
+        entry = out.setdefault(name, [0.0, [], []])
+        entry[0] = max(entry[0], err)
+        if timed:
+            entry[1].append(call)
+            entry[2].append(work)
+
+    # the config-3 walks: every sweep of K2's frame, chunk 0 of the others
+    for name, variant in (("stream_walk8", "default"), ("stream_walk2", "binary"),
+                          ("stream_walk2_fused", "binary_fused"), ("skip_walk", "skip")):
+        walk = rs[variant].compiled.intersector.walk
+        calls = record_walks(rs[variant])
+        if len(calls) != per_chunk * frame_chunks(rs[variant]):
+            raise AssertionError(f"{variant}: recorded {len(calls)} sweeps")
+        keep = calls if name == "stream_walk8" else calls[:per_chunk]
+        for i, (o, d, t_max, any_hit) in enumerate(keep):
+            run(name, f"config-3 sweep {i}", walk, (o, d, t_max), any_hit, i < per_chunk)
+        rays = random_rays(SWEEP, 7, -2.0, 2.0)
+        for any_hit in (False, True):
+            run(name, "random", walk, rays, any_hit, False)
+
+    # the whole-tree walks: every sweep of the small torus, and a soup
+    soups = {"wide_walk8": WideBVH8(*soup_tables(16), leaf_slots=16, device=DEVICE),
+             "ordered_walk2": OrderedBVH2(*soup_tables(8), device=DEVICE)}
+    for name, variant in (("wide_walk8", "small"), ("ordered_walk2", "small_binary")):
+        calls = record_walks(rs[variant])
+        if len(calls) != per_chunk * frame_chunks(rs[variant]):
+            raise AssertionError(f"{variant}: recorded {len(calls)} sweeps")
+        for i, (o, d, t_max, any_hit) in enumerate(calls):
+            run(name, f"small-torus sweep {i}", rs[variant].compiled.intersector.walk,
+                (o, d, t_max), any_hit, False)
+        rays = random_rays(SWEEP, 3, -2.0, 2.0)
+        for any_hit in (False, True):
+            run(name, "3000-triangle soup", soups[name], rays, any_hit, not any_hit)
+
+    # the bitonic network: every qualifying co_sort of a frame, random keys
+    sorts = record_sorts(rs["bitonic"])
+    # per chunk: a shadow and a carry sort per bounce but the last
+    if len(sorts) != 2 * (closest - 1) * frame_chunks(rs["bitonic"]):
+        raise AssertionError(f"recorded {len(sorts)} bitonic co_sorts")
+    for i, ops in enumerate(sorts):
+        check_sort(f"config-3 call {i}", ops)
+    rng = np.random.default_rng(11)
+    keys = (rng.integers(0, 64, SWEEP).astype(np.int64) * 977) | (
+        rng.integers(0, 2, SWEEP).astype(np.int64) << 31)
+    check_sort("random keys", (torch.as_tensor(keys, device=DEVICE),
+                               torch.randn(SWEEP, 3, device=DEVICE),
+                               torch.arange(SWEEP, device=DEVICE)))
+
+    log(f"  timing per {SWEEP}-ray sweep (config-3 walks: the 7 chunk-0 sweeps; "
+        "whole-tree walks: the soup's closest-hit rays; kernel: mean of 20 "
+        "launches after one; plain: the PyTorch version on the card, one run)")
+    res = {}
+    for name, (err, calls, works) in out.items():
+        ms, plain_ms = time_walks(name, calls)
+        b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+
+    # K5: each kernel on the widest recorded sort's keys (the sorted carry)
+    ops = max(sorts, key=lambda x: sum(o[0].numel() for o in x))
+    n = ops[0].shape[0]
+    key = ops[0].clone()
+    lane = torch.arange(n, dtype=torch.int32, device=DEVICE)
+    rw = n * (8 + 4) * 2  # key and lane read and written once
+    stages = sum(range(1, 12))  # 66: log2(k) stages for each k = 2 .. 2048
+    for kname, kern, plain, lib in (
+        ("bitonic_local", lambda: bitonic.bitonic_local(key, lane, 2, 2048),
+         lambda: bitonic.bitonic_local_plain(key, lane, 2, 2048),
+         lambda: torch.sort(key.view(-1, 2048), dim=1)),
+        ("bitonic_merge", lambda: bitonic.bitonic_merge(key, lane, n, n // 2),
+         lambda: bitonic.bitonic_merge_plain(key, lane, n, n // 2), None),
+    ):
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 1, warmup=False)
+        lib_ms = cuda_ms(lib, 20) if lib else None
+        # one unsigned compare per pair per stage (operations); bytes dominate
+        pairs = n // 2 * (stages if kname == "bitonic_local" else 1)
+        b_ms, b_by = bound(rw, pairs)
+        res[kname] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
+        log(f"  {kname} ({n} lanes): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), PyTorch {lib_ms} ms")
+    cols = sum(o[0].numel() for o in ops)
+    sort_ms = cuda_ms(lambda: co_sort(ops, "bitonic"), 20)
+    torch_ms = cuda_ms(lambda: co_sort(ops, "stable"), 20)
+    log(f"  co_sort of {n} lanes x {cols} columns: bitonic network + gathers "
+        f"{sort_ms:.4f} ms, torch.sort(stable=True) + one gather per operand "
+        f"{torch_ms:.4f} ms")
+    res["bitonic_local"]["co_sort_ms"] = sort_ms
+    res["bitonic_local"]["torch_sort_ms"] = torch_ms
+    for name, r in res.items():
+        log(f"  {name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+            f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of it")
+    return res
+
+
+def phase_main_path(rs):
+    """Each variant's frame with the counters zeroed before and read after."""
+    import numpy as np
+    import torch
+
+    log("== phase 4: the main path (config 3, 256x256, 8 spp, maxdepth 4) "
+        "under each walk and sort")
+    closest, shadow = rs["default"].integrator.queries_per_sample()
+    launches, images, first_s, chunks = {}, {}, {}, {}
+    for name, r in rs.items():
+        torch.cuda.synchronize()
+        before = r.counters["chunks"]
+        reset_counts()
+        t0 = time.time()
+        state = r.render()
+        torch.cuda.synchronize()
+        first_s[name] = time.time() - t0
+        chunks[name] = r.counters["chunks"] - before
+        launches[name] = {k: v for k, v in read_counts().items() if v}
+        images[name] = r.image(state)
+        log(f"  {name}: launches {launches[name]}; frame {first_s[name]:.3f} s; "
+            f"image mean {images[name].mean():.6f} max {images[name].max():.4f}")
+    for kname, variant in PATH_OF.items():
+        # per chunk: closest + shadow sweeps; a shadow and a carry sort per
+        # bounce but the last
+        want = chunks[variant] * (
+            per_sort(kname, chunk_lanes(rs[variant])) * 2 * (closest - 1)
+            if kname.startswith("bitonic") else closest + shadow)
+        if launches[variant].get(kname, 0) != want or want == 0:
+            raise AssertionError(f"{kname} launched {launches[variant].get(kname, 0)} "
+                                 f"times in the {variant} frame, want {want}")
+    if launches["default"].get("stream_walk8") != 14:
+        raise AssertionError("stream_walk8 must launch 14 times per config-3 frame")
+    for name, r in rs.items():
+        img = images[name]
         if not (np.isfinite(img).all() and img.max() > 0):
             raise AssertionError(f"{name}: image not finite or all black")
-        log(f"  {name} image {img.shape}: mean {img.mean():.6f} max {img.max():.4f}")
-    log(f"  triangles: config 3 {r3.compiled.tri_data.count} (streaming), small "
-        f"{small.compiled.tri_data.count} (whole tree)")
+        base = images["small" if VARIANTS[name][0] == "small" else "default"]
+        rel_mean = abs(img.mean() - base.mean()) / base.mean()
+        close = np.isclose(img, base, rtol=1e-3, atol=1e-4).all(axis=-1).mean()
+        log(f"  {name} vs its default image: mean rel diff {rel_mean:.3e}, "
+            f"{close:.4f} of pixels close")
+        if not (rel_mean <= 1e-3 and close >= 0.99):
+            raise AssertionError(f"{name}: image differs from the default path's")
+    log(f"  triangles: config 3 {rs['default'].compiled.tri_data.count} (streaming), "
+        f"small {rs['small'].compiled.tri_data.count} (whole tree)")
+    return {k: launches[v].get(k, 0) for k, v in PATH_OF.items()}, first_s
 
-    times = []
+
+def phase_frames(rs):
+    """Median of three frame seconds per config-3 variant, taken in turns."""
+    import torch
+
+    names = [n for n, v in VARIANTS.items() if v[0] == "config3"]
+    times = {n: [] for n in names}
     for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        st = r3.render()
-        torch.cuda.synchronize()
-        times.append(time.time() - t0)
-        r3.image(st)
-    frame_s = sorted(times)[1]
-    queries = PIXELS * 8 * (closest + shadow)
-    return launches, frame_s, times, queries, r3
+        for n in names:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            st = rs[n].render()
+            torch.cuda.synchronize()
+            times[n].append(time.time() - t0)
+            rs[n].image(st)
+    return {n: (sorted(t)[1], t) for n, t in times.items()}
 
 
 def phase_parity():
@@ -361,34 +615,36 @@ def main(argv=None):
     log(f"== phase 1: torch {torch.__version__} cuda {torch.version.cuda}; card:")
     log(card)
 
-    from pbrt_tpu_torch.kernels import bvh8_walk
+    from pbrt_tpu_torch.kernels import bitonic, build, bvh2_walk, bvh8_walk
 
-    t0 = time.time()
-    bvh8_walk.load_library()
-    log(f"== phase 2: kernels built in {time.time() - t0:.2f} s")
-    for line in bvh8_walk.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  {line.strip()}")
+    seconds = build.build()
+    for mod in (bvh8_walk, bvh2_walk, bitonic):
+        mod.load_library()
+    log(f"== phase 2: kernels built in {seconds:.2f} s (one nvcc per source, together)")
+    for src, text in build.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  {src}: {line.strip()}")
 
-    kern = phase_kernels()
-    launches, frame_s, times, queries, r3 = phase_main_path()
+    rs = renderers()
+    kern = phase_kernels(rs)
+    launches, first_s = phase_main_path(rs)
     phase_parity()
     if args.profile:
-        phase_profile(r3)
-    log(f"== phase 6: config-3 frame {frame_s:.4f} s (median of {[round(t, 4) for t in times]}), "
-        f"{queries / frame_s / 1e6:.3f} Mray/s ({queries} closest+shadow queries/frame) "
-        f"on {card}")
+        phase_profile(rs["default"])
+    frames = phase_frames(rs)
+    closest, shadow = rs["default"].integrator.queries_per_sample()
+    queries = PIXELS * 8 * (closest + shadow)
+    log(f"== phase 6: config-3 frame seconds (median of three, taken in turns; "
+        f"{queries} closest+shadow queries/frame) on {card}")
+    for name, (median, t) in frames.items():
+        log(f"  {name}: {median:.4f} s ({[round(x, 4) for x in t]}), "
+            f"{queries / median / 1e6:.3f} Mray/s; first frame {first_s[name]:.3f} s")
 
-    sources = {
-        "stream_walk8": "pbrt_tpu/ops/stream_bvh.py:471",
-        "wide_walk8": "pbrt_tpu/ops/bvh8.py:346",
-    }
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "pbrt_tpu_torch/kernels/csrc/bvh8_walk.cu",
-         "replaces": sources[name], "launches": launches[name],
-         "max_abs_err": kern[name][0], "ms": kern[name][1], "plain_ms": kern[name][2]}
-        for name in ("stream_walk8", "wide_walk8")
+        dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,
+              "launches": launches[name]}, **kern[name])
+        for name, (src, replaces) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

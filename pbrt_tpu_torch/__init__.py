@@ -8,9 +8,10 @@ JAX; host code that the reference keeps in numpy is carried over as
 copies, because importing any ``pbrt_tpu`` module imports JAX.
 
 Every device table is created on the ``device`` handed to
-``render.Renderer`` and threaded down from there; there is no global
-default device.  On CPU tensors each kernel wrapper runs its plain
-PyTorch version, on CUDA tensors it launches the kernel or raises.
+``render.Renderer`` and threaded down from there.  Every entry point
+takes ``device="cuda"`` unless the caller asks for the CPU, and raises
+where there is no card.  On CPU tensors each kernel wrapper runs its
+plain PyTorch version, on CUDA tensors it launches the kernel or raises.
 
 Float policy: float32 throughout (the reference's ``PBRT_TPU_DOUBLE``
 switch is not carried over yet).

@@ -4,14 +4,29 @@
 Build (host, numpy): binned SAH through the native builder
 (``native.py``); nodes in depth-first order with skip links.
 
-Dispatch differs from the reference, which walks skip links per lane
-(``_traverse_xla``, leaf size 4) on the CPU backend and packed Pallas
-tables elsewhere.  The port always builds the packed tables: streaming
-cluster tables (32-triangle leaves) for 4096 triangles or more, one
-whole BVH8 tree (16-triangle leaves) below.  Whether the walk runs its
-CUDA kernel or its plain PyTorch version depends only on the device of
-the tables.  Rays are sorted by ``_sort_keys`` before each walk and
-the results scattered back to lane order (``_traverse_sorted``).
+The walk is chosen by an argument where the reference reads environment
+switches (``walk``):
+
+* ``"bvh8"`` (default; the reference on the TPU): streaming BVH8
+  cluster tables (32-triangle leaves) for 4096 triangles or more, one
+  whole BVH8 tree (16-triangle leaves) below;
+* ``"binary"`` (``PBRT_TPU_WIDE=0``): streaming binary cluster tables
+  (32-triangle leaves) for 4096 or more, one whole ordered binary tree
+  below.  That tree takes 8-triangle leaves: the reference builds
+  16-triangle leaves there, which its ``PallasBVH2`` refuses, and runs
+  only with ``PBRT_TPU_LEAF_SLOTS=8``;
+* ``"binary_fused"`` (``PBRT_TPU_FUSED_LEAF=1`` as well): as ``binary``
+  with the fused-leaf streaming walk (the whole tree has no fused walk);
+* ``"skip"`` (the reference's per-lane walk ``_traverse_xla`` on the
+  CPU, and ``PallasBVH``): the skip-link tree with 4-triangle leaves,
+  whose walk also returns barycentrics.
+
+Whether a walk runs its CUDA kernel or its plain PyTorch version depends
+only on the device of the tables.  The packed walks sort rays by
+``sort_keys`` before each query and scatter the results back to lane
+order (``_traverse_sorted``); the skip walk, as in the reference, does
+not.  ``sort`` picks the ``co_sort`` network of those sorts and of the
+integrator's sorted carry ("stable" or "bitonic", ``ops/sortnet.py``).
 
 Spheres (the reference's brute-force sphere sweep) are not ported yet.
 """
@@ -28,6 +43,9 @@ from pbrt_tpu_torch.ops.intersect import KIND_NONE, KIND_TRI, RAY_EPS
 STREAM_MIN_TRIS = 4096
 STREAM_LEAF_SLOTS = 32
 WIDE_LEAF_SLOTS = 16
+BINARY_LEAF_SLOTS = 8  # one 128-float row: the whole-tree binary walk's limit
+SKIP_LEAF_SIZE = 4  # the reference's LEAF_SIZE
+WALKS = ("bvh8", "binary", "binary_fused", "skip")
 KEY_OBITS = 5  # origin Morton bits per axis in the sort key
 
 
@@ -50,29 +68,53 @@ def _part1by2(v):
 
 
 class BVHIntersector:
-    """Packed-table BVH over the scene's triangles."""
+    """BVH over the scene's triangles, walked by ``walk`` (see the module
+    docstring); ``sort`` is the ``co_sort`` network ("stable" or
+    "bitonic")."""
 
-    def __init__(self, tri_data, device="cpu"):
+    def __init__(self, tri_data, device="cuda", walk="bvh8", sort="stable"):
+        if walk not in WALKS:
+            raise ValueError(f"unknown walk {walk!r}; expected one of {WALKS}")
+        if sort not in ("stable", "bitonic"):
+            raise ValueError(f"unknown sort {sort!r}; expected 'stable' or 'bitonic'")
         self.n_tri = tri_data.count
-        use_stream = self.n_tri >= STREAM_MIN_TRIS
-        leaf_size = STREAM_LEAF_SLOTS if use_stream else WIDE_LEAF_SLOTS
+        self.walk_name = walk
+        self.sort_network = sort
+        use_stream = self.n_tri >= STREAM_MIN_TRIS and walk != "skip"
+        if walk == "skip":
+            leaf_size = SKIP_LEAF_SIZE
+        elif use_stream:
+            leaf_size = STREAM_LEAF_SLOTS
+        else:
+            leaf_size = WIDE_LEAF_SLOTS if walk == "bvh8" else BINARY_LEAF_SLOTS
         mins, maxs, skips, firsts, counts, perm = build_bvh(
             tri_data.p0, tri_data.p1, tri_data.p2, leaf_size
         )
         tp = (tri_data.p0[perm], tri_data.p1[perm], tri_data.p2[perm])
-        if use_stream:
-            from pbrt_tpu_torch.ops.stream_bvh import StreamBVH
+        tree = (mins, maxs, skips, firsts, counts, *tp)
+        if walk == "skip":
+            from pbrt_tpu_torch.ops.pallas_bvh import SkipLinkBVH
 
-            self.walk = StreamBVH(mins, maxs, skips, firsts, counts, *tp,
-                                  leaf_slots=leaf_size, device=device)
+            self.walk = SkipLinkBVH(*tree, device=device)
+            slot_to_prim = np.arange(self.n_tri)  # the walk returns DFS prims
         else:
-            from pbrt_tpu_torch.ops.bvh8 import WideBVH8
+            if use_stream:
+                from pbrt_tpu_torch.ops.stream_bvh import StreamBVH
 
-            self.walk = WideBVH8(mins, maxs, skips, firsts, counts, *tp,
-                                 leaf_slots=leaf_size, device=device)
+                self.walk = StreamBVH(*tree, leaf_slots=leaf_size, wide=walk == "bvh8",
+                                      fused=walk == "binary_fused", device=device)
+            elif walk == "bvh8":
+                from pbrt_tpu_torch.ops.bvh8 import WideBVH8
+
+                self.walk = WideBVH8(*tree, leaf_slots=leaf_size, device=device)
+            else:
+                from pbrt_tpu_torch.ops.pallas_bvh import OrderedBVH2
+
+                self.walk = OrderedBVH2(*tree, device=device)
+            slot_to_prim = self.walk.slot_to_prim
         # fold packed slot -> original triangle id into one map
         self.perm = torch.as_tensor(
-            perm.astype(np.int64)[self.walk.slot_to_prim], device=device
+            perm.astype(np.int64)[slot_to_prim], device=device
         )
         self._scene_min = torch.as_tensor(mins[0], device=device)
         self._scene_extent = torch.as_tensor(
@@ -118,7 +160,8 @@ class BVHIntersector:
 
         n = o.shape[0]
         lane = torch.arange(n, device=o.device)
-        _, lane_s, o_s, d_s, t_s = co_sort((self.sort_keys(o, d, t_max), lane, o, d, t_max))
+        _, lane_s, o_s, d_s, t_s = co_sort((self.sort_keys(o, d, t_max), lane, o, d, t_max),
+                                           self.sort_network)
         cols_o = (o_s[:, 0], o_s[:, 1], o_s[:, 2])
         cols_d = (d_s[:, 0], d_s[:, 1], d_s[:, 2])
         walk = self.walk.occluded_slots if any_hit else self.walk.traverse
@@ -138,9 +181,17 @@ class BVHIntersector:
         return walk(o, d, t_max)
 
     def intersect(self, o, d, t_max, sort=True):
+        """Closest hits; ``sort``: sort the rays around a packed walk (the
+        skip walk never sorts)."""
         n = o.shape[0]
         best_t = torch.broadcast_to(t_max, (n,)).to(o.dtype)
-        t, prim = self._traverse(o, d, best_t, any_hit=False, sort=sort)
+        if self.walk_name == "skip":
+            t, prim, b0, b1 = self.walk.traverse(o, d, best_t)
+        else:
+            t, prim = self._traverse(o, d, best_t, any_hit=False, sort=sort)
+            # None: compute_interaction re-derives barycentrics from the
+            # hit triangle (the packed walks carry only (t, slot))
+            b0 = b1 = None
         got = prim >= 0
         kind = torch.where(got, KIND_TRI, KIND_NONE).to(torch.int32)
         return {
@@ -148,14 +199,15 @@ class BVHIntersector:
             "hit": got,
             "kind": kind,
             "prim": torch.where(got, self.perm[prim.clamp(min=0).long()], 0).to(torch.int32),
-            # None: compute_interaction re-derives barycentrics from the
-            # hit triangle (the walks carry only (t, slot))
-            "b0": None,
-            "b1": None,
+            "b0": None if b0 is None else torch.where(got, b0, 0.0),
+            "b1": None if b1 is None else torch.where(got, b1, 0.0),
         }
 
     def occluded(self, o, d, t_max, sort=True):
         n = o.shape[0]
         t_max = torch.broadcast_to(t_max, (n,)).to(o.dtype)
-        _, prim = self._traverse(o, d, t_max, any_hit=True, sort=sort)
+        if self.walk_name == "skip":
+            prim = self.walk.occluded_slots(o, d, t_max)[1]
+        else:
+            _, prim = self._traverse(o, d, t_max, any_hit=True, sort=sort)
         return prim >= 0

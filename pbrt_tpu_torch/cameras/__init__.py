@@ -26,7 +26,7 @@ def _screen_window(frame_aspect, screen_window_param=None):
 class PerspectiveCamera:
     def __init__(self, camera_to_world: Transform, fov_deg, resolution,
                  screen_window=None, lens_radius=0.0, focal_distance=1e6,
-                 device="cpu"):
+                 device="cuda"):
         aspect = resolution[0] / resolution[1]
         x0, x1, y0, y1 = _screen_window(aspect, screen_window)
         res_x, res_y = resolution
@@ -63,7 +63,7 @@ class PerspectiveCamera:
         return o_w, d_w, torch.ones(n, dtype=torch.float32, device=p_film.device)
 
 
-def make_camera(name: str, params, camera_to_world: Transform, film, device="cpu"):
+def make_camera(name: str, params, camera_to_world: Transform, film, device="cuda"):
     """Factory per pbrt-v3 MakeCamera; the film supplies the resolution."""
     if name != "perspective":
         raise NotImplementedError(

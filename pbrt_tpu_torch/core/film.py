@@ -31,7 +31,7 @@ class Film:
         filename: str = "pbrt.png",
         scale: float = 1.0,
         max_sample_luminance: float = float("inf"),
-        device="cpu",
+        device="cuda",
     ):
         self.full_resolution = (int(resolution[0]), int(resolution[1]))
         self.crop_window = Bounds2f.from_points(crop_window[0], crop_window[1])

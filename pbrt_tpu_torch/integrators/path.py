@@ -12,9 +12,11 @@ value is a pure function of (pixel, sample index, dimension):
     +4,+5 bsdf u2      +6 russian roulette
 
 Sorted carry: at the end of every bounce the whole wavefront is
-co-sorted into the next bounce's traversal order (``sort_keys``), the
-closest-hit sweeps run sort-free, shadow sweeps sort per call, and one
-scatter restores lane order for the film.  Intersection queries run
+co-sorted into the next bounce's traversal order (``sort_keys``; the
+intersector's ``co_sort`` network, 22 columns as in the reference, with
+alive and specular_bounce packed into one flags column), the closest-hit
+sweeps run sort-free, shadow sweeps sort per call, and one scatter
+restores lane order for the film.  Intersection queries run
 under ``torch.no_grad()`` (the reference's ``stop_gradient`` on the
 query inputs).  Infinite lights, media, the remat/gradient path and the
 merged shadow+carry sort are not ported (ROADMAP Queue 1).
@@ -223,10 +225,14 @@ class PathIntegrator:
         # --- sorted carry: one co-sort into the next traversal order -------
         t_next = torch.where(alive, INF_T, 0.0)
         keys = c.intersector.sort_keys(o, d, t_next)
-        (_, L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
-         pixel_xy, sample_index, lane) = co_sort(
-            (keys, L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
-             pixel_xy, sample_index, lane)
+        flags = alive.to(torch.int32) | (specular_bounce.to(torch.int32) << 1)
+        (_, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
+         flags) = co_sort(
+            (keys, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
+             flags),
+            c.intersector.sort_network,
         )
+        alive = (flags & 1) != 0
+        specular_bounce = (flags & 2) != 0
         return (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
                 pixel_xy, sample_index, lane)

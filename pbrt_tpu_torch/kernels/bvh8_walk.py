@@ -17,22 +17,17 @@ tensors it launches its kernel or raises.  The two visit nodes in the
 same per-ray order with the same float operations, so their results are
 bit-equal.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The kernels are built at first use with ``nvcc`` into
-``build/pbrt_tpu_torch_kernels/libbvh8_walk.<hash of source and flags>.so``
-at the repository root and loaded through ctypes (plain C entry points,
-no PyTorch headers: seconds to build, not minutes).
+The kernels are built at first use by ``kernels/build.py`` (``nvcc`` into a
+shared library with a plain C interface, loaded through ctypes).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from pbrt_tpu_torch.kernels import build
 
 STACK_DEPTH = 96  # per-ray stack entries (pbrt_tpu/ops/pallas_bvh.py)
 LEAF_COUNT_BITS = 6
@@ -44,18 +39,7 @@ INERT_T = -1e30
 
 LAUNCHES = {"stream_walk8": 0, "wide_walk8": 0}
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "bvh8_walk.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbrt_tpu_torch_kernels"
-NVCC_FLAGS = [
-    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # every float op rounds on its own, as in the plain version
-    "-fmad=false", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
-]
-
-_lock = threading.Lock()
 _lib = None
-build_log = ""  # nvcc's output of the last build (ptxas register counts)
 
 
 def reset_launch_counts() -> None:
@@ -63,67 +47,24 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    return str(cand) if cand.exists() else "nvcc"
-
-
 def load_library():
     """Build (if needed) and load the kernel library; raises on failure."""
-    global _lib, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # named after the source and the flags, so a change to either rebuilds
-        digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-        out = BUILD_DIR / f"libbvh8_walk.{digest.hexdigest()[:8]}.so"
-        if not out.exists():
-            tmp = BUILD_DIR / f"libbvh8_walk.{os.getpid()}.tmp.so"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                capture_output=True, text=True, timeout=600,
-            )
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {_SRC}:\n{build_log}")
-            os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
-        lib = ctypes.CDLL(str(out))
+    global _lib
+    if _lib is None:
+        lib = build.load("bvh8_walk")
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.launch_stream_walk8.argtypes = [p] * 14 + [i] * 5 + [p]
         lib.launch_stream_walk8.restype = i
         lib.launch_wide_walk8.argtypes = [p] * 12 + [i] * 2 + [p]
         lib.launch_wide_walk8.restype = i
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
-        return lib
+    return _lib
 
 
-def _check(name, x, dtype, device, ndim):
-    if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if x.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-    if x.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(x.shape)}")
-
-
-def _launch_checked(lib, fn, *args):
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(
-            f"CUDA launch failed: {lib.cuda_error_string(err).decode()} ({err})"
-        )
-
-
-def _check_rays(comps, device):
+def check_rays(comps, device):
     n = comps[0].shape[0]
     for name, c in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t_max"), comps):
-        _check(name, c, torch.float32, device, 1)
+        build.check_tensor(name, c, torch.float32, device, 1)
         if c.shape[0] != n:
             raise ValueError(f"{name}: expected {n} lanes, got {c.shape[0]}")
     return n
@@ -148,12 +89,12 @@ def stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=False):
         return stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit)
     if dev.type != "cuda":
         raise ValueError(f"stream_walk8: unsupported device {dev}")
-    _check("nodes", nodes, torch.float32, dev, 3)
-    _check("tris", tris, torch.float32, dev, 3)
-    _check("roots", roots, torch.int32, dev, 1)
-    _check("clist", clist, torch.int32, dev, 2)
-    _check("cnt", cnt, torch.int32, dev, 1)
-    n = _check_rays(comps, dev)
+    build.check_tensor("nodes", nodes, torch.float32, dev, 3)
+    build.check_tensor("tris", tris, torch.float32, dev, 3)
+    build.check_tensor("roots", roots, torch.int32, dev, 1)
+    build.check_tensor("clist", clist, torch.int32, dev, 2)
+    build.check_tensor("cnt", cnt, torch.int32, dev, 1)
+    n = check_rays(comps, dev)
     if nodes.shape[2] != NODE_COLS or tris.shape[2] != 128:
         raise ValueError("stream_walk8: expected [C,NP,64] nodes and [C,LP,128] tris")
     if n != clist.shape[0] * BLOCK or cnt.shape[0] != clist.shape[0]:
@@ -162,7 +103,7 @@ def stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=False):
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch_checked(
+    build.launch_checked(
         lib, lib.launch_stream_walk8,
         nodes.data_ptr(), tris.data_ptr(), roots.data_ptr(), clist.data_ptr(),
         cnt.data_ptr(), *[c.data_ptr() for c in comps],
@@ -182,17 +123,17 @@ def wide_walk8(nodes, tris, root, comps, any_hit=False):
         return wide_walk8_plain(nodes, tris, root, comps, any_hit)
     if dev.type != "cuda":
         raise ValueError(f"wide_walk8: unsupported device {dev}")
-    _check("nodes", nodes, torch.float32, dev, 2)
-    _check("tris", tris, torch.float32, dev, 2)
-    _check("root", root, torch.int32, dev, 1)
-    n = _check_rays(comps, dev)
+    build.check_tensor("nodes", nodes, torch.float32, dev, 2)
+    build.check_tensor("tris", tris, torch.float32, dev, 2)
+    build.check_tensor("root", root, torch.int32, dev, 1)
+    n = check_rays(comps, dev)
     if nodes.shape[1] != NODE_COLS or tris.shape[1] != 128:
         raise ValueError("wide_walk8: expected [W,64] nodes and [rows,128] tris")
     lib = load_library()
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _launch_checked(
+    build.launch_checked(
         lib, lib.launch_wide_walk8,
         nodes.data_ptr(), tris.data_ptr(), root.data_ptr(),
         *[c.data_ptr() for c in comps], t_out.data_ptr(), prim_out.data_ptr(),
@@ -209,7 +150,8 @@ def walk_disagreement(t_a, slot_a, t_b, slot_b, any_hit, tris, o, d):
     rtol 1e-6 on hits and equal on misses; slot ids equal wherever no
     second candidate lies within 1e-6 of t, since walks that visit in
     another order may resolve exact t ties differently.  ``tris`` is the
-    leaf-row table the slots index, ``o``/``d`` the [N, 3] rays.
+    triangle table the slots index (leaf rows of 128 f32 = 8 slots of 16,
+    or one [T, 16] row per triangle), ``o``/``d`` the [N, 3] rays.
     Returns None when they agree, else a description.
     """
     import numpy as np
@@ -226,10 +168,7 @@ def walk_disagreement(t_a, slot_a, t_b, slot_b, any_hit, tris, o, d):
     diff = hit & (slot_a != slot_b)
 
     def plane_t(slot, o, d):
-        rows = tris.reshape(-1, 128)[slot // LEAF_SLOTS]
-        col = 16 * (slot % LEAF_SLOTS)
-        tri = np.stack([rows[np.arange(len(slot)), col + k] for k in range(9)], 1)
-        tri = tri.astype(np.float64)
+        tri = tris.reshape(-1, 16)[slot, :9].astype(np.float64)
         n = np.cross(tri[:, 3:6] - tri[:, 0:3], tri[:, 6:9] - tri[:, 0:3])
         return np.sum((tri[:, 0:3] - o) * n, 1) / np.sum(d * n, 1)
 
@@ -249,8 +188,10 @@ def safe_inv(v):
     return torch.clamp(sign / torch.clamp(torch.abs(v), min=1e-20), -1e30, 1e30)
 
 
-def stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False):
-    """Plain version of :func:`stream_walk8` (same arguments, any device)."""
+def stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False,
+                       counters=None):
+    """Plain version of :func:`stream_walk8` (same arguments, any device;
+    ``counters``: see :func:`init_counters`)."""
     n = comps[0].shape[0]
     t_max = comps[6]
     block = torch.arange(n, device=t_max.device) // BLOCK
@@ -258,24 +199,57 @@ def stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False):
     return walk8_plain(
         nodes.reshape(-1, NODE_COLS), tris.reshape(-1, 128), roots.long(),
         clist.long()[block], ncand, nodes.shape[1], tris.shape[1], comps[:6],
-        t_max.clone(), any_hit,
+        t_max.clone(), any_hit, counters,
     )
 
 
-def wide_walk8_plain(nodes, tris, root, comps, any_hit=False):
-    """Plain version of :func:`wide_walk8` (same arguments, any device)."""
+def wide_walk8_plain(nodes, tris, root, comps, any_hit=False, counters=None):
+    """Plain version of :func:`wide_walk8` (same arguments, any device;
+    ``counters``: see :func:`init_counters`)."""
     n = comps[0].shape[0]
     t_max = comps[6]
     live = t_max > RAY_EPS
     best_t = torch.where(live, t_max, INERT_T)
     cand = torch.zeros((n, 1), dtype=torch.int64, device=t_max.device)
     return walk8_plain(
-        nodes, tris, root.long(), cand, live.long(), 0, 0, comps[:6], best_t, any_hit
+        nodes, tris, root.long(), cand, live.long(), 0, 0, comps[:6], best_t, any_hit,
+        counters,
     )
 
 
+def init_counters(counters, n_node_rows, n_leaf_rows, device):
+    """Work counters a plain walk fills when handed a dict (only bounds
+    reporting does): box (slab) tests, triangle tests, and masks of the
+    node and leaf rows it read (:func:`counted` sums them)."""
+    counters.setdefault("slab_tests", 0)
+    counters.setdefault("tri_tests", 0)
+    counters.setdefault("node_seen", torch.zeros(n_node_rows, dtype=torch.bool,
+                                                 device=device))
+    counters.setdefault("leaf_seen", torch.zeros(n_leaf_rows, dtype=torch.bool,
+                                                 device=device))
+
+
+def counted(counters):
+    """-> {slab_tests, tri_tests, node_rows, leaf_rows} as ints."""
+    return {"slab_tests": int(counters["slab_tests"]),
+            "tri_tests": int(counters["tri_tests"]),
+            "node_rows": int(counters["node_seen"].sum()),
+            "leaf_rows": int(counters["leaf_seen"].sum())}
+
+
+def count_leaves(counters, row0, count):
+    """Record leaf visits: lanes reading ``ceil(count / 8)`` rows from
+    ``row0`` and testing ``count`` triangles."""
+    if counters is None:
+        return
+    counters["tri_tests"] += int(count.sum())
+    n_rows = (count + LEAF_SLOTS - 1) // LEAF_SLOTS
+    for r in range(int(n_rows.max())):
+        counters["leaf_seen"][(row0 + r)[n_rows > r]] = True
+
+
 def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
-                best_t, any_hit):
+                best_t, any_hit, counters=None):
     """Lane-vectorised ordered 8-wide walk over candidate trees.
 
     nodes [R, 64] and tris [S, 128] hold every tree's rows back to back
@@ -288,6 +262,8 @@ def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
     ox, oy, oz, dx, dy, dz = rays
     dev = best_t.device
     n = best_t.shape[0]
+    if counters is not None:
+        init_counters(counters, nodes.shape[0], tris.shape[0], dev)
     o = torch.stack([ox, oy, oz], dim=1)
     inv = torch.stack([safe_inv(dx), safe_inv(dy), safe_inv(dz)], dim=1)
     neg = torch.stack([dx < 0, dy < 0, dz < 0], dim=1).long()
@@ -319,6 +295,7 @@ def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
             row0 = c[is_leaf] * leaves_pad + (first >> 3)
             rows = row0[:, None] + torch.arange(n_rows, device=dev)[None]
             tri = tris[rows.clamp(max=tris.shape[0] - 1)].reshape(len(li), -1, 16)
+            count_leaves(counters, row0, count)
             lo, ld = o[li], torch.stack([dx[li], dy[li], dz[li]], dim=1)
             bt, bp = best_t[li], best_prim[li]
             base = c[is_leaf] * slots_per_tree + first
@@ -353,7 +330,11 @@ def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
         # --- interior nodes: 8 slab tests, ordered pushes
         ii = idx[~is_leaf]
         if ii.numel():
-            nf = nodes[c[~is_leaf] * nodes_pad + r[~is_leaf]]
+            node_row = c[~is_leaf] * nodes_pad + r[~is_leaf]
+            nf = nodes[node_row]
+            if counters is not None:
+                counters["slab_tests"] += 8 * len(ii)
+                counters["node_seen"][node_row] = True
             box = nf[:, :48].reshape(-1, 8, 6)
             oi, vi = o[ii][:, None, :], inv[ii][:, None, :]
             t_lo = (box[:, :, 0:3] - oi) * vi

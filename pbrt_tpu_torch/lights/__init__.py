@@ -27,7 +27,7 @@ class Light:
 class PointLight(Light):
     is_delta = True
 
-    def __init__(self, light_to_world: Transform, intensity, device="cpu"):
+    def __init__(self, light_to_world: Transform, intensity, device="cuda"):
         self._pd = torch.as_tensor(light_to_world.apply_p(np.zeros(3)), device=device)
         self._id = torch.as_tensor(np.asarray(intensity, dtype=float_t), device=device)
 
@@ -44,7 +44,7 @@ class DiffuseAreaLight(Light):
     """Emissive triangles; NEE samples area-uniformly through a
     Distribution1D over triangle areas."""
 
-    def __init__(self, l_emit, two_sided, tri_p0, tri_p1, tri_p2, device="cpu"):
+    def __init__(self, l_emit, two_sided, tri_p0, tri_p1, tri_p2, device="cuda"):
         self._ld = torch.as_tensor(np.asarray(l_emit, dtype=float_t), device=device)
         self.two_sided = bool(two_sided)
         cr = np.cross(tri_p1 - tri_p0, tri_p2 - tri_p0)
@@ -93,7 +93,7 @@ class DiffuseAreaLight(Light):
         return d2 / torch.clamp(cos_l * self.total_area, min=1e-9)
 
 
-def make_light(record, device="cpu"):
+def make_light(record, device="cuda"):
     """LightRecord (core/api.py) -> Light."""
     name, params, l2w = record.name, record.params, record.light_to_world
     if name == "point":

@@ -113,7 +113,7 @@ class WideBVH8:
     """Whole-tree BVH8 intersector (scenes of 512-4095 triangles)."""
 
     def __init__(self, mins, maxs, skips, firsts, counts, tri_p0, tri_p1, tri_p2,
-                 leaf_slots: int = 16, device="cpu"):
+                 leaf_slots: int = 16, device="cuda"):
         wnodes, tris, root, slot_to_prim = pack_tree8(
             mins, maxs, skips, firsts, counts,
             np.asarray(tri_p0), np.asarray(tri_p1), np.asarray(tri_p2),

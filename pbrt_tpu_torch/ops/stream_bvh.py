@@ -3,18 +3,20 @@
 
 The SAH tree is cut at subtree boundaries into clusters of at most
 ``target_tris`` triangles; each cluster is packed as an 8-wide tree
-(``ops/bvh8.py``).  A wavefront intersection is two phases:
+(``ops/bvh8.py``, ``wide=True``) or as a binary tree of ordered node rows
+(``ops/pallas_bvh.py``, ``wide=False``: the reference's
+``PBRT_TPU_WIDE=0``).  A wavefront intersection is two phases:
 
   A (plain PyTorch, :func:`_stream_candidates`): every 1024-ray block
      slab-tests the C cluster bounds -> a per-block candidate list
      sorted by the block's entry distance (near clusters first).
-  B (:func:`kernels.bvh8_walk.stream_walk8`, the hand-written CUDA
-     kernel replacing ``_stream_kernel``): each ray walks its block's
-     candidates in order, carrying (t, slot).
+  B (hand-written CUDA kernels replacing ``_stream_kernel``): each ray
+     walks its block's candidates in order, carrying (t, slot) --
+     ``kernels.bvh8_walk.stream_walk8`` on 64-column node rows,
+     ``kernels.bvh2_walk.stream_walk2`` on 16-column ones (``fused``:
+     the fused-leaf walk, the reference's ``PBRT_TPU_FUSED_LEAF=1``).
 
-The host packers below are numpy copies of the reference's.  Only the
-wide (BVH8) cluster layout is ported; the binary layout is the
-``PBRT_TPU_WIDE=0`` path, still to port with its kernel (ROADMAP Queue 2).
+The host packers below are numpy copies of the reference's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.kernels.bvh2_walk import NODE2_COLS, stream_walk2
 from pbrt_tpu_torch.kernels.bvh8_walk import (
     BLOCK,
     LEAF_COUNT_BITS,
@@ -101,15 +104,35 @@ def pack_leaf_rows(firsts, counts, p0, p1, p2, leaf_slots=8):
     return tris, slot_to_prim, padded_firsts
 
 
+def pack_tree(mins, maxs, skips, firsts, counts, p0, p1, p2, leaf_slots=8):
+    """Binary skip-link (sub)tree -> ordered binary tables (the reference's
+    ``_pack_tree``): (nodes [ni, 16] f32, tris [n_rows, 128] f32, root
+    i32, slot_to_prim [n_leaves*leaf_slots] i64); a leaf spans
+    ``leaf_slots / 8`` consecutive rows."""
+    from pbrt_tpu_torch.ops.pallas_bvh import leaf_root, ordered_node_rows
+
+    counts = np.asarray(counts)
+    tris, slot_to_prim, padded_firsts = pack_leaf_rows(
+        firsts, counts, p0, p1, p2, leaf_slots
+    )
+    if counts[0] > 0:  # whole (sub)tree is a single leaf
+        nodes = np.zeros((1, NODE2_COLS), dtype=np.float32)
+        return nodes, tris, leaf_root(padded_firsts[0], counts[0]), slot_to_prim
+    nodes = ordered_node_rows(mins, maxs, np.asarray(skips), padded_firsts, counts)
+    return nodes, tris, np.int32(0), slot_to_prim
+
+
 def pack_stream_tables(mins, maxs, skips, firsts, counts,
                        tri_p0, tri_p1, tri_p2,
-                       target_tris: int | None = None, leaf_slots: int = 32):
-    """Host cluster cut + BVH8 packing for the streaming walk.
+                       target_tris: int | None = None, leaf_slots: int = 32,
+                       wide: bool = True):
+    """Host cluster cut + packing for the streaming walk: BVH8 clusters
+    (``wide``) or ordered binary ones.
 
-    Returns numpy arrays {nodes [C, NP, 64], tris [C, LP, 128], roots [C],
-    cl_min/cl_max [C, 3], slot_to_prim [C*slots] (DFS prim per packed
-    slot), slots_per_cluster} — equal to the reference's
-    ``pack_stream_tables(..., wide=True)``.
+    Returns numpy arrays {nodes [C, NP, 64 or 16], tris [C, LP, 128],
+    roots [C], cl_min/cl_max [C, 3], slot_to_prim [C*slots] (DFS prim per
+    packed slot), slots_per_cluster} — equal to the reference's
+    ``pack_stream_tables(..., wide=wide)``.
     """
     from pbrt_tpu_torch.ops.bvh8 import pack_tree8
 
@@ -124,7 +147,7 @@ def pack_stream_tables(mins, maxs, skips, firsts, counts,
     for (i, lo, hi) in clusters:
         sl = slice(i, int(skips[i]))
         packs.append(
-            pack_tree8(
+            (pack_tree8 if wide else pack_tree)(
                 mins[sl], maxs[sl], skips[sl] - i, firsts[sl] - lo,
                 counts[sl], tri_p0[lo:hi], tri_p1[lo:hi], tri_p2[lo:hi],
                 leaf_slots=leaf_slots,
@@ -205,33 +228,43 @@ def _stream_candidates(cl_min, cl_max, comps):
     return clist.to(torch.int32).contiguous(), cnt.to(torch.int32).contiguous()
 
 
-def stream_traverse(nodes, tris, roots, cl_min, cl_max, o, d, t_max, any_hit=False):
+def stream_traverse(nodes, tris, roots, cl_min, cl_max, o, d, t_max, any_hit=False,
+                    fused=False):
     """Functional streaming traversal over explicit tables.
 
-    nodes [C, NP, 64], tris [C, LP, 128], roots [C] i32, cl_min/cl_max
-    [C, 3]; o, d [N, 3] (or 3-tuples of [N]); t_max [N].  Returns (t [N],
+    nodes [C, NP, 64] (BVH8) or [C, NP, 16] (binary; the walk follows the
+    node width, as the reference's does), tris [C, LP, 128], roots [C]
+    i32, cl_min/cl_max [C, 3]; o, d [N, 3] (or 3-tuples of [N]); t_max
+    [N]; ``fused`` picks the fused-leaf binary walk.  Returns (t [N],
     packed slot id [N], -1 = miss); callers resolve slots through their
     own slot_to_prim map.
     """
     n = (o[0] if isinstance(o, (tuple, list)) else o).shape[0]
     comps = split_pad_rays(o, d, t_max, n)
     clist, cnt = _stream_candidates(cl_min, cl_max, comps)
-    t, prim = stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit)
+    if nodes.shape[2] == NODE2_COLS:
+        t, prim = stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit,
+                               fused=fused)
+    else:
+        t, prim = stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit)
     return t[:n], prim[:n]
 
 
 class StreamBVH:
     """Streaming intersector for scenes of 4096 triangles or more; holds
-    the cluster tables on ``device``."""
+    the cluster tables (BVH8 when ``wide``, else binary walked with the
+    plain or, with ``fused``, the fused-leaf walk) on ``device``."""
 
     def __init__(self, mins, maxs, skips, firsts, counts,
                  tri_p0, tri_p1, tri_p2, target_tris: int | None = None,
-                 leaf_slots: int = 32, device="cpu"):
+                 leaf_slots: int = 32, wide: bool = True, fused: bool = False,
+                 device="cuda"):
         t = pack_stream_tables(
             mins, maxs, skips, firsts, counts, tri_p0, tri_p1, tri_p2,
-            target_tris=target_tris, leaf_slots=int(leaf_slots),
+            target_tris=target_tris, leaf_slots=int(leaf_slots), wide=wide,
         )
         self.tables = t  # host copies (tests compare them to the reference)
+        self.fused = fused
         self.nodes = torch.as_tensor(t["nodes"], device=device)
         self.tris = torch.as_tensor(t["tris"], device=device)
         self.roots = torch.as_tensor(t["roots"], device=device)
@@ -242,9 +275,9 @@ class StreamBVH:
     def traverse(self, o, d, t_max):
         """Closest-hit walk -> (t, raw slot id)."""
         return stream_traverse(self.nodes, self.tris, self.roots, self.cl_min,
-                               self.cl_max, o, d, t_max)
+                               self.cl_max, o, d, t_max, fused=self.fused)
 
     def occluded_slots(self, o, d, t_max):
         """Any-hit walk -> (t, raw slot id >= 0 where occluded)."""
         return stream_traverse(self.nodes, self.tris, self.roots, self.cl_min,
-                               self.cl_max, o, d, t_max, any_hit=True)
+                               self.cl_max, o, d, t_max, any_hit=True, fused=self.fused)

@@ -1,7 +1,9 @@
 """Top-level render orchestration (counterpart of ``pbrt_tpu/render.py``).
 
-``Renderer(desc, options, seed, device)`` builds the scene's tables on
-``device`` and sweeps (pixel, sample) lanes in chunks of
+``Renderer(desc, options, seed, device, walk, sort)`` builds the scene's
+tables on ``device`` (a CUDA card unless the caller asks for the CPU),
+with the BVH walk and ``co_sort`` network named by ``walk`` and ``sort``
+(``accel/bvh.py``), and sweeps (pixel, sample) lanes in chunks of
 ``options.ray_batch``: camera rays -> path integrator -> film.  Only the
 dense (scatter-free) film path is ported: box filter of radius <= 0.5,
 chunks aligned to whole pixels, each chunk adding its per-pixel sums to
@@ -27,10 +29,10 @@ class Renderer:
     """Holds the compiled scene; reusable across renders."""
 
     def __init__(self, desc, options: Options | None = None, seed: int = 0,
-                 device="cpu"):
+                 device="cuda", walk: str = "bvh8", sort: str = "stable"):
         self.options = options or Options()
         self.device = torch.device(device)
-        self.compiled = build_scene(desc, seed, device=self.device)
+        self.compiled = build_scene(desc, seed, device=self.device, walk=walk, sort=sort)
         self.integrator = make_integrator(self.compiled)
         self.compiled.integrator_params.report_unused()
         self.film = self.compiled.film

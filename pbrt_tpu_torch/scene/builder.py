@@ -60,9 +60,18 @@ def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
-def build_scene(desc, seed: int = 0, device="cpu") -> CompiledScene:
-    """SceneDescription (core/api.py) -> CompiledScene on ``device``."""
+def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
+                sort: str = "stable") -> CompiledScene:
+    """SceneDescription (core/api.py) -> CompiledScene on ``device`` (a
+    CUDA card unless the caller asks for the CPU; without one this
+    raises).  ``walk`` and ``sort`` pick the BVH walk and the ``co_sort``
+    network (``accel/bvh.py``)."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pbrt_tpu_torch runs on a CUDA card by default, and torch.cuda.is_available() "
+            "is false here; pass device='cpu' to run the plain versions on the CPU"
+        )
     filt = make_filter(desc.filter_name, desc.filter_params)
     desc.filter_params.report_unused()
     fp = desc.film_params
@@ -189,7 +198,7 @@ def build_scene(desc, seed: int = 0, device="cpu") -> CompiledScene:
         )
     from pbrt_tpu_torch.accel.bvh import BVHIntersector
 
-    intersector = BVHIntersector(tri_data, device=device)
+    intersector = BVHIntersector(tri_data, device=device, walk=walk, sort=sort)
     desc.accelerator_params.report_unused()
     return CompiledScene(
         film=film, camera=camera, sampler=sampler,

@@ -91,10 +91,13 @@ def mesh_scene_description(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 <<
 
 
 def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16,
-                        nu=224, nv=112, seed=0, device="cpu"):
-    """BASELINE config 3 on ``device`` -> (Renderer, n_torus_tris)."""
+                        nu=224, nv=112, seed=0, device="cuda", walk="bvh8",
+                        sort="stable"):
+    """BASELINE config 3 on ``device`` with the BVH walk ``walk`` and the
+    ``co_sort`` network ``sort`` (``accel/bvh.py``) -> (Renderer,
+    n_torus_tris)."""
     from pbrt_tpu_torch.render import Renderer
 
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
                                                 nu, nv)
-    return Renderer(desc, opts, seed=seed, device=device), n_tris
+    return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort), n_tris

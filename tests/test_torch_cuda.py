@@ -112,3 +112,69 @@ def test_kernel_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         bvh8_walk.wide_walk8(nodes[:, ::2], tris, torch.zeros(1, dtype=torch.int32,
                                                               device="cuda"), comps)
+
+
+@pytest.mark.cuda
+def test_binary_walks_and_bitonic_match_plain():
+    """The binary walks (whole tree, streaming, fused streaming), the
+    skip-link walk and the bitonic network against their plain versions:
+    walks to ``walk_disagreement`` (skip walk b0/b1 equal on equal slots),
+    the network bit for bit."""
+    torch, bvh, _, _, stream_bvh = _need_card()
+    from pbrt_tpu_torch.kernels import bitonic, bvh2_walk
+    from pbrt_tpu_torch.ops import pallas_bvh, sortnet
+
+    p0, p1, p2 = _soup(20000, seed=6)
+    o, d, t_max = _rays(8192, seed=7)
+    rays = [torch.as_tensor(a, device="cuda") for a in (o, d, t_max)]
+    comps = stream_bvh.split_pad_rays(*rays, 8192)
+    cpu = tuple(x.cpu() for x in comps)
+    m, x, s, f, c, perm = bvh.build_bvh(p0, p1, p2, leaf_size=32)
+    tp = (p0[perm], p1[perm], p2[perm])
+    sb = stream_bvh.StreamBVH(m, x, s, f, c, *tp, target_tris=4096, wide=False,
+                              device="cuda")
+    clist, cnt = stream_bvh._stream_candidates(sb.cl_min, sb.cl_max, comps)
+    tables = (sb.nodes, sb.tris, sb.roots, clist, cnt)
+    for fused in (False, True):
+        for any_hit in (False, True):
+            kern = bvh2_walk.stream_walk2(*tables, comps, any_hit=any_hit, fused=fused)
+            torch.cuda.synchronize()
+            plain = bvh2_walk.stream_walk2_plain(*(t.cpu() for t in tables), cpu,
+                                                 any_hit=any_hit, fused=fused)
+            _agree(kern, plain, any_hit, sb.tris.cpu().numpy(), o, d)
+    m, x, s, f, c, perm = bvh.build_bvh(p0[:3000], p1[:3000], p2[:3000], leaf_size=8)
+    tp = (p0[perm], p1[perm], p2[perm])
+    whole = pallas_bvh.OrderedBVH2(m, x, s, f, c, *tp, device="cuda")
+    m, x, s, f, c, perm = bvh.build_bvh(p0[:3000], p1[:3000], p2[:3000], leaf_size=4)
+    skip = pallas_bvh.SkipLinkBVH(m, x, s, f, c, p0[perm], p1[perm], p2[perm],
+                                  device="cuda")
+    for any_hit in (False, True):
+        kern = bvh2_walk.ordered_walk2(whole.nodes, whole.tris, whole.root, comps, any_hit)
+        torch.cuda.synchronize()
+        plain = bvh2_walk.ordered_walk2_plain(whole.nodes.cpu(), whole.tris.cpu(),
+                                              whole.root.cpu(), cpu, any_hit)
+        _agree(kern, plain, any_hit, whole.tris.cpu().numpy(), o, d)
+        kern = bvh2_walk.skip_walk(skip.nodes_f, skip.nodes_i, skip.tris, comps, any_hit)
+        torch.cuda.synchronize()
+        plain = bvh2_walk.skip_walk_plain(skip.nodes_f.cpu(), skip.nodes_i.cpu(),
+                                          skip.tris.cpu(), cpu, any_hit)
+        _agree(kern[:2], plain[:2], any_hit, skip.tris.cpu().numpy(), o, d)
+        same = (plain[1] >= 0) & (plain[1] == kern[1].cpu())
+        for b in (2, 3):
+            assert torch.equal(kern[b].cpu()[same], plain[b][same])
+
+    rng = np.random.default_rng(8)
+    n = 1 << 18
+    keys = (rng.integers(0, 64, n).astype(np.int64) * 977) | (
+        rng.integers(0, 2, n).astype(np.int64) << 31)
+    cols = (torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32)),
+            torch.arange(n, dtype=torch.int32))
+    before = dict(bitonic.LAUNCHES)
+    got = sortnet.co_sort((torch.as_tensor(keys, device="cuda"),
+                           *(x.cuda() for x in cols)), network="bitonic")
+    torch.cuda.synchronize()
+    assert bitonic.LAUNCHES["bitonic_local"] == before["bitonic_local"] + 8
+    assert bitonic.LAUNCHES["bitonic_merge"] == before["bitonic_merge"] + 28
+    want = sortnet.co_sort((torch.as_tensor(keys), *cols), network="bitonic")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

@@ -31,7 +31,7 @@ def scenes():
     from pbrt_tpu_torch.testscenes import mesh_scene_renderer
 
     ref, n_ref = ref_mesh_scene(**_SCENE)
-    port, n_port = mesh_scene_renderer(**_SCENE)
+    port, n_port = mesh_scene_renderer(**_SCENE, device="cpu")
     assert n_ref == n_port == 4608
     return ref.compiled, port.compiled
 
@@ -107,16 +107,31 @@ def test_pack_tree8_matches_reference(scenes):
     got = pack_tree8(m, x, s, f, c, *tp, leaf_slots=16)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    wide = WideBVH8(m, x, s, f, c, *tp, leaf_slots=16)
+    wide = WideBVH8(m, x, s, f, c, *tp, leaf_slots=16, device="cpu")
     assert torch.equal(wide.nodes, torch.as_tensor(want[0]))
     assert torch.equal(wide.tris, torch.as_tensor(want[1]))
     assert int(wide.root[0]) == int(want[2])
 
 
 def test_port_never_imports_jax():
-    code = ("import sys, pbrt_tpu_torch.render, pbrt_tpu_torch.testscenes; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+    """Neither the package nor any of its modules imports JAX, and no
+    module reads a ``PBRT_TPU_*`` environment switch (the port takes
+    arguments instead)."""
+    import pathlib
+    import re
+
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = pathlib.Path(repo) / "pbrt_tpu_torch"
+    modules = sorted(
+        ".".join(p.relative_to(repo).with_suffix("").parts).removesuffix(".__init__")
+        for p in pkg.rglob("*.py")
+    )
+    assert {"pbrt_tpu_torch.kernels.bvh2_walk", "pbrt_tpu_torch.kernels.bitonic",
+            "pbrt_tpu_torch.ops.pallas_bvh", "pbrt_tpu_torch.ops.sortnet"} <= set(modules)
+    for p in pkg.rglob("*.py"):
+        assert not re.search(r"(environ|getenv)\W*\(?\W*[\"']PBRT_TPU_", p.read_text()), p
+    code = (f"import importlib, sys; [importlib.import_module(m) for m in {modules!r}]; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
     env = dict(os.environ, PYTHONPATH=repo)
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
                          capture_output=True, text=True, timeout=120)

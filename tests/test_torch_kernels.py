@@ -138,3 +138,22 @@ def test_wrappers_reject_unsupported_devices():
             torch.empty(2, dtype=torch.int32, **meta),
             torch.empty(1, 2, dtype=torch.int32, **meta),
             torch.empty(1, dtype=torch.int32, **meta), comps)
+
+    from pbrt_tpu_torch.kernels import bitonic, bvh2_walk
+
+    i32 = dict(dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bvh2_walk.ordered_walk2(torch.empty(8, 16, **meta), torch.empty(8, 128, **meta),
+                                torch.empty(1, **i32), comps)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bvh2_walk.stream_walk2(torch.empty(2, 8, 16, **meta), torch.empty(2, 8, 128, **meta),
+                               torch.empty(2, **i32), torch.empty(1, 2, **i32),
+                               torch.empty(1, **i32), comps, fused=True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bvh2_walk.skip_walk(torch.empty(8, 8, **meta), torch.empty(8, 4, **i32),
+                            torch.empty(8, 16, **meta), comps)
+    key = torch.empty(2048, dtype=torch.int64, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitonic.bitonic_local(key, torch.empty(2048, **i32), 2, 2048)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitonic.bitonic_merge(key, torch.empty(2048, **i32), 4096, 2048)

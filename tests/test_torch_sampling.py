@@ -90,7 +90,7 @@ def renderers():
     from pbrt_tpu_torch.testscenes import mesh_scene_renderer
 
     ref, _ = ref_mesh_scene(**_SCENE)
-    port, _ = mesh_scene_renderer(**_SCENE)
+    port, _ = mesh_scene_renderer(**_SCENE, device="cpu")
     return ref, port
 
 
