@@ -24,18 +24,25 @@ Phases (any failure raises and the script exits non-zero):
      config 3's seven chunk-0 sweeps under ``walk="binary"``,
      ``"binary_fused"`` and ``"skip"``;
    - K4 ``ordered_walk2``: the small torus's seven sweeps, ``walk="binary"``;
-   - K5 ``bitonic_local`` + ``bitonic_merge``: every ``co_sort`` of
-     262,144 lanes in a config-3 frame under ``sort="bitonic"`` (12).
+   - K5 ``bitonic_tile`` + ``bitonic_merge`` + ``gather_rows``: every
+     ``co_sort`` of 262,144 lanes in a config-3 frame under
+     ``sort="bitonic"`` (12), each in one library call; on the widest,
+     every launch of the schedule against its plain step.
    Besides, 262,144 random rays with finite t_max and every 97th lane
    dead on each config-3 walk's tables and on a 3000-triangle soup (the
    whole-tree walks), closest and any hit, and 262,144 random keys with
    heavy duplicates and bit 31 set on half.  Walks: hit masks equal, t
    within rtol 1e-6, slots equal except exact t ties, K6's b0/b1 within
-   rtol 1e-6; K5: keys and every payload column bit-equal.  Then each
-   kernel's time (CUDA events) beside its plain version's on the card,
-   its bound (the larger of bytes over 3.35 TB/s and float ops over 67
-   TFLOP/s, counted by the plain version on the same inputs) and, where
-   one PyTorch call computes the same function, that call's time;
+   rtol 1e-6; K5: keys and every payload column bit-equal.  K4/K4b also
+   print, per sweep, the live lanes and the plain walk's node steps and
+   triangle tests per live ray.  Then each kernel's time (CUDA events)
+   beside its plain version's on the card, its bound (the larger of
+   bytes over 3.35 TB/s and float ops over 67 TFLOP/s, counted by the
+   plain version on the same inputs) and, where one PyTorch call
+   computes the same function, that call's time; for K5 besides, each
+   kernel's device time from torch.profiler, the launches and library
+   calls per co_sort, and the whole co_sort's time and bound beside
+   ``torch.sort`` + gathers;
 4. the main path through the user entry points (``mesh_scene_renderer``,
    ``Renderer.render``): config 3 at 256x256, 8 spp, maxdepth 4 (50,180
    triangles: streaming walk) and the same scene with a 1152-triangle
@@ -84,8 +91,10 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "stream_walk2_fused": ("bvh2_walk.cu", "pbrt_tpu/ops/stream_bvh.py:338"),
     "ordered_walk2": ("bvh2_walk.cu", "pbrt_tpu/ops/pallas_bvh.py:242"),
     "skip_walk": ("bvh2_walk.cu", "pbrt_tpu/ops/pallas_bvh.py:56"),
-    "bitonic_local": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:94"),
+    "bitonic_tile": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:94"),
     "bitonic_merge": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:151"),
+    # the payload columns the reference moves through every stage of K5
+    "gather_rows": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:94"),
 }
 # the renderers of phase 4: config 3 (or the small torus) under a walk and sort
 VARIANTS = {
@@ -100,8 +109,8 @@ VARIANTS = {
 # which variant's frame drives each kernel
 PATH_OF = {"stream_walk8": "default", "wide_walk8": "small", "stream_walk2": "binary",
            "stream_walk2_fused": "binary_fused", "skip_walk": "skip",
-           "ordered_walk2": "small_binary", "bitonic_local": "bitonic",
-           "bitonic_merge": "bitonic"}
+           "ordered_walk2": "small_binary", "bitonic_tile": "bitonic",
+           "bitonic_merge": "bitonic", "gather_rows": "bitonic"}
 
 
 def log(*a):
@@ -162,11 +171,15 @@ def frame_chunks(renderer):
 
 
 def per_sort(kname, n):
-    """Launches of a bitonic kernel per co_sort of n lanes: one local sort
-    and one local tail per merge level above 2048 lanes, and a merge pass
-    per level for each distance from half the level down to 2048."""
-    levels = max(0, (n - 1).bit_length() - 11)
-    return 1 + levels if kname == "bitonic_local" else levels * (levels + 1) // 2
+    """Launches of a K5 kernel per co_sort of n lanes: the network's
+    schedule (a first tile launch, then per merge size above a tile its
+    merge launches and a tile tail) and one gather."""
+    from pbrt_tpu_torch.kernels import bitonic
+
+    if kname == "gather_rows":
+        return 1
+    kind = kname.removeprefix("bitonic_")
+    return sum(s[0] == kind for s in bitonic.schedule(bitonic.padded_size(n)))
 
 
 def reset_counts():
@@ -275,6 +288,7 @@ def walk_call(name, walk, o, d, t_max):
            "skip_walk": (bvh2_walk.skip_walk, bvh2_walk.skip_walk_plain)}
     if name.startswith("stream_walk2"):
         kw["fused"] = name.endswith("fused")
+        kw["depth"] = walk.depth
     node_bytes = {"stream_walk8": 256, "wide_walk8": 256, "skip_walk": 48}.get(name, 64)
     leaf_bytes = 64 if name == "skip_walk" else 512
     out_bytes = 16 if name == "skip_walk" else 8
@@ -287,7 +301,8 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
     inputs its intersector builds for these rays, to the contract of
     ``bvh8_walk.walk_disagreement`` (K6: b0/b1 within rtol 1e-6 too).
     Returns (max |dt| (or |db|) over hit lanes, the kernel's call,
-    (bytes, ops) of the work)."""
+    (bytes, ops) of the work, (live lanes, node steps and triangle tests
+    per live lane) of the plain walk)."""
     import numpy as np
     import torch
 
@@ -327,11 +342,17 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
         log(f"  {name} {label} closest, {shape}: {hit.sum()} hit, "
             f"{(hit & (s_k != s_p)).sum()} tie slots, max |dt| {err:.3e}")
     c = counted(counters)
+    n_live = int(live.sum())
+    stats = (n_live, c["slab_tests"] / 2 / max(n_live, 1), c["tri_tests"] / max(n_live, 1))
+    if name.startswith("stream_walk2"):
+        log(f"    {n_live} live lanes: {stats[1]:.2f} node steps and {stats[2]:.2f} triangle "
+            f"tests per live lane, deepest stack {counters['stack_max']} (tree depth "
+            f"{kw['depth']})")
     n_bytes = (n_pad * (28 + out_bytes) + c["node_rows"] * row_bytes[0]
                + c["leaf_rows"] * row_bytes[1]
                + sum(a.numel() * 4 for a in args[3:5] if name.startswith("stream_")))
     n_ops = c["slab_tests"] * SLAB_OPS + c["tri_tests"] * TRI_OPS
-    return err, (kern_fn, args, dict(kw, any_hit=any_hit), plain_fn), (n_bytes, n_ops)
+    return err, (kern_fn, args, dict(kw, any_hit=any_hit), plain_fn), (n_bytes, n_ops), stats
 
 
 def check_sort(label, operands):
@@ -366,9 +387,10 @@ def soup_tables(leaf):
     return (m, x, s, f, cc) + tuple(p[perm] for p in soup)
 
 
-def time_walks(name, calls):
+def time_walks(name, calls, stats):
     """Kernel and plain-version (on the card) ms per sweep over ``calls``
-    (kernel: mean of 20 launches after one; plain: one run)."""
+    (kernel: mean of 20 launches after one; plain: one run); for the
+    binary streaming walks also the ns per node step of a live lane."""
     import numpy as np
 
     ms, plain_ms = [], []
@@ -377,7 +399,151 @@ def time_walks(name, calls):
         plain_ms.append(cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False))
     log(f"  {name}: kernel {[round(t, 4) for t in ms]} ms, plain "
         f"{[round(t, 1) for t in plain_ms]} ms")
+    if name.startswith("stream_walk2"):
+        for i, (t, (n_live, steps, tris)) in enumerate(zip(ms, stats)):
+            log(f"    sweep {i}: {n_live} live lanes, {steps:.2f} node steps and {tris:.2f} "
+                f"triangle tests per live lane, {t:.4f} ms = "
+                f"{t * 1e6 / max(steps, 1e-9):.1f} ns per node step of the mean lane")
     return float(np.mean(ms)), float(np.mean(plain_ms))
+
+
+def profiled_ms(fn, reps, names):
+    """torch.profiler over ``reps`` runs of fn (after one): per kernel
+    whose name contains one of ``names``, (device ms per run, launches per
+    run); (None, 0) where the trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = getattr(e, "cuda_time_total", 0.0) if t is None else t
+        for nm in names:
+            if nm in e.key and t > 0:
+                us[nm] += t
+                count[nm] += e.count
+    return {nm: (us[nm] / 1e3 / reps if count[nm] else None, count[nm] / reps)
+            for nm in names}
+
+
+def phase_sort(ops):
+    """K5 on one recorded co_sort: every launch of the network's schedule
+    and the gather against their plain steps (CPU copies); the launches
+    and library calls of one co_sort; each kernel's time by CUDA events
+    and by the profiler's device time beside its plain version's, its
+    bound and a PyTorch call; the whole co_sort beside ``torch.sort`` +
+    one gather per operand."""
+    import math
+
+    import torch
+
+    from pbrt_tpu_torch.kernels import bitonic
+    from pbrt_tpu_torch.ops.sortnet import co_sort
+
+    keys, payload = ops[0], list(ops[1:])
+    n = keys.shape[0]
+    n_pad = bitonic.padded_size(n)
+    steps = bitonic.schedule(n_pad)
+    packed = torch.empty(n_pad, dtype=torch.int64, device=DEVICE)
+    packed_p = torch.empty(n_pad, dtype=torch.int64)
+    out = tuple(torch.empty(n, dtype=torch.int64, device=DEVICE) for _ in range(2))
+    out_p = tuple(torch.empty(n, dtype=torch.int64) for _ in range(2))
+    for i, (kind, *a) in enumerate(steps):
+        last = i == len(steps) - 1
+        if kind == "merge":
+            bitonic.bitonic_merge(packed, *a)
+            bitonic.bitonic_merge_plain(packed_p, *a)
+        else:
+            bitonic.bitonic_tile(packed, *a, keys=keys if i == 0 else None,
+                                 out=out if last else None)
+            bitonic.bitonic_tile_plain(packed_p, *a, keys=keys.cpu() if i == 0 else None,
+                                       out=out_p if last else None)
+        torch.cuda.synchronize()
+        got, want = (torch.stack(out), torch.stack(out_p)) if last else (packed, packed_p)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"K5 launch {i} ({kind} {a}) differs from its plain step")
+    perm = out[1]
+    dsts = [torch.empty_like(x) for x in payload]
+    bitonic.gather_rows(perm, payload, dsts)
+    want = [torch.empty_like(x.cpu()) for x in payload]
+    bitonic.gather_rows_plain(perm.cpu(), [x.cpu() for x in payload], want)
+    if not all(torch.equal(g.cpu(), w) for g, w in zip(dsts, want)):
+        raise AssertionError("K5 gather_rows differs from its plain version")
+    log(f"  K5 on {n} lanes ({n_pad} padded): the {len(steps)} network launches "
+        f"{[s[0] for s in steps]} and the gather each bit-equal to their plain steps")
+
+    reset_counts()
+    co_sort(ops, "bitonic")
+    torch.cuda.synchronize()
+    launches, calls = dict(bitonic.LAUNCHES), dict(bitonic.HOST_CALLS)
+    log(f"  one co_sort: launches {launches}, library calls {calls}")
+    network = launches["bitonic_tile"] + launches["bitonic_merge"]
+    if sum(calls.values()) != 1 or network != len(steps) or launches["gather_rows"] != 1:
+        raise AssertionError("a bitonic co_sort must make one library call, the "
+                             "schedule's launches and one gather")
+
+    row_bytes = sum(x.element_size() * math.prod(x.shape[1:]) for x in payload)
+    k_log2 = n_pad.bit_length() - 1
+    tile_stages = bitonic.TILE_LOG2 * (bitonic.TILE_LOG2 + 1) // 2  # k = 2 .. 8192
+    tail = steps[-1]
+    top = next(s for s in steps if s[0] == "merge" and s[1] == n_pad)
+    kernels = {  # name -> (kernel, plain on the card, PyTorch call, bytes, compares)
+        "bitonic_tile": (
+            lambda: bitonic.bitonic_tile(packed, 2, bitonic.TILE, keys=keys),
+            lambda: bitonic.bitonic_tile_plain(packed, 2, bitonic.TILE, keys=keys),
+            lambda: torch.sort(keys[: n // bitonic.TILE * bitonic.TILE].view(-1, bitonic.TILE),
+                               dim=1),
+            8 * n + 8 * n_pad, n_pad // 2 * tile_stages),
+        "bitonic_merge": (lambda: bitonic.bitonic_merge(packed, *top[1:]),
+                          lambda: bitonic.bitonic_merge_plain(packed, *top[1:]), None,
+                          16 * n_pad, n_pad // 2 * top[3]),
+        "gather_rows": (lambda: bitonic.gather_rows(perm, payload, dsts),
+                        lambda: bitonic.gather_rows_plain(perm, payload, dsts), None,
+                        n * (8 + 2 * row_bytes), 0),
+    }
+    device = profiled_ms(lambda: [k[0]() for k in kernels.values()], 20,
+                         ("bitonic_tile_kernel", "bitonic_merge_kernel", "gather_rows_kernel"))
+    res = {}
+    for (kname, (kern, plain, lib, n_bytes, n_ops)), (dev_ms, _) in zip(kernels.items(),
+                                                                       device.values()):
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 1, warmup=False)
+        lib_ms = cuda_ms(lib, 20) if lib else None
+        b_ms, b_by = bound(n_bytes, n_ops)
+        res[kname] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms)
+        log(f"  {kname} ({n} lanes): kernel {ms:.4f} ms by events, {dev_ms} ms device "
+            f"time (profiler), plain {plain_ms:.2f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"PyTorch {lib_ms} ms")
+    tail_ms = cuda_ms(lambda: bitonic.bitonic_tile(packed, *tail[1:]), 20)
+    log(f"  bitonic_tile tail (k = {tail[1]}, j < {bitonic.TILE}): {tail_ms:.4f} ms")
+
+    cols = sum(math.prod(o.shape[1:]) for o in ops)
+    sort_ms = cuda_ms(lambda: co_sort(ops, "bitonic"), 20)
+    torch_ms = cuda_ms(lambda: co_sort(ops, "stable"), 20)
+    per_sort = profiled_ms(lambda: co_sort(ops, "bitonic"), 5,
+                           ("bitonic_tile_kernel", "bitonic_merge_kernel", "gather_rows_kernel"))
+    dev = [v[0] for v in per_sort.values()]
+    sort_dev = sum(dev) if all(d is not None for d in dev) else None
+    # keys read and written, the permutation written, each payload row read
+    # and written once; one compare per pair per stage of the network
+    sort_bound, sort_by = bound(24 * n + 2 * n * row_bytes,
+                                n_pad // 2 * k_log2 * (k_log2 + 1) // 2)
+    log(f"  co_sort of {n} lanes x {cols} columns: bitonic network + gather "
+        f"{sort_ms:.4f} ms by events, device time {sort_dev} ms per sort "
+        f"({ {k: v for k, v in per_sort.items()} }), bound {sort_bound:.5f} ms ({sort_by}); "
+        f"torch.sort(stable=True) + one gather per operand {torch_ms:.4f} ms")
+    res["bitonic_tile"].update(co_sort_ms=sort_ms, co_sort_device_ms=sort_dev,
+                               co_sort_bound_ms=sort_bound, torch_sort_ms=torch_ms,
+                               tail_ms=tail_ms, launches_per_sort=launches,
+                               library_calls_per_sort=sum(calls.values()))
+    return res
 
 
 def phase_kernels(rs):
@@ -388,10 +554,8 @@ def phase_kernels(rs):
     import numpy as np
     import torch
 
-    from pbrt_tpu_torch.kernels import bitonic
     from pbrt_tpu_torch.ops.bvh8 import WideBVH8
     from pbrt_tpu_torch.ops.pallas_bvh import OrderedBVH2
-    from pbrt_tpu_torch.ops.sortnet import co_sort
 
     log("== phase 3: kernels against their plain versions")
     r3 = rs["default"]
@@ -402,15 +566,16 @@ def phase_kernels(rs):
         shapes = {k: tuple(getattr(w, k).shape) for k in ("nodes", "nodes_f", "tris")
                   if hasattr(w, k)}
         log(f"  {name}: {r.compiled.tri_data.count} triangles, {type(w).__name__} {shapes}")
-    out = {}  # name -> [max_err, timed calls, (bytes, ops) of the timed calls]
+    out = {}  # name -> [max_err, timed calls, their (bytes, ops), their stats]
 
     def run(name, label, walk, rays, any_hit, timed):
-        err, call, work = check_walk(name, label, walk, *rays, any_hit)
-        entry = out.setdefault(name, [0.0, [], []])
+        err, call, work, stats = check_walk(name, label, walk, *rays, any_hit)
+        entry = out.setdefault(name, [0.0, [], [], []])
         entry[0] = max(entry[0], err)
         if timed:
             entry[1].append(call)
             entry[2].append(work)
+            entry[3].append(stats)
 
     # the config-3 walks: every sweep of K2's frame, chunk 0 of the others
     for name, variant in (("stream_walk8", "default"), ("stream_walk2", "binary"),
@@ -458,44 +623,14 @@ def phase_kernels(rs):
         "whole-tree walks: the soup's closest-hit rays; kernel: mean of 20 "
         "launches after one; plain: the PyTorch version on the card, one run)")
     res = {}
-    for name, (err, calls, works) in out.items():
-        ms, plain_ms = time_walks(name, calls)
+    for name, (err, calls, works, stats) in out.items():
+        ms, plain_ms = time_walks(name, calls, stats)
         b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
         res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
 
-    # K5: each kernel on the widest recorded sort's keys (the sorted carry)
-    ops = max(sorts, key=lambda x: sum(o[0].numel() for o in x))
-    n = ops[0].shape[0]
-    key = ops[0].clone()
-    lane = torch.arange(n, dtype=torch.int32, device=DEVICE)
-    rw = n * (8 + 4) * 2  # key and lane read and written once
-    stages = sum(range(1, 12))  # 66: log2(k) stages for each k = 2 .. 2048
-    for kname, kern, plain, lib in (
-        ("bitonic_local", lambda: bitonic.bitonic_local(key, lane, 2, 2048),
-         lambda: bitonic.bitonic_local_plain(key, lane, 2, 2048),
-         lambda: torch.sort(key.view(-1, 2048), dim=1)),
-        ("bitonic_merge", lambda: bitonic.bitonic_merge(key, lane, n, n // 2),
-         lambda: bitonic.bitonic_merge_plain(key, lane, n, n // 2), None),
-    ):
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 1, warmup=False)
-        lib_ms = cuda_ms(lib, 20) if lib else None
-        # one unsigned compare per pair per stage (operations); bytes dominate
-        pairs = n // 2 * (stages if kname == "bitonic_local" else 1)
-        b_ms, b_by = bound(rw, pairs)
-        res[kname] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms)
-        log(f"  {kname} ({n} lanes): kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), PyTorch {lib_ms} ms")
-    cols = sum(o[0].numel() for o in ops)
-    sort_ms = cuda_ms(lambda: co_sort(ops, "bitonic"), 20)
-    torch_ms = cuda_ms(lambda: co_sort(ops, "stable"), 20)
-    log(f"  co_sort of {n} lanes x {cols} columns: bitonic network + gathers "
-        f"{sort_ms:.4f} ms, torch.sort(stable=True) + one gather per operand "
-        f"{torch_ms:.4f} ms")
-    res["bitonic_local"]["co_sort_ms"] = sort_ms
-    res["bitonic_local"]["torch_sort_ms"] = torch_ms
+    # K5: the widest recorded sort (the sorted carry)
+    res.update(phase_sort(max(sorts, key=lambda x: sum(o[0].numel() for o in x))))
     for name, r in res.items():
         log(f"  {name}: kernel {r['ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
             f"({r['bound_by']}), {r['bound_ms'] / r['ms']:.2%} of it")
@@ -529,7 +664,7 @@ def phase_main_path(rs):
         # bounce but the last
         want = chunks[variant] * (
             per_sort(kname, chunk_lanes(rs[variant])) * 2 * (closest - 1)
-            if kname.startswith("bitonic") else closest + shadow)
+            if variant == "bitonic" else closest + shadow)
         if launches[variant].get(kname, 0) != want or want == 0:
             raise AssertionError(f"{kname} launched {launches[variant].get(kname, 0)} "
                                  f"times in the {variant} frame, want {want}")

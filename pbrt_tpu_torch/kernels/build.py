@@ -2,9 +2,12 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers: seconds to build, not minutes) and loaded
-through ctypes.  A library is named after the hash of its source and the
-flags, ``build/pbrt_tpu_torch_kernels/lib<name>.<hash>.so`` at the
-repository root, so a change to either rebuilds it; a build writes a
+through ctypes.  A constant that both a source and its Python module
+use is owned by the module: ``kernels/<name>.py`` lists it in
+``NVCC_DEFINES`` and the source is compiled with it as a ``-D`` value.
+A library is named after the hash of its source and the flags,
+``build/pbrt_tpu_torch_kernels/lib<name>.<hash>.so`` at the repository
+root, so a change to either rebuilds it; a build writes a
 per-process temporary file and renames it into place, so concurrent
 builders never load a partial file.  :func:`build` starts one ``nvcc``
 per missing library, all together, and waits for them.  A failed build
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import subprocess
 import threading
@@ -41,9 +45,16 @@ def _nvcc() -> str:
     return str(cand) if cand.exists() else "nvcc"
 
 
+def flags(name: str) -> list[str]:
+    """nvcc flags of ``csrc/<name>.cu``: NVCC_FLAGS and the ``-D`` values
+    of its module's ``NVCC_DEFINES``."""
+    defines = getattr(importlib.import_module(f"{__package__}.{name}"), "NVCC_DEFINES", {})
+    return NVCC_FLAGS + [f"-D{k}={v}" for k, v in sorted(defines.items())]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}.{digest.hexdigest()[:8]}.so"
 
 
@@ -59,7 +70,7 @@ def build(names=SOURCES) -> float:
             continue
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
         procs[name] = (out, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []

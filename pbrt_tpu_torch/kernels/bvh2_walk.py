@@ -6,7 +6,11 @@ Three wrappers over the hand-written kernels in ``csrc/bvh2_walk.cu``:
   (K4: the ordered near-first stack walk over one whole binary tree);
 * :func:`stream_walk2` replaces ``pbrt_tpu/ops/stream_bvh.py::_stream_kernel``
   with the binary walk ``_walk_tree`` (K4) or, with ``fused=True``,
-  ``_walk_tree_fused`` (K4b: leaf children tested at their parent);
+  ``_walk_tree_fused`` (K4b: leaf children tested at their parent); each
+  CTA stages its candidate clusters' node rows in shared memory, so a
+  cluster may hold at most ``MAX_STAGED_ROWS`` node rows, and keeps a
+  per-thread stack of ``stack_capacity(depth)`` entries there, ``depth``
+  being the deepest cluster tree (``ops/stream_bvh.tree_depth``);
 * :func:`skip_walk` replaces ``pbrt_tpu/ops/pallas_bvh.py::_traverse_kernel``
   (K6: the skip-link walk over 4-triangle leaves, returning barycentrics).
 
@@ -42,6 +46,10 @@ from pbrt_tpu_torch.kernels.bvh8_walk import (
 )
 
 NODE2_COLS = 16
+MAX_STAGED_ROWS = 1024  # node rows per cluster the streaming walk stages
+# csrc/bvh2_walk.cu is compiled with these values (build.flags)
+NVCC_DEFINES = {"MAX_STAGED_ROWS": MAX_STAGED_ROWS}
+STACK_CAPACITIES = (16, 32, 64, STACK_DEPTH)  # the streaming walk's stack templates
 
 LAUNCHES = {"ordered_walk2": 0, "stream_walk2": 0, "stream_walk2_fused": 0,
             "skip_walk": 0}
@@ -62,12 +70,20 @@ def load_library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.launch_ordered_walk2.argtypes = [p] * 12 + [i] * 2 + [p]
         lib.launch_ordered_walk2.restype = i
-        lib.launch_stream_walk2.argtypes = [p] * 14 + [i] * 6 + [p]
+        lib.launch_stream_walk2.argtypes = [p] * 14 + [i] * 7 + [p]
         lib.launch_stream_walk2.restype = i
         lib.launch_skip_walk.argtypes = [p] * 14 + [i] * 4 + [p]
         lib.launch_skip_walk.restype = i
         _lib = lib
     return _lib
+
+
+def stack_capacity(depth: int) -> int:
+    """Stack entries for trees of ``depth`` levels below the root: the
+    smallest template of at least ``depth`` (a binary walk holds at most
+    one entry per level above its node, so it never clamps), else the
+    reference's 96 with clamped writes."""
+    return next((c for c in STACK_CAPACITIES if depth <= c), STACK_DEPTH)
 
 
 def _cuda_device(name, x):
@@ -110,16 +126,20 @@ def ordered_walk2(nodes, tris, root, comps, any_hit=False):
     return t_out, prim_out
 
 
-def stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=False, fused=False):
+def stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=False, fused=False, *,
+                 depth):
     """Phase B of the binary streaming traversal (K4, K4b with ``fused``).
 
-    nodes [C, NP, 16] f32, tris [C, LP, 128] f32, roots [C] i32, clist
-    [B, K] i32 and cnt [B] i32 from phase A, comps = 7 [N] f32 ray
-    columns with N = B * 1024.  Returns (t [N] f32 starting at each ray's
-    t_max, slot [N] i32 = ``cid * LP * 8 + slot``, -1 = miss).
-    """
+    nodes [C, NP, 16] f32 (NP <= MAX_STAGED_ROWS: ``StreamBVH`` checks it
+    when it packs them, and the launch refuses more), tris [C, LP, 128]
+    f32, roots [C] i32, clist [B, K] i32 and cnt [B] i32 from phase A,
+    comps = 7 [N] f32 ray columns with N = B * 1024, ``depth`` the
+    deepest cluster tree (picks the stack).  Returns (t [N] f32 starting
+    at each ray's t_max, slot [N] i32 = ``cid * LP * 8 + slot``, -1 =
+    miss)."""
     if nodes.device.type == "cpu":
-        return stream_walk2_plain(nodes, tris, roots, clist, cnt, comps, any_hit, fused)
+        return stream_walk2_plain(nodes, tris, roots, clist, cnt, comps, any_hit, fused,
+                                  depth=depth)
     dev = _cuda_device("stream_walk2", nodes)
     build.check_tensor("nodes", nodes, torch.float32, dev, 3)
     build.check_tensor("tris", tris, torch.float32, dev, 3)
@@ -140,7 +160,7 @@ def stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=False, fused=Fal
         cnt.data_ptr(), *[c.data_ptr() for c in comps],
         t_out.data_ptr(), prim_out.data_ptr(),
         n, clist.shape[1], nodes.shape[1], tris.shape[1], int(any_hit), int(fused),
-        torch.cuda.current_stream(dev).cuda_stream,
+        stack_capacity(int(depth)), torch.cuda.current_stream(dev).cuda_stream,
     )
     LAUNCHES["stream_walk2_fused" if fused else "stream_walk2"] += 1
     return t_out, prim_out
@@ -199,8 +219,9 @@ def ordered_walk2_plain(nodes, tris, root, comps, any_hit=False, counters=None):
 
 
 def stream_walk2_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False,
-                       fused=False, counters=None):
-    """Plain version of :func:`stream_walk2` (same arguments, any device)."""
+                       fused=False, counters=None, *, depth):
+    """Plain version of :func:`stream_walk2` (same arguments, any device;
+    its stack has the kernel's ``stack_capacity(depth)`` entries)."""
     n = comps[0].shape[0]
     t_max = comps[6]
     block = torch.arange(n, device=t_max.device) // BLOCK
@@ -208,7 +229,7 @@ def stream_walk2_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False,
     return walk2_plain(
         nodes.reshape(-1, NODE2_COLS), tris.reshape(-1, 128), roots.long(),
         clist.long()[block], ncand, nodes.shape[1], tris.shape[1], comps[:6],
-        t_max.clone(), any_hit, fused, counters,
+        t_max.clone(), any_hit, fused, counters, stack_capacity(int(depth)),
     )
 
 
@@ -270,22 +291,24 @@ def _leaf_tests(tris, leaves_pad, lanes, ref, cid, o, d, best_t, best_prim, slot
 
 
 def walk2_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
-                best_t, any_hit, fused, counters=None):
+                best_t, any_hit, fused, counters=None, stack_cap=STACK_DEPTH):
     """Lane-vectorised ordered binary walk over candidate trees.
 
     nodes [R, 16] and tris [S, 128] hold every tree's rows back to back
     (tree ``cid`` starts at node row ``cid * nodes_pad`` and leaf row
     ``cid * leaves_pad``); lane i walks trees ``cand[i, :ncand[i]]`` in
     order from ``roots[cid]``, carrying (best_t, slot), with its own stack
-    and its own direction octant, step for step as a CUDA thread does
-    (``fused``: the fused-leaf walk).  Returns (best_t [N] f32, slot [N]
-    i32).
+    of ``stack_cap`` entries (writes clamped to the last) and its own
+    direction octant, step for step as a CUDA thread does (``fused``: the
+    fused-leaf walk).  ``counters`` also records ``stack_max``, the most
+    entries a lane's stack held.  Returns (best_t [N] f32, slot [N] i32).
     """
     ox, oy, oz, dx, dy, dz = rays
     dev = best_t.device
     n = best_t.shape[0]
     if counters is not None:
         init_counters(counters, nodes.shape[0], tris.shape[0], dev)
+        counters.setdefault("stack_max", 0)
     o = torch.stack([ox, oy, oz], dim=1)
     d = torch.stack([dx, dy, dz], dim=1)
     inv = torch.stack([safe_inv(dx), safe_inv(dy), safe_inv(dz)], dim=1)
@@ -293,7 +316,7 @@ def walk2_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
     slots = leaves_pad * LEAF_SLOTS
     n_cand = cand.shape[1]
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    stack = torch.zeros((n, stack_cap), dtype=torch.int64, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
     k = torch.zeros(n, dtype=torch.int64, device=dev)
     cid = cand[:, 0].clone()
@@ -355,8 +378,10 @@ def walk2_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
             both = hl & hr
             if both.any():
                 bi = ii[both]
-                stack[bi, torch.clamp(sp[bi], max=STACK_DEPTH - 1)] = far[both]
+                stack[bi, torch.clamp(sp[bi], max=stack_cap - 1)] = far[both]
                 sp[bi] += 1
+                if counters is not None:
+                    counters["stack_max"] = max(counters["stack_max"], int(sp[bi].max()))
             ref[ii] = torch.where(both, near, torch.where(hl, lref, rref))
             pop[inner] = ~(hl | hr)
 
@@ -364,7 +389,7 @@ def walk2_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
         pi = idx[pop]
         s = sp[pi]
         empty = s <= 0
-        ref[pi] = stack[pi, torch.clamp(s - 1, 0, STACK_DEPTH - 1)]
+        ref[pi] = stack[pi, torch.clamp(s - 1, 0, stack_cap - 1)]
         sp[pi] = torch.clamp(s - 1, min=0)
         emptied = torch.zeros_like(pop)
         emptied[pop] = empty

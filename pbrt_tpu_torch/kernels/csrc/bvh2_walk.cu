@@ -16,20 +16,28 @@
 // the GPU.  The TPU walked 1024-ray packets with one scalar cursor (the
 // skip walk descended where ANY lane hit the box; the ordered walks
 // picked the near child by one representative lane's direction octant).
-// Here every thread walks its own ray: its own stack (96 ints in local
-// memory, writes clamped to the last entry as in pallas_bvh.py), its own
-// octant for the near-first bit in node column 14, its own box tests.
-// Results may then differ from the reference only on exact t ties; they
-// are bit-equal to the plain PyTorch versions in kernels/bvh2_walk.py,
-// which visit in the same per-ray order.  Built with -fmad=false so that
-// every float operation rounds as PyTorch's does.
+// Here every thread walks its own ray: its own stack (writes clamped to
+// the last entry as in pallas_bvh.py), its own octant for the near-first
+// bit in node column 14, its own box tests.  Results may then differ from
+// the reference only on exact t ties; they are bit-equal to the plain
+// PyTorch versions in kernels/bvh2_walk.py, which visit in the same
+// per-ray order.  Built with -fmad=false so that every float operation
+// rounds as PyTorch's does.
 //
 // Bound on this card: every step is a dependent fetch (a 64-byte node row,
-// a 512-byte leaf row, or a 32+16-byte skip node) through the read-only
-// cache, so the walks are latency-bound on those fetches and lose
-// throughput to divergence between the rays of a warp; the integrator
-// hands them direction-sorted rays, which keeps warps coherent.  Nothing
-// here hides that latency yet.
+// a 512-byte leaf row, or a 32+16-byte skip node), so the walks are
+// latency-bound on those fetches and lose throughput to divergence
+// between the rays of a warp; the integrator hands them direction-sorted
+// rays, which keeps warps coherent.  The streaming walk takes its node
+// fetches off device memory: a CTA's 128 threads lie in one 1024-ray
+// stream block and walk the same candidate clusters, so each cluster's
+// node rows are copied once into shared memory with cp.async,
+// double-buffered so that the next cluster's rows arrive while this one
+// is walked (one CTA barrier per cluster); triangles are read as three
+// 16-byte loads; the stack (16, 32, 64 or 96 entries, a template picked
+// from the deepest cluster tree the host packed) lives in shared memory,
+// not local memory.  The whole-tree walk keeps its rows in global memory
+// and its 96-entry stack in local memory.
 //
 // Layouts (pbrt_tpu/ops/pallas_bvh.py): ordered node rows of 16 f32 --
 // left box in cols 0..5, right box in 6..11 (min xyz, max xyz), child
@@ -50,6 +58,11 @@
 #define RAY_EPS 1e-4f
 #define INERT_T (-1e30f)
 #define THREADS 128
+// MAX_STAGED_ROWS, the node rows per staged cluster (1024: two 64 KB
+// buffers), comes from kernels/bvh2_walk.py (NVCC_DEFINES) as a -D value.
+#ifndef MAX_STAGED_ROWS
+#error "compile with the -D values of kernels/bvh2_walk.py::NVCC_DEFINES (kernels/build.py)"
+#endif
 
 namespace {
 
@@ -74,28 +87,35 @@ __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
   return r;
 }
 
-// Slab test of the box at b (min xyz, max xyz) against (0, best_t).
-__device__ __forceinline__ bool slab(const float* __restrict__ b, const Ray& r,
-                                     float best_t) {
-  const float tlx = (__ldg(b + 0) - r.ox) * r.ix;
-  const float thx = (__ldg(b + 3) - r.ox) * r.ix;
-  const float tly = (__ldg(b + 1) - r.oy) * r.iy;
-  const float thy = (__ldg(b + 4) - r.oy) * r.iy;
-  const float tlz = (__ldg(b + 2) - r.oz) * r.iz;
-  const float thz = (__ldg(b + 5) - r.oz) * r.iz;
+// Slab test of the box (min xyz, max xyz) at b against (0, best_t).
+__device__ __forceinline__ bool slab_v(const float* b, const Ray& r, float best_t) {
+  const float tlx = (b[0] - r.ox) * r.ix;
+  const float thx = (b[3] - r.ox) * r.ix;
+  const float tly = (b[1] - r.oy) * r.iy;
+  const float thy = (b[4] - r.oy) * r.iy;
+  const float tlz = (b[2] - r.oz) * r.iz;
+  const float thz = (b[5] - r.oz) * r.iz;
   const float t_near = fmaxf(fmaxf(fminf(tlx, thx), fminf(tly, thy)), fminf(tlz, thz));
   const float t_far = fminf(fminf(fmaxf(tlx, thx), fmaxf(tly, thy)), fmaxf(tlz, thz));
   return t_near <= t_far && t_far > RAY_EPS && t_near < best_t;
 }
 
-// Moller-Trumbore on the triangle at t (p0 p1 p2); true on a hit nearer
+// The same on a box in global memory, read through the read-only cache.
+__device__ __forceinline__ bool slab(const float* __restrict__ b, const Ray& r,
+                                     float best_t) {
+  float v[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) v[c] = __ldg(b + c);
+  return slab_v(v, r, best_t);
+}
+
+// Moller-Trumbore on the triangle p = (p0 p1 p2); true on a hit nearer
 // than best_t, with (tt, b0, b1) set.
-__device__ __forceinline__ bool tri_test(const float* __restrict__ t, const Ray& r,
-                                         float best_t, float& tt, float& b0,
-                                         float& b1) {
-  const float p0x = __ldg(t + 0), p0y = __ldg(t + 1), p0z = __ldg(t + 2);
-  const float e1x = __ldg(t + 3) - p0x, e1y = __ldg(t + 4) - p0y, e1z = __ldg(t + 5) - p0z;
-  const float e2x = __ldg(t + 6) - p0x, e2y = __ldg(t + 7) - p0y, e2z = __ldg(t + 8) - p0z;
+__device__ __forceinline__ bool tri_test_v(const float (&p)[9], const Ray& r, float best_t,
+                                           float& tt, float& b0, float& b1) {
+  const float p0x = p[0], p0y = p[1], p0z = p[2];
+  const float e1x = p[3] - p0x, e1y = p[4] - p0y, e1z = p[5] - p0z;
+  const float e2x = p[6] - p0x, e2y = p[7] - p0y, e2z = p[8] - p0z;
   const float pvx = r.dy * e2z - r.dz * e2y;
   const float pvy = r.dz * e2x - r.dx * e2z;
   const float pvz = r.dx * e2y - r.dy * e2x;
@@ -113,17 +133,85 @@ __device__ __forceinline__ bool tri_test(const float* __restrict__ t, const Ray&
          tt < best_t;
 }
 
+// The same on the triangle at t in global memory, read as 9 scalars.
+__device__ __forceinline__ bool tri_test(const float* __restrict__ t, const Ray& r,
+                                         float best_t, float& tt, float& b0, float& b1) {
+  float p[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) p[c] = __ldg(t + c);
+  return tri_test_v(p, r, best_t, tt, b0, b1);
+}
+
+// One ordered node row: both children's boxes, their refs, the mask.
+struct NodeRow {
+  float box[12];
+  int left, right, mask;
+};
+
+// Where a walk finds its rows and keeps its stack.  GlobalTables: node and
+// leaf rows through the read-only cache, scalar loads, the stack in local
+// memory (the whole-tree walk).  StagedTables<CAP>: node rows staged in
+// shared memory by the CTA (stage_nodes), triangles as three 16-byte
+// loads, a CAP-entry stack per thread in shared memory.
+struct GlobalTables {
+  static constexpr int CAP = STACK_DEPTH;
+  const float* nodes;
+  const float* tris;
+  int* stack;
+  __device__ __forceinline__ void node(int ref, NodeRow& n) const {
+    const float* nf = nodes + (size_t)ref * NODE2_COLS;
+#pragma unroll
+    for (int c = 0; c < 12; ++c) n.box[c] = __ldg(nf + c);
+    n.left = (int)__ldg(nf + 12);
+    n.right = (int)__ldg(nf + 13);
+    n.mask = (int)__ldg(nf + 14);
+  }
+  __device__ __forceinline__ void tri(const float* t, float (&p)[9]) const {
+#pragma unroll
+    for (int c = 0; c < 9; ++c) p[c] = __ldg(t + c);
+  }
+  __device__ __forceinline__ int& slot(int i) const { return stack[i]; }
+};
+
+template <int CAP_>
+struct StagedTables {
+  static constexpr int CAP = CAP_;
+  const float4* nodes;  // shared memory
+  const float* tris;
+  int* stack;  // shared memory: entry e of this thread at stack[e * THREADS]
+  __device__ __forceinline__ void node(int ref, NodeRow& n) const {
+    const int sw = (ref >> 1) & 3;  // the swizzle of stage_nodes
+    const float4 a = nodes[4 * ref + sw], b = nodes[4 * ref + (1 ^ sw)];
+    const float4 c = nodes[4 * ref + (2 ^ sw)], d = nodes[4 * ref + (3 ^ sw)];
+    n.box[0] = a.x; n.box[1] = a.y; n.box[2] = a.z; n.box[3] = a.w;
+    n.box[4] = b.x; n.box[5] = b.y; n.box[6] = b.z; n.box[7] = b.w;
+    n.box[8] = c.x; n.box[9] = c.y; n.box[10] = c.z; n.box[11] = c.w;
+    n.left = (int)d.x;
+    n.right = (int)d.y;
+    n.mask = (int)d.z;
+  }
+  __device__ __forceinline__ void tri(const float* t, float (&p)[9]) const {
+    const float4* t4 = reinterpret_cast<const float4*>(t);  // 64-byte aligned slots
+    const float4 a = __ldg(t4), b = __ldg(t4 + 1), c = __ldg(t4 + 2);
+    p[0] = a.x; p[1] = a.y; p[2] = a.z; p[3] = a.w;
+    p[4] = b.x; p[5] = b.y; p[6] = b.z; p[7] = b.w;
+    p[8] = c.x;
+  }
+  __device__ __forceinline__ int& slot(int i) const { return stack[i * THREADS]; }
+};
+
 // All triangles of the leaf `ref`, in slot order; ids prim_base + slot.
-__device__ __forceinline__ void leaf_test(const float* __restrict__ tris, int ref,
-                                          const Ray& r, float& best_t, int& best_prim,
-                                          int prim_base) {
+template <class Tab>
+__device__ __forceinline__ void leaf_test(const Tab& tab, int ref, const Ray& r,
+                                          float& best_t, int& best_prim, int prim_base) {
   const int code = -ref - 1;
   const int first = (code >> LEAF_COUNT_BITS) << 3;
   const int count = code & ((1 << LEAF_COUNT_BITS) - 1);
-  const float* leaf = tris + (size_t)(first >> 3) * ROW_COLS;
+  const float* leaf = tab.tris + (size_t)(first >> 3) * ROW_COLS;
   for (int k = 0; k < count; ++k) {
-    float tt, b0, b1;
-    if (tri_test(leaf + (k >> 3) * ROW_COLS + 16 * (k & 7), r, best_t, tt, b0, b1)) {
+    float p[9], tt, b0, b1;
+    tab.tri(leaf + (k >> 3) * ROW_COLS + 16 * (k & 7), p);
+    if (tri_test_v(p, r, best_t, tt, b0, b1)) {
       best_prim = prim_base + first + k;
       best_t = tt;
     }
@@ -131,41 +219,43 @@ __device__ __forceinline__ void leaf_test(const float* __restrict__ tris, int re
 }
 
 // Ordered near-first walk of one packed binary tree from `root`
-// (stream_bvh.py::_walk_tree).  Returns true when an any-hit walk found a
-// hit (best_t is then inert and the thread is done).
-__device__ bool walk2(const float* __restrict__ nodes, const float* __restrict__ tris,
-                      int root, const Ray& r, float& best_t, int& best_prim,
-                      int prim_base, bool any_hit, int* stack) {
+// (stream_bvh.py::_walk_tree).  Stack writes clamp to entry CAP - 1, as
+// in pallas_bvh.py; a stack of at least the tree's depth never clamps (a
+// binary walk holds at most one entry per level above the current node).
+// Returns true when an any-hit walk found a hit (best_t is then inert and
+// the thread is done).
+template <class Tab>
+__device__ __forceinline__ bool walk2(const Tab& tab, int root, const Ray& r, float& best_t,
+                                      int& best_prim, int prim_base, bool any_hit) {
   int ref = root;
   int sp = 0;
   while (true) {
     bool pop = true;
     if (ref < 0) {
-      leaf_test(tris, ref, r, best_t, best_prim, prim_base);
+      leaf_test(tab, ref, r, best_t, best_prim, prim_base);
       if (any_hit && best_prim >= 0) {
         best_t = INERT_T;
         return true;
       }
     } else {
-      const float* nf = nodes + (size_t)ref * NODE2_COLS;
-      const bool hl = slab(nf, r, best_t);
-      const bool hr = slab(nf + 6, r, best_t);
-      const int l = (int)__ldg(nf + 12);
-      const int rr = (int)__ldg(nf + 13);
-      const bool left_first = (((int)__ldg(nf + 14) >> r.octant) & 1) == 1;
+      NodeRow nd;
+      tab.node(ref, nd);
+      const bool hl = slab_v(nd.box, r, best_t);
+      const bool hr = slab_v(nd.box + 6, r, best_t);
+      const bool left_first = ((nd.mask >> r.octant) & 1) == 1;
       if (hl && hr) {
-        stack[min(sp, STACK_DEPTH - 1)] = left_first ? rr : l;
+        tab.slot(min(sp, Tab::CAP - 1)) = left_first ? nd.right : nd.left;
         sp += 1;
-        ref = left_first ? l : rr;
+        ref = left_first ? nd.left : nd.right;
         pop = false;
       } else if (hl || hr) {
-        ref = hl ? l : rr;
+        ref = hl ? nd.left : nd.right;
         pop = false;
       }
     }
     if (pop) {
       if (sp <= 0) return false;
-      ref = stack[min(sp - 1, STACK_DEPTH - 1)];
+      ref = tab.slot(min(sp - 1, Tab::CAP - 1));
       sp -= 1;
     }
   }
@@ -175,33 +265,34 @@ __device__ bool walk2(const float* __restrict__ nodes, const float* __restrict__
 // box-tested first, then leaf children are tested at the parent, left
 // before right; only interior children are descended.  An any-hit walk
 // stops after the step that found a hit (t keeps the hit's value).
-__device__ bool walk2_fused(const float* __restrict__ nodes,
-                            const float* __restrict__ tris, int root, const Ray& r,
-                            float& best_t, int& best_prim, int prim_base,
-                            bool any_hit, int* stack) {
+template <class Tab>
+__device__ __forceinline__ bool walk2_fused(const Tab& tab, int root, const Ray& r,
+                                            float& best_t, int& best_prim, int prim_base,
+                                            bool any_hit) {
   if (root < 0) {
-    leaf_test(tris, root, r, best_t, best_prim, prim_base);
+    leaf_test(tab, root, r, best_t, best_prim, prim_base);
     return any_hit && best_prim >= 0;
   }
   int node = root;
   int sp = 0;
   while (true) {
-    const float* nf = nodes + (size_t)node * NODE2_COLS;
-    const bool hl = slab(nf, r, best_t);
-    const bool hr = slab(nf + 6, r, best_t);
-    const int l = (int)__ldg(nf + 12);
-    const int rr = (int)__ldg(nf + 13);
-    if (hl && l < 0) leaf_test(tris, l, r, best_t, best_prim, prim_base);
-    if (hr && rr < 0) leaf_test(tris, rr, r, best_t, best_prim, prim_base);
+    NodeRow nd;
+    tab.node(node, nd);
+    const bool hl = slab_v(nd.box, r, best_t);
+    const bool hr = slab_v(nd.box + 6, r, best_t);
+    const int l = nd.left;
+    const int rr = nd.right;
+    if (hl && l < 0) leaf_test(tab, l, r, best_t, best_prim, prim_base);
+    if (hr && rr < 0) leaf_test(tab, rr, r, best_t, best_prim, prim_base);
     const bool go_l = hl && l >= 0;
     const bool go_r = hr && rr >= 0;
-    const bool left_first = (((int)__ldg(nf + 14) >> r.octant) & 1) == 1;
+    const bool left_first = ((nd.mask >> r.octant) & 1) == 1;
     const bool near_go = left_first ? go_l : go_r;
     const bool far_go = left_first ? go_r : go_l;
     const int near = left_first ? l : rr;
     const int far = left_first ? rr : l;
     if (near_go && far_go) {
-      stack[min(sp, STACK_DEPTH - 1)] = far;
+      tab.slot(min(sp, Tab::CAP - 1)) = far;
       sp += 1;
     }
     if (near_go) {
@@ -210,11 +301,30 @@ __device__ bool walk2_fused(const float* __restrict__ nodes,
       node = far;
     } else {
       if (sp <= 0) return any_hit && best_prim >= 0;
-      node = stack[min(sp - 1, STACK_DEPTH - 1)];
+      node = tab.slot(min(sp - 1, Tab::CAP - 1));
       sp -= 1;
     }
     if (any_hit && best_prim >= 0) return true;
   }
+}
+
+// Asynchronous 16-byte copies global -> shared (cp.async, sm_80+).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// The CTA copies `rows` node rows from src into a staging buffer, chunk c
+// of row r at float4 4 r + (c ^ ((r >> 1) & 3)) so that the rows the
+// threads of a warp read spread over the banks; one commit group per
+// thread (possibly empty).
+__device__ __forceinline__ void stage_nodes(float4* dst, const float* src, int rows) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  for (int q = threadIdx.x; q < rows * 4; q += THREADS) {
+    const int r = q >> 2;
+    cp_async16(dst + 4 * r + ((q & 3) ^ ((r >> 1) & 3)), s4 + q);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -234,44 +344,58 @@ ordered_walk2_kernel(const float* __restrict__ nodes, const float* __restrict__ 
   if (t0 > RAY_EPS) {
     int stack[STACK_DEPTH];
     const Ray r = make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
-    walk2(nodes, tris, root[0], r, best_t, best_prim, 0, any_hit != 0, stack);
+    const GlobalTables tab{nodes, tris, stack};
+    walk2(tab, root[0], r, best_t, best_prim, 0, any_hit != 0);
   }
   t_out[i] = best_t;
   prim_out[i] = best_prim;
 }
 
-template <bool FUSED>
-__global__ void __launch_bounds__(THREADS)
+// One CTA of THREADS rays of one 1024-ray stream block, so all its threads
+// walk the same candidate list.  Cluster k's node rows are staged in
+// buffer k & 1 of shared memory; one barrier per cluster makes them
+// visible and frees the other buffer (every thread is past cluster
+// k - 1), whose copy of cluster k + 1 is then issued to land while
+// cluster k is walked.  Threads whose ray is dead or done keep taking
+// part in the barriers; a CTA with no live ray stages nothing.  At most
+// 8 CTAs of 128 threads per SM: 64 registers, and no spills there.
+template <bool FUSED, int CAP>
+__global__ void __launch_bounds__(THREADS, 8)
 stream_walk2_kernel(const float* __restrict__ nodes, const float* __restrict__ tris,
                     const int* __restrict__ roots, const int* __restrict__ clist,
                     const int* __restrict__ cnt, const float* __restrict__ ox,
                     const float* __restrict__ oy, const float* __restrict__ oz,
                     const float* __restrict__ dx, const float* __restrict__ dy,
                     const float* __restrict__ dz, const float* __restrict__ tmax,
-                    float* __restrict__ t_out, int* __restrict__ prim_out, int n,
-                    int n_cand, int nodes_pad, int leaves_pad, int any_hit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                    float* __restrict__ t_out, int* __restrict__ prim_out, int n_cand,
+                    int nodes_pad, int leaves_pad, int any_hit) {
+  extern __shared__ float4 smem[];  // two staging buffers, then the stacks
+  int* const stack = reinterpret_cast<int*>(smem + 8 * nodes_pad) + threadIdx.x;
+  const int i = blockIdx.x * THREADS + threadIdx.x;  // the launch covers n exactly
   // t starts at the ray's own t_max; dead lanes keep it and skip the walk
   // (no triangle satisfies RAY_EPS < t < t_max <= RAY_EPS)
   float best_t = tmax[i];
   int best_prim = -1;
-  if (best_t > RAY_EPS) {
-    int stack[STACK_DEPTH];
-    const Ray r = make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
-    const int b = i / STREAM_BLOCK;
-    const int nc = cnt[b];
-    const int slots = leaves_pad * 8;
-    for (int k = 0; k < nc; ++k) {
-      const int cid = clist[(size_t)b * n_cand + k];
-      const float* cn = nodes + (size_t)cid * nodes_pad * NODE2_COLS;
-      const float* ct = tris + (size_t)cid * leaves_pad * ROW_COLS;
+  bool active = best_t > RAY_EPS;
+  const Ray r = make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
+  const int b = i / STREAM_BLOCK;
+  const int nc = __syncthreads_or(active) ? cnt[b] : 0;
+  const int* cl = clist + (size_t)b * n_cand;
+  const int slots = leaves_pad * 8;
+  const auto rows = [&](int k) { return nodes + (size_t)cl[k] * nodes_pad * NODE2_COLS; };
+  const auto buf = [&](int k) { return smem + (k & 1) * 4 * nodes_pad; };
+  if (nc > 0) stage_nodes(buf(0), rows(0), nodes_pad);
+  for (int k = 0; k < nc; ++k) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // this thread's copies of k
+    __syncthreads();
+    if (k + 1 < nc) stage_nodes(buf(k + 1), rows(k + 1), nodes_pad);
+    if (active) {
+      const int cid = cl[k];
+      const StagedTables<CAP> tab{buf(k), tris + (size_t)cid * leaves_pad * ROW_COLS, stack};
       const bool found =
-          FUSED ? walk2_fused(cn, ct, roots[cid], r, best_t, best_prim, cid * slots,
-                              any_hit != 0, stack)
-                : walk2(cn, ct, roots[cid], r, best_t, best_prim, cid * slots,
-                        any_hit != 0, stack);
-      if (found) break;
+          FUSED ? walk2_fused(tab, roots[cid], r, best_t, best_prim, cid * slots, any_hit != 0)
+                : walk2(tab, roots[cid], r, best_t, best_prim, cid * slots, any_hit != 0);
+      if (found) active = false;
     }
   }
   t_out[i] = best_t;
@@ -325,6 +449,41 @@ skip_walk_kernel(const float* __restrict__ nodes_f, const int* __restrict__ node
 
 int grid_for(int n) { return (n + THREADS - 1) / THREADS; }
 
+template <bool FUSED, int CAP>
+int stream_walk2(const float* nodes, const float* tris, const int* roots, const int* clist,
+                 const int* cnt, const float* ox, const float* oy, const float* oz,
+                 const float* dx, const float* dy, const float* dz, const float* tmax,
+                 float* t_out, int* prim_out, int n, int n_cand, int nodes_pad,
+                 int leaves_pad, int any_hit, cudaStream_t stream) {
+  const int smem = (2 * nodes_pad * NODE2_COLS + CAP * THREADS) * 4;  // f32 rows, i32 stacks
+  const cudaError_t err = cudaFuncSetAttribute(
+      stream_walk2_kernel<FUSED, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  stream_walk2_kernel<FUSED, CAP><<<n / THREADS, THREADS, smem, stream>>>(
+      nodes, tris, roots, clist, cnt, ox, oy, oz, dx, dy, dz, tmax, t_out, prim_out, n_cand,
+      nodes_pad, leaves_pad, any_hit);
+  return (int)cudaGetLastError();
+}
+
+template <bool FUSED>
+int stream_walk2_cap(int cap, const float* nodes, const float* tris, const int* roots,
+                     const int* clist, const int* cnt, const float* ox, const float* oy,
+                     const float* oz, const float* dx, const float* dy, const float* dz,
+                     const float* tmax, float* t_out, int* prim_out, int n, int n_cand,
+                     int nodes_pad, int leaves_pad, int any_hit, cudaStream_t stream) {
+#define STREAM_WALK2_ARGS                                                                  \
+  nodes, tris, roots, clist, cnt, ox, oy, oz, dx, dy, dz, tmax, t_out, prim_out, n, n_cand, \
+      nodes_pad, leaves_pad, any_hit, stream
+  switch (cap) {
+    case 16: return stream_walk2<FUSED, 16>(STREAM_WALK2_ARGS);
+    case 32: return stream_walk2<FUSED, 32>(STREAM_WALK2_ARGS);
+    case 64: return stream_walk2<FUSED, 64>(STREAM_WALK2_ARGS);
+    case STACK_DEPTH: return stream_walk2<FUSED, STACK_DEPTH>(STREAM_WALK2_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef STREAM_WALK2_ARGS
+}
+
 }  // namespace
 
 extern "C" int launch_ordered_walk2(const float* nodes, const float* tris,
@@ -337,23 +496,25 @@ extern "C" int launch_ordered_walk2(const float* nodes, const float* tris,
   return (int)cudaGetLastError();
 }
 
+// stack_cap: 16, 32, 64 or 96 entries per thread (the smallest at least
+// the deepest cluster tree; 96 clamps as the reference does); n a
+// multiple of STREAM_BLOCK; nodes_pad at most MAX_STAGED_ROWS.
 extern "C" int launch_stream_walk2(const float* nodes, const float* tris,
                                    const int* roots, const int* clist, const int* cnt,
                                    const float* ox, const float* oy, const float* oz,
                                    const float* dx, const float* dy, const float* dz,
                                    const float* tmax, float* t_out, int* prim_out,
                                    int n, int n_cand, int nodes_pad, int leaves_pad,
-                                   int any_hit, int fused, void* stream) {
-  if (fused) {
-    stream_walk2_kernel<true><<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        nodes, tris, roots, clist, cnt, ox, oy, oz, dx, dy, dz, tmax, t_out, prim_out,
-        n, n_cand, nodes_pad, leaves_pad, any_hit);
-  } else {
-    stream_walk2_kernel<false><<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        nodes, tris, roots, clist, cnt, ox, oy, oz, dx, dy, dz, tmax, t_out, prim_out,
-        n, n_cand, nodes_pad, leaves_pad, any_hit);
-  }
-  return (int)cudaGetLastError();
+                                   int any_hit, int fused, int stack_cap, void* stream) {
+  if (n % STREAM_BLOCK || nodes_pad < 1 || nodes_pad > MAX_STAGED_ROWS)
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  return fused ? stream_walk2_cap<true>(stack_cap, nodes, tris, roots, clist, cnt, ox, oy, oz,
+                                        dx, dy, dz, tmax, t_out, prim_out, n, n_cand,
+                                        nodes_pad, leaves_pad, any_hit, (cudaStream_t)stream)
+               : stream_walk2_cap<false>(stack_cap, nodes, tris, roots, clist, cnt, ox, oy,
+                                         oz, dx, dy, dz, tmax, t_out, prim_out, n, n_cand,
+                                         nodes_pad, leaves_pad, any_hit, (cudaStream_t)stream);
 }
 
 extern "C" int launch_skip_walk(const float* nodes_f, const int* nodes_i,

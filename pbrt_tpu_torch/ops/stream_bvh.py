@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.kernels.bvh2_walk import NODE2_COLS, stream_walk2
+from pbrt_tpu_torch.kernels.bvh2_walk import MAX_STAGED_ROWS, NODE2_COLS, stream_walk2
 from pbrt_tpu_torch.kernels.bvh8_walk import (
     BLOCK,
     LEAF_COUNT_BITS,
@@ -178,6 +178,19 @@ def pack_stream_tables(mins, maxs, skips, firsts, counts,
     }
 
 
+def tree_depth(nodes, root):
+    """Levels below the root of one packed ordered binary tree (nodes
+    [NP, 16], child refs in cols 12..13, a ref < 0 a leaf; 0 for a
+    single-leaf tree): a bound on the stack a walk of it needs."""
+    depth = 0
+    frontier = np.array([root] if root >= 0 else [], dtype=np.int64)
+    while frontier.size:
+        depth += 1
+        kids = nodes[frontier, 12:14].astype(np.int64).ravel()
+        frontier = kids[kids >= 0]
+    return depth
+
+
 def split_pad_rays(o, d, t_max, n):
     """Rays -> 7 contiguous [N'] f32 columns (ox oy oz dx dy dz t_max),
     padded to whole 1024-ray blocks with dead lanes (t_max = 0).
@@ -229,22 +242,25 @@ def _stream_candidates(cl_min, cl_max, comps):
 
 
 def stream_traverse(nodes, tris, roots, cl_min, cl_max, o, d, t_max, any_hit=False,
-                    fused=False):
+                    fused=False, depth=None):
     """Functional streaming traversal over explicit tables.
 
     nodes [C, NP, 64] (BVH8) or [C, NP, 16] (binary; the walk follows the
     node width, as the reference's does), tris [C, LP, 128], roots [C]
     i32, cl_min/cl_max [C, 3]; o, d [N, 3] (or 3-tuples of [N]); t_max
-    [N]; ``fused`` picks the fused-leaf binary walk.  Returns (t [N],
-    packed slot id [N], -1 = miss); callers resolve slots through their
-    own slot_to_prim map.
+    [N]; ``fused`` picks the fused-leaf binary walk, ``depth`` (binary
+    tables only, required there) is their deepest tree
+    (:func:`tree_depth`).  Returns (t [N], packed slot id [N], -1 =
+    miss); callers resolve slots through their own slot_to_prim map.
     """
     n = (o[0] if isinstance(o, (tuple, list)) else o).shape[0]
     comps = split_pad_rays(o, d, t_max, n)
     clist, cnt = _stream_candidates(cl_min, cl_max, comps)
     if nodes.shape[2] == NODE2_COLS:
+        if depth is None:
+            raise ValueError("stream_traverse: binary tables need their tree depth")
         t, prim = stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit,
-                               fused=fused)
+                               fused=fused, depth=depth)
     else:
         t, prim = stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit)
     return t[:n], prim[:n]
@@ -253,7 +269,9 @@ def stream_traverse(nodes, tris, roots, cl_min, cl_max, o, d, t_max, any_hit=Fal
 class StreamBVH:
     """Streaming intersector for scenes of 4096 triangles or more; holds
     the cluster tables (BVH8 when ``wide``, else binary walked with the
-    plain or, with ``fused``, the fused-leaf walk) on ``device``."""
+    plain or, with ``fused``, the fused-leaf walk) on ``device``.  Binary
+    clusters of more than ``MAX_STAGED_ROWS`` node rows raise: the walk
+    stages each in shared memory; ``depth`` is their deepest tree."""
 
     def __init__(self, mins, maxs, skips, firsts, counts,
                  tri_p0, tri_p1, tri_p2, target_tris: int | None = None,
@@ -265,6 +283,13 @@ class StreamBVH:
         )
         self.tables = t  # host copies (tests compare them to the reference)
         self.fused = fused
+        self.depth = None
+        if not wide:
+            if t["nodes"].shape[1] > MAX_STAGED_ROWS:
+                raise ValueError(
+                    f"binary clusters of {t['nodes'].shape[1]} node rows exceed the "
+                    f"{MAX_STAGED_ROWS} the streaming walk stages in shared memory")
+            self.depth = max(tree_depth(nf, int(r)) for nf, r in zip(t["nodes"], t["roots"]))
         self.nodes = torch.as_tensor(t["nodes"], device=device)
         self.tris = torch.as_tensor(t["tris"], device=device)
         self.roots = torch.as_tensor(t["roots"], device=device)
@@ -275,9 +300,10 @@ class StreamBVH:
     def traverse(self, o, d, t_max):
         """Closest-hit walk -> (t, raw slot id)."""
         return stream_traverse(self.nodes, self.tris, self.roots, self.cl_min,
-                               self.cl_max, o, d, t_max, fused=self.fused)
+                               self.cl_max, o, d, t_max, fused=self.fused, depth=self.depth)
 
     def occluded_slots(self, o, d, t_max):
         """Any-hit walk -> (t, raw slot id >= 0 where occluded)."""
         return stream_traverse(self.nodes, self.tris, self.roots, self.cl_min,
-                               self.cl_max, o, d, t_max, any_hit=True, fused=self.fused)
+                               self.cl_max, o, d, t_max, any_hit=True, fused=self.fused,
+                               depth=self.depth)

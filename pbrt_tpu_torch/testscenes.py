@@ -101,3 +101,43 @@ def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
                                                 nu, nv)
     return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort), n_tris
+
+
+def comb_tree(levels):
+    """A skip-link BVH that is ``levels + 1`` levels deep, to exercise deep
+    walk stacks: (mins, maxs, skips, firsts, counts, p0, p1, p2) in
+    ``build_bvh``'s layout.  Spine node i (i < levels) has on its left a
+    pair node over triangles 2i and 2i + 1, the two halves y + z <= 0 and
+    y + z >= 0 of the square [-0.5, 0.5]^2 in the plane x = levels + 1 - i,
+    and on its right spine node i + 1 (after the last, a leaf with
+    triangle 2 levels at x = 1).  A +x ray through y + z < 0 from x < 1
+    hits every box and takes the nearer right child at every spine node,
+    so both the plain and the fused-leaf walk push ``levels`` - 1 or more
+    entries."""
+    n = levels
+    m = 4 * n + 1
+    x = np.repeat((n + 1 - np.arange(n)).astype(np.float32), 2)
+    x = np.append(x, np.float32(1.0))
+    lo, hi = np.full(2 * n + 1, -0.5, np.float32), np.full(2 * n + 1, 0.5, np.float32)
+    upper = (np.arange(2 * n + 1) % 2 == 1)[:, None]  # the y + z >= 0 halves
+    p0 = np.where(upper, np.stack([x, hi, hi], 1), np.stack([x, lo, lo], 1))
+    p1 = np.where(upper, np.stack([x, lo, hi], 1), np.stack([x, hi, lo], 1))
+    p2 = np.where(upper, np.stack([x, hi, lo], 1), np.stack([x, lo, hi], 1))
+    t_min, t_max = np.minimum(np.minimum(p0, p1), p2), np.maximum(np.maximum(p0, p1), p2)
+    i = np.arange(n)
+    spine, pair = 4 * i, 4 * i + 1
+    leaves = np.append(np.stack([4 * i + 2, 4 * i + 3], 1).ravel(), m - 1)  # of triangle t
+    mins = np.zeros((m, 3), np.float32)
+    maxs = np.zeros((m, 3), np.float32)
+    skips = np.full(m, m, np.int32)
+    firsts = np.zeros(m, np.int32)
+    counts = np.zeros(m, np.int32)
+    mins[leaves], maxs[leaves] = t_min, t_max
+    firsts[leaves], counts[leaves] = np.arange(2 * n + 1), 1
+    skips[leaves[:-1]] = leaves[:-1] + 1
+    skips[pair] = pair + 3
+    mins[pair] = np.minimum(t_min[0:-1:2], t_min[1::2])
+    maxs[pair] = np.maximum(t_max[0:-1:2], t_max[1::2])
+    mins[spine] = np.minimum.accumulate(t_min[::-1])[::-1][0:-1:2]
+    maxs[spine] = np.maximum.accumulate(t_max[::-1])[::-1][0:-1:2]
+    return mins, maxs, skips, firsts, counts, p0, p1, p2

@@ -137,10 +137,11 @@ def test_binary_walks_and_bitonic_match_plain():
     tables = (sb.nodes, sb.tris, sb.roots, clist, cnt)
     for fused in (False, True):
         for any_hit in (False, True):
-            kern = bvh2_walk.stream_walk2(*tables, comps, any_hit=any_hit, fused=fused)
+            kern = bvh2_walk.stream_walk2(*tables, comps, any_hit=any_hit, fused=fused,
+                                          depth=sb.depth)
             torch.cuda.synchronize()
             plain = bvh2_walk.stream_walk2_plain(*(t.cpu() for t in tables), cpu,
-                                                 any_hit=any_hit, fused=fused)
+                                                 any_hit=any_hit, fused=fused, depth=sb.depth)
             _agree(kern, plain, any_hit, sb.tris.cpu().numpy(), o, d)
     m, x, s, f, c, perm = bvh.build_bvh(p0[:3000], p1[:3000], p2[:3000], leaf_size=8)
     tp = (p0[perm], p1[perm], p2[perm])
@@ -170,11 +171,14 @@ def test_binary_walks_and_bitonic_match_plain():
     cols = (torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32)),
             torch.arange(n, dtype=torch.int32))
     before = dict(bitonic.LAUNCHES)
+    calls = sum(bitonic.HOST_CALLS.values())
     got = sortnet.co_sort((torch.as_tensor(keys, device="cuda"),
                            *(x.cuda() for x in cols)), network="bitonic")
     torch.cuda.synchronize()
-    assert bitonic.LAUNCHES["bitonic_local"] == before["bitonic_local"] + 8
-    assert bitonic.LAUNCHES["bitonic_merge"] == before["bitonic_merge"] + 28
+    assert sum(bitonic.HOST_CALLS.values()) == calls + 1
+    assert bitonic.LAUNCHES["bitonic_tile"] == before["bitonic_tile"] + 6
+    assert bitonic.LAUNCHES["bitonic_merge"] == before["bitonic_merge"] + 5
+    assert bitonic.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
     want = sortnet.co_sort((torch.as_tensor(keys), *cols), network="bitonic")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)

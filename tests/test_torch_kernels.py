@@ -148,12 +148,64 @@ def test_wrappers_reject_unsupported_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         bvh2_walk.stream_walk2(torch.empty(2, 8, 16, **meta), torch.empty(2, 8, 128, **meta),
                                torch.empty(2, **i32), torch.empty(1, 2, **i32),
-                               torch.empty(1, **i32), comps, fused=True)
+                               torch.empty(1, **i32), comps, fused=True, depth=8)
     with pytest.raises(ValueError, match="unsupported device"):
         bvh2_walk.skip_walk(torch.empty(8, 8, **meta), torch.empty(8, 4, **i32),
                             torch.empty(8, 16, **meta), comps)
-    key = torch.empty(2048, dtype=torch.int64, **meta)
+    packed = torch.empty(1 << 15, dtype=torch.int64, **meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        bitonic.bitonic_local(key, torch.empty(2048, **i32), 2, 2048)
+        bitonic.bitonic_tile(packed, 2, 8192)
     with pytest.raises(ValueError, match="unsupported device"):
-        bitonic.bitonic_merge(key, torch.empty(2048, **i32), 4096, 2048)
+        bitonic.bitonic_merge(packed, 1 << 15, 13, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitonic.gather_rows(packed, [packed], [packed])
+    with pytest.raises(ValueError, match="unsupported device"):
+        bitonic.bitonic_co_sort(packed, [packed])
+
+
+def test_stream_walk2_stack_fits_tree_depth():
+    """The streaming binary walk's stack template comes from the host's
+    tree depth (``stream_bvh.tree_depth``, ``bvh2_walk.stack_capacity``):
+    the plain walk's deepest stack stays within it on small stream
+    tables, so a template of that many entries never clamps, and a tree
+    deeper than 95 takes the reference's 96 entries, whose writes clamp
+    as the reference's do."""
+    import torch
+
+    from pbrt_tpu_torch.kernels import bvh2_walk
+    from pbrt_tpu_torch.ops.stream_bvh import (
+        StreamBVH,
+        _stream_candidates,
+        split_pad_rays,
+        tree_depth,
+    )
+    from pbrt_tpu_torch.testscenes import comb_tree
+
+    def deepest_stack(sb, o, d, fused):
+        comps = split_pad_rays(torch.as_tensor(o), torch.as_tensor(d),
+                               torch.full((len(o),), 1e9), len(o))
+        clist, cnt = _stream_candidates(sb.cl_min, sb.cl_max, comps)
+        counters = {}
+        bvh2_walk.stream_walk2_plain(sb.nodes, sb.tris, sb.roots, clist, cnt, comps,
+                                     fused=fused, counters=counters, depth=sb.depth)
+        return counters["stack_max"]
+
+    assert [bvh2_walk.stack_capacity(k) for k in (0, 16, 17, 33, 64, 65, 95, 96, 500)] == [
+        16, 16, 32, 64, 64, 96, 96, 96, 96]
+    p0, p1, p2 = _soup(1500, seed=1)
+    m, x, s, f, c, perm = build_bvh(p0, p1, p2, leaf_size=16)
+    sb = StreamBVH(m, x, s, f, c, p0[perm], p1[perm], p2[perm], target_tris=512,
+                   leaf_slots=16, wide=False, device="cpu")
+    depths = [tree_depth(nf, int(r)) for nf, r in zip(sb.tables["nodes"], sb.tables["roots"])]
+    assert len(depths) > 1 and sb.depth == max(depths)
+    o, d, _ = _rays(2048, seed=9)
+    for fused in (False, True):
+        assert 0 < deepest_stack(sb, o, d, fused) <= sb.depth
+
+    comb = StreamBVH(*comb_tree(99), target_tris=4096, leaf_slots=8, wide=False, device="cpu")
+    assert comb.depth == 100 and bvh2_walk.stack_capacity(comb.depth) == 96
+    rng = np.random.default_rng(10)
+    o = np.stack([rng.uniform(-1, 0.9, 256), np.full(256, -0.2), np.full(256, -0.2)], 1)
+    d = np.tile(np.float32([1.0, 0.0, 0.0]), (256, 1))
+    for fused in (False, True):  # both walks outgrow 96 entries here
+        assert 96 < deepest_stack(comb, o.astype(np.float32), d, fused) <= comb.depth

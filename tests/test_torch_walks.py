@@ -125,7 +125,7 @@ def test_stream_walk2_matches_reference():
         for any_hit in (False, True):
             got = stream_traverse(port.nodes, port.tris, port.roots, port.cl_min,
                                   port.cl_max, *(torch.as_tensor(a) for a in (o, d, t_max)),
-                                  any_hit=any_hit, fused=fused)
+                                  any_hit=any_hit, fused=fused, depth=port.depth)
             _agree(want, got, any_hit, ref["tris"], o, d)
             assert (got[1].numpy()[t_max == 0] == -1).all()
 
