@@ -30,19 +30,24 @@ Phases (any failure raises and the script exits non-zero):
      every launch of the schedule against its plain step.
    Besides, 262,144 random rays with finite t_max and every 97th lane
    dead on each config-3 walk's tables and on a 3000-triangle soup (the
-   whole-tree walks), closest and any hit, and 262,144 random keys with
-   heavy duplicates and bit 31 set on half.  Walks: hit masks equal, t
+   whole-tree walks), closest and any hit; 32,768 such rays through K4
+   and K4b on one binary cluster of more than 1024 node rows (the soup in
+   leaves of at most 3); and 262,144 random keys with heavy duplicates
+   and bit 31 set on half.  Walks: hit masks equal, t
    within rtol 1e-6, slots equal except exact t ties, K6's b0/b1 within
-   rtol 1e-6; K5: keys and every payload column bit-equal.  K4/K4b also
-   print, per sweep, the live lanes and the plain walk's node steps and
-   triangle tests per live ray.  Then each kernel's time (CUDA events)
+   rtol 1e-6; K5: keys and every payload column bit-equal.  The stack
+   walks (K2, K1, K4, K4b) also print, per sweep, the live lanes, the
+   plain walk's node steps and triangle tests per live ray and its
+   deepest stack beside the kernel's template, and K2 the segments per
+   ray its kernel chose.  Then each kernel's time (CUDA events)
    beside its plain version's on the card, its bound (the larger of
    bytes over 3.35 TB/s and float ops over 67 TFLOP/s, counted by the
    plain version on the same inputs) and, where one PyTorch call
    computes the same function, that call's time; for K5 besides, each
    kernel's device time from torch.profiler, the launches and library
    calls per co_sort, and the whole co_sort's time and bound beside
-   ``torch.sort`` + gathers;
+   ``torch.sort`` + gathers; per timed sweep, each walk's time, and K1's
+   on each of the small torus's sweeps;
 4. the main path through the user entry points (``mesh_scene_renderer``,
    ``Renderer.render``): config 3 at 256x256, 8 spp, maxdepth 4 (50,180
    triangles: streaming walk) and the same scene with a 1152-triangle
@@ -288,6 +293,7 @@ def walk_call(name, walk, o, d, t_max):
            "skip_walk": (bvh2_walk.skip_walk, bvh2_walk.skip_walk_plain)}
     if name.startswith("stream_walk2"):
         kw["fused"] = name.endswith("fused")
+    if name.startswith("stream_walk") or name == "wide_walk8":
         kw["depth"] = walk.depth
     node_bytes = {"stream_walk8": 256, "wide_walk8": 256, "skip_walk": 48}.get(name, 64)
     leaf_bytes = 64 if name == "skip_walk" else 512
@@ -302,16 +308,18 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
     ``bvh8_walk.walk_disagreement`` (K6: b0/b1 within rtol 1e-6 too).
     Returns (max |dt| (or |db|) over hit lanes, the kernel's call,
     (bytes, ops) of the work, (live lanes, node steps and triangle tests
-    per live lane) of the plain walk)."""
+    per live lane of the plain walk, K2's segments per ray))."""
     import numpy as np
     import torch
 
+    from pbrt_tpu_torch.kernels import bvh2_walk, bvh8_walk
     from pbrt_tpu_torch.kernels.bvh8_walk import counted, walk_disagreement
 
     kern_fn, plain_fn, args, kw, tris, row_bytes, out_bytes, n_pad, blocks = walk_call(
         name, walk, o, d, t_max)
     kern = kern_fn(*args, any_hit=any_hit, **kw)
     torch.cuda.synchronize()
+    segments = bvh8_walk.segment_stats()["segments"] if name == "stream_walk8" else None
     counters = {}
     cpu = tuple(tuple(c.cpu() for c in a) if isinstance(a, tuple) else a.cpu() for a in args)
     plain = plain_fn(*cpu, any_hit=any_hit, counters=counters, **kw)
@@ -343,11 +351,15 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
             f"{(hit & (s_k != s_p)).sum()} tie slots, max |dt| {err:.3e}")
     c = counted(counters)
     n_live = int(live.sum())
-    stats = (n_live, c["slab_tests"] / 2 / max(n_live, 1), c["tri_tests"] / max(n_live, 1))
-    if name.startswith("stream_walk2"):
+    boxes_per_step = {"stream_walk8": 8, "wide_walk8": 8, "skip_walk": 1}.get(name, 2)
+    stats = (n_live, c["slab_tests"] / boxes_per_step / max(n_live, 1),
+             c["tri_tests"] / max(n_live, 1), segments)
+    if "depth" in kw:
+        cap = (bvh8_walk if name.endswith("walk8") else bvh2_walk).stack_capacity(kw["depth"])
         log(f"    {n_live} live lanes: {stats[1]:.2f} node steps and {stats[2]:.2f} triangle "
             f"tests per live lane, deepest stack {counters['stack_max']} (tree depth "
-            f"{kw['depth']})")
+            f"{kw['depth']}, {cap}-entry stack)"
+            + ("" if segments is None else f", {segments} segments per ray"))
     n_bytes = (n_pad * (28 + out_bytes) + c["node_rows"] * row_bytes[0]
                + c["leaf_rows"] * row_bytes[1]
                + sum(a.numel() * 4 for a in args[3:5] if name.startswith("stream_")))
@@ -389,8 +401,8 @@ def soup_tables(leaf):
 
 def time_walks(name, calls, stats):
     """Kernel and plain-version (on the card) ms per sweep over ``calls``
-    (kernel: mean of 20 launches after one; plain: one run); for the
-    binary streaming walks also the ns per node step of a live lane."""
+    (kernel: mean of 20 launches after one; plain: one run), with a line
+    per sweep."""
     import numpy as np
 
     ms, plain_ms = [], []
@@ -399,12 +411,18 @@ def time_walks(name, calls, stats):
         plain_ms.append(cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False))
     log(f"  {name}: kernel {[round(t, 4) for t in ms]} ms, plain "
         f"{[round(t, 1) for t in plain_ms]} ms")
-    if name.startswith("stream_walk2"):
-        for i, (t, (n_live, steps, tris)) in enumerate(zip(ms, stats)):
-            log(f"    sweep {i}: {n_live} live lanes, {steps:.2f} node steps and {tris:.2f} "
-                f"triangle tests per live lane, {t:.4f} ms = "
-                f"{t * 1e6 / max(steps, 1e-9):.1f} ns per node step of the mean lane")
-    return float(np.mean(ms)), float(np.mean(plain_ms))
+    sweep_lines(name, ms, stats)
+    return ms, float(np.mean(plain_ms))
+
+
+def sweep_lines(name, ms, stats):
+    """One line per timed sweep of a walk: its live lanes, the plain walk's
+    work per live lane, the kernel's ms and (K2) segments per ray."""
+    for i, (t, (n_live, steps, tris, segments)) in enumerate(zip(ms, stats)):
+        log(f"    sweep {i}: {n_live} live lanes, {steps:.2f} node steps and {tris:.2f} "
+            f"triangle tests per live lane, {t:.4f} ms = "
+            f"{t * 1e6 / max(steps, 1e-9):.1f} ns per node step of the mean lane"
+            + ("" if segments is None else f", S = {segments}"))
 
 
 def profiled_ms(fn, reps, names):
@@ -556,6 +574,7 @@ def phase_kernels(rs):
 
     from pbrt_tpu_torch.ops.bvh8 import WideBVH8
     from pbrt_tpu_torch.ops.pallas_bvh import OrderedBVH2
+    from pbrt_tpu_torch.ops.stream_bvh import StreamBVH
 
     log("== phase 3: kernels against their plain versions")
     r3 = rs["default"]
@@ -567,6 +586,7 @@ def phase_kernels(rs):
                   if hasattr(w, k)}
         log(f"  {name}: {r.compiled.tri_data.count} triangles, {type(w).__name__} {shapes}")
     out = {}  # name -> [max_err, timed calls, their (bytes, ops), their stats]
+    torus = []  # K1's small-torus sweeps, timed for their own lines: (call, stats)
 
     def run(name, label, walk, rays, any_hit, timed):
         err, call, work, stats = check_walk(name, label, walk, *rays, any_hit)
@@ -576,6 +596,7 @@ def phase_kernels(rs):
             entry[1].append(call)
             entry[2].append(work)
             entry[3].append(stats)
+        return call, stats
 
     # the config-3 walks: every sweep of K2's frame, chunk 0 of the others
     for name, variant in (("stream_walk8", "default"), ("stream_walk2", "binary"),
@@ -591,6 +612,18 @@ def phase_kernels(rs):
         for any_hit in (False, True):
             run(name, "random", walk, rays, any_hit, False)
 
+    # the binary streaming walks on one cluster of more than 1024 node rows
+    big = StreamBVH(*soup_tables(3), target_tris=4096, leaf_slots=8, wide=False,
+                    device=DEVICE)
+    rows = big.nodes.shape[1]
+    if big.nodes.shape[0] != 1 or rows <= 1024:
+        raise AssertionError(f"expected one binary cluster of over 1024 rows, got "
+                             f"{tuple(big.nodes.shape)}")
+    rays = random_rays(32768, 5, -2.0, 2.0)
+    for name in ("stream_walk2", "stream_walk2_fused"):
+        for any_hit in (False, True):
+            run(name, f"one {rows}-row binary cluster", big, rays, any_hit, False)
+
     # the whole-tree walks: every sweep of the small torus, and a soup
     soups = {"wide_walk8": WideBVH8(*soup_tables(16), leaf_slots=16, device=DEVICE),
              "ordered_walk2": OrderedBVH2(*soup_tables(8), device=DEVICE)}
@@ -599,8 +632,10 @@ def phase_kernels(rs):
         if len(calls) != per_chunk * frame_chunks(rs[variant]):
             raise AssertionError(f"{variant}: recorded {len(calls)} sweeps")
         for i, (o, d, t_max, any_hit) in enumerate(calls):
-            run(name, f"small-torus sweep {i}", rs[variant].compiled.intersector.walk,
-                (o, d, t_max), any_hit, False)
+            call = run(name, f"small-torus sweep {i}", rs[variant].compiled.intersector.walk,
+                       (o, d, t_max), any_hit, False)
+            if name == "wide_walk8":
+                torus.append(call)
         rays = random_rays(SWEEP, 3, -2.0, 2.0)
         for any_hit in (False, True):
             run(name, "3000-triangle soup", soups[name], rays, any_hit, not any_hit)
@@ -626,8 +661,15 @@ def phase_kernels(rs):
     for name, (err, calls, works, stats) in out.items():
         ms, plain_ms = time_walks(name, calls, stats)
         b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None)
+        res[name] = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None, sweep_ms=ms,
+                         sweep_live=[st[0] for st in stats])
+    res["stream_walk8"]["sweep_segments"] = [st[3] for st in out["stream_walk8"][3]]
+    torus_ms = [cuda_ms(lambda: fn(*args, **kw), 20) for (fn, args, kw, _), _ in torus]
+    log(f"  wide_walk8 on the small torus's {len(torus)} sweeps: kernel "
+        f"{[round(t, 4) for t in torus_ms]} ms")
+    sweep_lines("wide_walk8", torus_ms, [st for _, st in torus])
+    res["wide_walk8"]["torus_sweep_ms"] = torus_ms
 
     # K5: the widest recorded sort (the sorted carry)
     res.update(phase_sort(max(sorts, key=lambda x: sum(o[0].numel() for o in x))))

@@ -121,3 +121,10 @@ def check_tensor(name, x, dtype, device, ndim) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
     if x.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(x.shape)}")
+
+
+def check_aligned(name, x) -> None:
+    """Raise unless ``x`` starts on a 16-byte boundary (kernels that read
+    it as 16-byte vectors need that)."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel reads 16-byte vectors; got an unaligned tensor")

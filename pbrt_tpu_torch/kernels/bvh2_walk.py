@@ -6,11 +6,10 @@ Three wrappers over the hand-written kernels in ``csrc/bvh2_walk.cu``:
   (K4: the ordered near-first stack walk over one whole binary tree);
 * :func:`stream_walk2` replaces ``pbrt_tpu/ops/stream_bvh.py::_stream_kernel``
   with the binary walk ``_walk_tree`` (K4) or, with ``fused=True``,
-  ``_walk_tree_fused`` (K4b: leaf children tested at their parent); each
-  CTA stages its candidate clusters' node rows in shared memory, so a
-  cluster may hold at most ``MAX_STAGED_ROWS`` node rows, and keeps a
-  per-thread stack of ``stack_capacity(depth)`` entries there, ``depth``
-  being the deepest cluster tree (``ops/stream_bvh.tree_depth``);
+  ``_walk_tree_fused`` (K4b: leaf children tested at their parent) over
+  clusters of any size, with a per-thread stack of
+  ``stack_capacity(depth)`` entries in shared memory, ``depth`` being the
+  deepest cluster tree (``ops/stream_bvh.tree_depth``);
 * :func:`skip_walk` replaces ``pbrt_tpu/ops/pallas_bvh.py::_traverse_kernel``
   (K6: the skip-link walk over 4-triangle leaves, returning barycentrics).
 
@@ -46,9 +45,6 @@ from pbrt_tpu_torch.kernels.bvh8_walk import (
 )
 
 NODE2_COLS = 16
-MAX_STAGED_ROWS = 1024  # node rows per cluster the streaming walk stages
-# csrc/bvh2_walk.cu is compiled with these values (build.flags)
-NVCC_DEFINES = {"MAX_STAGED_ROWS": MAX_STAGED_ROWS}
 STACK_CAPACITIES = (16, 32, 64, STACK_DEPTH)  # the streaming walk's stack templates
 
 LAUNCHES = {"ordered_walk2": 0, "stream_walk2": 0, "stream_walk2_fused": 0,
@@ -130,13 +126,11 @@ def stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=False, fused=Fal
                  depth):
     """Phase B of the binary streaming traversal (K4, K4b with ``fused``).
 
-    nodes [C, NP, 16] f32 (NP <= MAX_STAGED_ROWS: ``StreamBVH`` checks it
-    when it packs them, and the launch refuses more), tris [C, LP, 128]
-    f32, roots [C] i32, clist [B, K] i32 and cnt [B] i32 from phase A,
-    comps = 7 [N] f32 ray columns with N = B * 1024, ``depth`` the
-    deepest cluster tree (picks the stack).  Returns (t [N] f32 starting
-    at each ray's t_max, slot [N] i32 = ``cid * LP * 8 + slot``, -1 =
-    miss)."""
+    nodes [C, NP, 16] f32, tris [C, LP, 128] f32, roots [C] i32, clist
+    [B, K] i32 and cnt [B] i32 from phase A, comps = 7 [N] f32 ray
+    columns with N = B * 1024, ``depth`` the deepest cluster tree (picks
+    the stack).  Returns (t [N] f32 starting at each ray's t_max, slot [N]
+    i32 = ``cid * LP * 8 + slot``, -1 = miss)."""
     if nodes.device.type == "cpu":
         return stream_walk2_plain(nodes, tris, roots, clist, cnt, comps, any_hit, fused,
                                   depth=depth)
@@ -151,6 +145,7 @@ def stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=False, fused=Fal
         raise ValueError("stream_walk2: expected [C,NP,16] nodes and [C,LP,128] tris")
     if n != clist.shape[0] * BLOCK or cnt.shape[0] != clist.shape[0]:
         raise ValueError("stream_walk2: rays must fill whole 1024-ray blocks")
+    build.check_aligned("tris", tris)
     lib = load_library()
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)

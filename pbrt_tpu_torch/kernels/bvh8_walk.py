@@ -7,15 +7,18 @@ Two wrappers, one per hand-written kernel in ``csrc/bvh8_walk.cu``:
 * :func:`wide_walk8` replaces ``pbrt_tpu/ops/bvh8.py::_wide_kernel`` (the
   whole-tree walk, K1).
 
-Both walk ``pbrt_tpu/ops/bvh8.py::_walk8``'s tables.  On this card the
-walk is bound by the latency of dependent node and leaf fetches and by
-warp divergence (see the note at the top of the CUDA source).
+Both walk ``pbrt_tpu/ops/bvh8.py::_walk8``'s tables, one thread per ray
+and tree, with a per-thread stack of :func:`stack_capacity` entries in
+shared memory; the streaming kernel cuts each live ray's candidate list
+into segments on sparse sweeps and merges them exactly (see the note at
+the top of the CUDA source).
 
 A wrapper runs :func:`walk8_plain`, the lane-vectorised PyTorch version
 of the same walk, only because its tensors lie on the CPU; on CUDA
 tensors it launches its kernel or raises.  The two visit nodes in the
-same per-ray order with the same float operations, so their results are
-bit-equal.  ``LAUNCHES`` counts kernel launches per wrapper.
+same per-ray order with the same float operations, so their closest-hit
+results are bit-equal.  ``LAUNCHES`` counts wrapper calls that launched
+(a streaming call is one prepass and one walk kernel).
 
 The kernels are built at first use by ``kernels/build.py`` (``nvcc`` into a
 shared library with a plain C interface, loaded through ctypes).
@@ -30,6 +33,7 @@ import torch
 from pbrt_tpu_torch.kernels import build
 
 STACK_DEPTH = 96  # per-ray stack entries (pbrt_tpu/ops/pallas_bvh.py)
+STACK_CAPACITIES = (8, 16, 32, 64, STACK_DEPTH)  # the walk kernels' stack templates
 LEAF_COUNT_BITS = 6
 LEAF_SLOTS = 8  # triangles per 128-float leaf row
 NODE_COLS = 64
@@ -40,6 +44,7 @@ INERT_T = -1e30
 LAUNCHES = {"stream_walk8": 0, "wide_walk8": 0}
 
 _lib = None
+_last_header = None  # the device header of the last stream_walk8 launch (segment_stats)
 
 
 def reset_launch_counts() -> None:
@@ -53,12 +58,31 @@ def load_library():
     if _lib is None:
         lib = build.load("bvh8_walk")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.launch_stream_walk8.argtypes = [p] * 14 + [i] * 5 + [p]
+        lib.launch_stream_walk8.argtypes = [p] * 15 + [i] * 6 + [p]
         lib.launch_stream_walk8.restype = i
-        lib.launch_wide_walk8.argtypes = [p] * 12 + [i] * 2 + [p]
+        lib.launch_wide_walk8.argtypes = [p] * 12 + [i] * 3 + [p]
         lib.launch_wide_walk8.restype = i
         _lib = lib
     return _lib
+
+
+def stack_capacity(depth) -> int:
+    """Stack entries for 8-wide trees of ``depth`` interior levels
+    (``ops/stream_bvh.tree_depth``): a walk pops one entry and pushes at
+    most 8 per step, so it holds at most 7 depth + 1; the smallest
+    template of at least that, else (or for ``depth`` None: not known)
+    the reference's 96 with clamped writes."""
+    if depth is None:
+        return STACK_DEPTH
+    return next((c for c in STACK_CAPACITIES if 7 * int(depth) + 1 <= c), STACK_DEPTH)
+
+
+def segment_stats():
+    """What the last :func:`stream_walk8` launch found on the card: live
+    rays, 32-ray groups holding one, and the segments per group it chose
+    (synchronises)."""
+    header = _last_header.view(torch.int32).tolist()
+    return {"live_rays": header[0], "live_groups": header[1], "segments": header[3]}
 
 
 def check_rays(comps, device):
@@ -75,15 +99,18 @@ def check_rays(comps, device):
 # ---------------------------------------------------------------------------
 
 
-def stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=False):
+def stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=False, depth=None):
     """Phase B of the streaming traversal (K2).
 
     nodes [C, NP, 64] f32, tris [C, LP, 128] f32, roots [C] i32, clist
     [B, K] i32 and cnt [B] i32 from phase A, comps = 7 [N] f32 ray
-    columns (ox oy oz dx dy dz t_max) with N = B * 1024.  Returns
-    (t [N] f32 starting at each ray's t_max, packed slot [N] i32, -1 =
-    miss); slot ids are ``cid * LP * 8 + slot``.
+    columns (ox oy oz dx dy dz t_max) with N = B * 1024, ``depth`` the
+    deepest cluster tree (sizes the stack: :func:`stack_capacity`).
+    Returns (t [N] f32 starting at each ray's t_max, packed slot [N] i32,
+    -1 = miss); slot ids are ``cid * LP * 8 + slot``.  Any hit: t is
+    -1e30 on hits and the slot one of the ray's hits.
     """
+    global _last_header
     dev = nodes.device
     if dev.type == "cpu":
         return stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit)
@@ -99,25 +126,35 @@ def stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=False):
         raise ValueError("stream_walk8: expected [C,NP,64] nodes and [C,LP,128] tris")
     if n != clist.shape[0] * BLOCK or cnt.shape[0] != clist.shape[0]:
         raise ValueError("stream_walk8: rays must fill whole 1024-ray blocks")
+    n_cand, leaves_pad = clist.shape[1], tris.shape[1]
+    if n_cand * leaves_pad * LEAF_SLOTS >= 1 << 31:
+        raise ValueError(f"stream_walk8: {n_cand} candidates x {leaves_pad * LEAF_SLOTS} "
+                         "slots per cluster overflow the 31-bit (position, slot) merge key")
+    build.check_aligned("nodes", nodes)
+    build.check_aligned("tris", tris)
     lib = load_library()
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
+    # merge keys, group list, finished-task counts and a 4-int header
+    scratch = torch.empty(n + n // 32 + 2, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.launch_checked(
         lib, lib.launch_stream_walk8,
         nodes.data_ptr(), tris.data_ptr(), roots.data_ptr(), clist.data_ptr(),
         cnt.data_ptr(), *[c.data_ptr() for c in comps],
-        t_out.data_ptr(), prim_out.data_ptr(),
-        n, clist.shape[1], nodes.shape[1], tris.shape[1], int(any_hit), stream,
+        t_out.data_ptr(), prim_out.data_ptr(), scratch.data_ptr(),
+        n, n_cand, nodes.shape[1], leaves_pad, int(any_hit), stack_capacity(depth), stream,
     )
     LAUNCHES["stream_walk8"] += 1
+    _last_header = scratch[n + n // 32:]  # after the keys and the two group arrays
     return t_out, prim_out
 
 
-def wide_walk8(nodes, tris, root, comps, any_hit=False):
+def wide_walk8(nodes, tris, root, comps, any_hit=False, depth=None):
     """Whole-tree walk (K1): nodes [W, 64] f32, tris [rows, 128] f32, root
-    [1] i32, comps = 7 [N] f32 ray columns.  Lanes with t_max <= RAY_EPS
-    come back inert (t = -1e30, slot -1)."""
+    [1] i32, comps = 7 [N] f32 ray columns, ``depth`` the tree's (sizes
+    the stack).  Lanes with t_max <= RAY_EPS come back inert (t = -1e30,
+    slot -1)."""
     dev = nodes.device
     if dev.type == "cpu":
         return wide_walk8_plain(nodes, tris, root, comps, any_hit)
@@ -129,6 +166,8 @@ def wide_walk8(nodes, tris, root, comps, any_hit=False):
     n = check_rays(comps, dev)
     if nodes.shape[1] != NODE_COLS or tris.shape[1] != 128:
         raise ValueError("wide_walk8: expected [W,64] nodes and [rows,128] tris")
+    build.check_aligned("nodes", nodes)
+    build.check_aligned("tris", tris)
     lib = load_library()
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
@@ -137,7 +176,7 @@ def wide_walk8(nodes, tris, root, comps, any_hit=False):
         lib, lib.launch_wide_walk8,
         nodes.data_ptr(), tris.data_ptr(), root.data_ptr(),
         *[c.data_ptr() for c in comps], t_out.data_ptr(), prim_out.data_ptr(),
-        n, int(any_hit), stream,
+        n, int(any_hit), stack_capacity(depth), stream,
     )
     LAUNCHES["wide_walk8"] += 1
     return t_out, prim_out
@@ -189,9 +228,11 @@ def safe_inv(v):
 
 
 def stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False,
-                       counters=None):
+                       counters=None, depth=None):
     """Plain version of :func:`stream_walk8` (same arguments, any device;
-    ``counters``: see :func:`init_counters`)."""
+    ``counters``: see :func:`init_counters`).  Its 96-entry stack gives
+    the kernel's results at every template the kernel takes: one of at
+    least 7 ``depth`` + 1 entries never clamps."""
     n = comps[0].shape[0]
     t_max = comps[6]
     block = torch.arange(n, device=t_max.device) // BLOCK
@@ -203,9 +244,9 @@ def stream_walk8_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False,
     )
 
 
-def wide_walk8_plain(nodes, tris, root, comps, any_hit=False, counters=None):
+def wide_walk8_plain(nodes, tris, root, comps, any_hit=False, counters=None, depth=None):
     """Plain version of :func:`wide_walk8` (same arguments, any device;
-    ``counters``: see :func:`init_counters`)."""
+    ``counters`` and ``depth``: see :func:`stream_walk8_plain`)."""
     n = comps[0].shape[0]
     t_max = comps[6]
     live = t_max > RAY_EPS
@@ -256,14 +297,18 @@ def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
     (tree ``cid`` starts at node row ``cid * nodes_pad`` and leaf row
     ``cid * leaves_pad``); lane i walks trees ``cand[i, :ncand[i]]`` in
     order, from ``roots[cid]``, carrying (best_t, slot).  Each lane keeps
-    its own [97] stack and orders pushes by its own direction signs, as
-    the CUDA threads do.  Returns (best_t [N] f32, slot [N] i32).
+    its own stack of 96 entries (writes clamped to the last; column 96
+    takes the non-hits' writes) and orders pushes by its own direction
+    signs, as the CUDA threads do.  ``counters`` also records
+    ``stack_max``, the most entries a lane's stack held.  Returns (best_t
+    [N] f32, slot [N] i32).
     """
     ox, oy, oz, dx, dy, dz = rays
     dev = best_t.device
     n = best_t.shape[0]
     if counters is not None:
         init_counters(counters, nodes.shape[0], tris.shape[0], dev)
+        counters.setdefault("stack_max", 0)
     o = torch.stack([ox, oy, oz], dim=1)
     inv = torch.stack([safe_inv(dx), safe_inv(dy), safe_inv(dz)], dim=1)
     neg = torch.stack([dx < 0, dy < 0, dz < 0], dim=1).long()
@@ -358,6 +403,8 @@ def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
             for cc in range(8):
                 stack[rows[:, cc], addr[:, cc]] = vals[:, cc]
             sp[ii] = s0 + h
+            if counters is not None:
+                counters["stack_max"] = max(counters["stack_max"], int((s0 + h).max()))
 
         # --- pop; lanes whose stack ran dry move to their next candidate
         s = sp[idx]

@@ -28,16 +28,16 @@
 // a 512-byte leaf row, or a 32+16-byte skip node), so the walks are
 // latency-bound on those fetches and lose throughput to divergence
 // between the rays of a warp; the integrator hands them direction-sorted
-// rays, which keeps warps coherent.  The streaming walk takes its node
-// fetches off device memory: a CTA's 128 threads lie in one 1024-ray
-// stream block and walk the same candidate clusters, so each cluster's
-// node rows are copied once into shared memory with cp.async,
-// double-buffered so that the next cluster's rows arrive while this one
-// is walked (one CTA barrier per cluster); triangles are read as three
-// 16-byte loads; the stack (16, 32, 64 or 96 entries, a template picked
-// from the deepest cluster tree the host packed) lives in shared memory,
-// not local memory.  The whole-tree walk keeps its rows in global memory
-// and its 96-entry stack in local memory.
+// rays, which keeps warps coherent.  The streaming walk reads its
+// triangles as three 16-byte loads through the read-only cache, and keeps
+// its stack (16, 32, 64 or 96 entries, a template picked from the deepest
+// cluster tree the host packed) in shared memory, not local memory; its
+// threads never wait for each other inside the candidate loop, so a
+// cluster tree of any size is walked.  (No CTA barrier in that loop:
+// one per cluster, to stage the cluster's rows in shared memory, cost
+// ~30% on the H100, since it makes the CTA's warps walk each cluster in
+// lockstep.)  The whole-tree walk reads scalars and keeps its 96-entry
+// stack in local memory.
 //
 // Layouts (pbrt_tpu/ops/pallas_bvh.py): ordered node rows of 16 f32 --
 // left box in cols 0..5, right box in 6..11 (min xyz, max xyz), child
@@ -58,11 +58,6 @@
 #define RAY_EPS 1e-4f
 #define INERT_T (-1e30f)
 #define THREADS 128
-// MAX_STAGED_ROWS, the node rows per staged cluster (1024: two 64 KB
-// buffers), comes from kernels/bvh2_walk.py (NVCC_DEFINES) as a -D value.
-#ifndef MAX_STAGED_ROWS
-#error "compile with the -D values of kernels/bvh2_walk.py::NVCC_DEFINES (kernels/build.py)"
-#endif
 
 namespace {
 
@@ -149,10 +144,12 @@ struct NodeRow {
 };
 
 // Where a walk finds its rows and keeps its stack.  GlobalTables: node and
-// leaf rows through the read-only cache, scalar loads, the stack in local
-// memory (the whole-tree walk).  StagedTables<CAP>: node rows staged in
-// shared memory by the CTA (stage_nodes), triangles as three 16-byte
-// loads, a CAP-entry stack per thread in shared memory.
+// leaf rows through the read-only cache as scalar loads, the stack in
+// local memory (the whole-tree walk).  StreamTables<CAP>: the same node
+// rows as scalar loads (16-byte loads of them made K4 1.5x slower on an
+// H100: scripts/walk_variants.py), triangles as three 16-byte loads
+// (slots are 64-byte aligned), and a CAP-entry stack per thread in
+// shared memory.
 struct GlobalTables {
   static constexpr int CAP = STACK_DEPTH;
   const float* nodes;
@@ -174,29 +171,16 @@ struct GlobalTables {
 };
 
 template <int CAP_>
-struct StagedTables {
+struct StreamTables : GlobalTables {
   static constexpr int CAP = CAP_;
-  const float4* nodes;  // shared memory
-  const float* tris;
-  int* stack;  // shared memory: entry e of this thread at stack[e * THREADS]
-  __device__ __forceinline__ void node(int ref, NodeRow& n) const {
-    const int sw = (ref >> 1) & 3;  // the swizzle of stage_nodes
-    const float4 a = nodes[4 * ref + sw], b = nodes[4 * ref + (1 ^ sw)];
-    const float4 c = nodes[4 * ref + (2 ^ sw)], d = nodes[4 * ref + (3 ^ sw)];
-    n.box[0] = a.x; n.box[1] = a.y; n.box[2] = a.z; n.box[3] = a.w;
-    n.box[4] = b.x; n.box[5] = b.y; n.box[6] = b.z; n.box[7] = b.w;
-    n.box[8] = c.x; n.box[9] = c.y; n.box[10] = c.z; n.box[11] = c.w;
-    n.left = (int)d.x;
-    n.right = (int)d.y;
-    n.mask = (int)d.z;
-  }
   __device__ __forceinline__ void tri(const float* t, float (&p)[9]) const {
-    const float4* t4 = reinterpret_cast<const float4*>(t);  // 64-byte aligned slots
+    const float4* t4 = reinterpret_cast<const float4*>(t);
     const float4 a = __ldg(t4), b = __ldg(t4 + 1), c = __ldg(t4 + 2);
     p[0] = a.x; p[1] = a.y; p[2] = a.z; p[3] = a.w;
     p[4] = b.x; p[5] = b.y; p[6] = b.z; p[7] = b.w;
     p[8] = c.x;
   }
+  // entry e of this thread at stack[e * THREADS]
   __device__ __forceinline__ int& slot(int i) const { return stack[i * THREADS]; }
 };
 
@@ -308,25 +292,6 @@ __device__ __forceinline__ bool walk2_fused(const Tab& tab, int root, const Ray&
   }
 }
 
-// Asynchronous 16-byte copies global -> shared (cp.async, sm_80+).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-// The CTA copies `rows` node rows from src into a staging buffer, chunk c
-// of row r at float4 4 r + (c ^ ((r >> 1) & 3)) so that the rows the
-// threads of a warp read spread over the banks; one commit group per
-// thread (possibly empty).
-__device__ __forceinline__ void stage_nodes(float4* dst, const float* src, int rows) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  for (int q = threadIdx.x; q < rows * 4; q += THREADS) {
-    const int r = q >> 2;
-    cp_async16(dst + 4 * r + ((q & 3) ^ ((r >> 1) & 3)), s4 + q);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 __global__ void __launch_bounds__(THREADS)
 ordered_walk2_kernel(const float* __restrict__ nodes, const float* __restrict__ tris,
                      const int* __restrict__ root, const float* __restrict__ ox,
@@ -351,14 +316,10 @@ ordered_walk2_kernel(const float* __restrict__ nodes, const float* __restrict__ 
   prim_out[i] = best_prim;
 }
 
-// One CTA of THREADS rays of one 1024-ray stream block, so all its threads
-// walk the same candidate list.  Cluster k's node rows are staged in
-// buffer k & 1 of shared memory; one barrier per cluster makes them
-// visible and frees the other buffer (every thread is past cluster
-// k - 1), whose copy of cluster k + 1 is then issued to land while
-// cluster k is walked.  Threads whose ray is dead or done keep taking
-// part in the barriers; a CTA with no live ray stages nothing.  At most
-// 8 CTAs of 128 threads per SM: 64 registers, and no spills there.
+// One thread per ray; the CTA's THREADS rays lie in one 1024-ray stream
+// block and walk its candidate list, each on its own, carrying (t, slot)
+// from cluster to cluster.  No thread waits for another.  At most 8 CTAs
+// of 128 threads per SM: 64 registers, and no spills there.
 template <bool FUSED, int CAP>
 __global__ void __launch_bounds__(THREADS, 8)
 stream_walk2_kernel(const float* __restrict__ nodes, const float* __restrict__ tris,
@@ -369,33 +330,27 @@ stream_walk2_kernel(const float* __restrict__ nodes, const float* __restrict__ t
                     const float* __restrict__ dz, const float* __restrict__ tmax,
                     float* __restrict__ t_out, int* __restrict__ prim_out, int n_cand,
                     int nodes_pad, int leaves_pad, int any_hit) {
-  extern __shared__ float4 smem[];  // two staging buffers, then the stacks
-  int* const stack = reinterpret_cast<int*>(smem + 8 * nodes_pad) + threadIdx.x;
+  extern __shared__ int stacks[];
   const int i = blockIdx.x * THREADS + threadIdx.x;  // the launch covers n exactly
   // t starts at the ray's own t_max; dead lanes keep it and skip the walk
   // (no triangle satisfies RAY_EPS < t < t_max <= RAY_EPS)
   float best_t = tmax[i];
   int best_prim = -1;
-  bool active = best_t > RAY_EPS;
-  const Ray r = make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
-  const int b = i / STREAM_BLOCK;
-  const int nc = __syncthreads_or(active) ? cnt[b] : 0;
-  const int* cl = clist + (size_t)b * n_cand;
-  const int slots = leaves_pad * 8;
-  const auto rows = [&](int k) { return nodes + (size_t)cl[k] * nodes_pad * NODE2_COLS; };
-  const auto buf = [&](int k) { return smem + (k & 1) * 4 * nodes_pad; };
-  if (nc > 0) stage_nodes(buf(0), rows(0), nodes_pad);
-  for (int k = 0; k < nc; ++k) {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // this thread's copies of k
-    __syncthreads();
-    if (k + 1 < nc) stage_nodes(buf(k + 1), rows(k + 1), nodes_pad);
-    if (active) {
+  if (best_t > RAY_EPS) {
+    const Ray r = make_ray(ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]);
+    const int b = i / STREAM_BLOCK;
+    const int nc = cnt[b];
+    const int* cl = clist + (size_t)b * n_cand;
+    const int slots = leaves_pad * 8;
+    for (int k = 0; k < nc; ++k) {
       const int cid = cl[k];
-      const StagedTables<CAP> tab{buf(k), tris + (size_t)cid * leaves_pad * ROW_COLS, stack};
+      const StreamTables<CAP> tab{{nodes + (size_t)cid * nodes_pad * NODE2_COLS,
+                                   tris + (size_t)cid * leaves_pad * ROW_COLS,
+                                   stacks + threadIdx.x}};
       const bool found =
           FUSED ? walk2_fused(tab, roots[cid], r, best_t, best_prim, cid * slots, any_hit != 0)
                 : walk2(tab, roots[cid], r, best_t, best_prim, cid * slots, any_hit != 0);
-      if (found) active = false;
+      if (found) break;
     }
   }
   t_out[i] = best_t;
@@ -455,7 +410,7 @@ int stream_walk2(const float* nodes, const float* tris, const int* roots, const 
                  const float* dx, const float* dy, const float* dz, const float* tmax,
                  float* t_out, int* prim_out, int n, int n_cand, int nodes_pad,
                  int leaves_pad, int any_hit, cudaStream_t stream) {
-  const int smem = (2 * nodes_pad * NODE2_COLS + CAP * THREADS) * 4;  // f32 rows, i32 stacks
+  const int smem = CAP * THREADS * 4;  // the i32 stacks
   const cudaError_t err = cudaFuncSetAttribute(
       stream_walk2_kernel<FUSED, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -498,7 +453,7 @@ extern "C" int launch_ordered_walk2(const float* nodes, const float* tris,
 
 // stack_cap: 16, 32, 64 or 96 entries per thread (the smallest at least
 // the deepest cluster tree; 96 clamps as the reference does); n a
-// multiple of STREAM_BLOCK; nodes_pad at most MAX_STAGED_ROWS.
+// multiple of STREAM_BLOCK.
 extern "C" int launch_stream_walk2(const float* nodes, const float* tris,
                                    const int* roots, const int* clist, const int* cnt,
                                    const float* ox, const float* oy, const float* oz,
@@ -506,8 +461,7 @@ extern "C" int launch_stream_walk2(const float* nodes, const float* tris,
                                    const float* tmax, float* t_out, int* prim_out,
                                    int n, int n_cand, int nodes_pad, int leaves_pad,
                                    int any_hit, int fused, int stack_cap, void* stream) {
-  if (n % STREAM_BLOCK || nodes_pad < 1 || nodes_pad > MAX_STAGED_ROWS)
-    return (int)cudaErrorInvalidValue;
+  if (n % STREAM_BLOCK || nodes_pad < 1) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   return fused ? stream_walk2_cap<true>(stack_cap, nodes, tris, roots, clist, cnt, ox, oy, oz,
                                         dx, dy, dz, tmax, t_out, prim_out, n, n_cand,

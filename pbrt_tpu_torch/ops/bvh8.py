@@ -114,6 +114,8 @@ class WideBVH8:
 
     def __init__(self, mins, maxs, skips, firsts, counts, tri_p0, tri_p1, tri_p2,
                  leaf_slots: int = 16, device="cuda"):
+        from pbrt_tpu_torch.ops.stream_bvh import tree_depth
+
         wnodes, tris, root, slot_to_prim = pack_tree8(
             mins, maxs, skips, firsts, counts,
             np.asarray(tri_p0), np.asarray(tri_p1), np.asarray(tri_p2),
@@ -123,6 +125,7 @@ class WideBVH8:
         self.tris = torch.as_tensor(tris, device=device)
         self.root = torch.as_tensor(np.asarray([root], dtype=np.int32), device=device)
         self.slot_to_prim = slot_to_prim.astype(np.int64)
+        self.depth = tree_depth(wnodes, int(root))  # sizes the walk's stack
 
     def traverse(self, o, d, t_max):
         """Closest-hit walk: o, d [N, 3] or 3-tuples of [N]; t_max [N].
@@ -138,5 +141,6 @@ class WideBVH8:
 
         n = (o[0] if isinstance(o, (tuple, list)) else o).shape[0]
         comps = split_pad_rays(o, d, t_max, n)
-        t, prim = wide_walk8(self.nodes, self.tris, self.root, comps, any_hit=any_hit)
+        t, prim = wide_walk8(self.nodes, self.tris, self.root, comps, any_hit=any_hit,
+                             depth=self.depth)
         return t[:n], prim[:n]

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.kernels.bvh2_walk import MAX_STAGED_ROWS, NODE2_COLS, stream_walk2
+from pbrt_tpu_torch.kernels.bvh2_walk import NODE2_COLS, stream_walk2
 from pbrt_tpu_torch.kernels.bvh8_walk import (
     BLOCK,
     LEAF_COUNT_BITS,
@@ -179,14 +179,16 @@ def pack_stream_tables(mins, maxs, skips, firsts, counts,
 
 
 def tree_depth(nodes, root):
-    """Levels below the root of one packed ordered binary tree (nodes
-    [NP, 16], child refs in cols 12..13, a ref < 0 a leaf; 0 for a
-    single-leaf tree): a bound on the stack a walk of it needs."""
+    """Interior levels of one packed tree, ordered binary (nodes [NP, 16],
+    child refs in cols 12..13) or 8-wide (nodes [NP, 64], refs in cols
+    48..55); a ref < 0 is a leaf or an empty child, a single-leaf tree has
+    depth 0.  It bounds the stack a walk of the tree needs."""
+    refs = slice(12, 14) if nodes.shape[1] == NODE2_COLS else slice(48, 56)
     depth = 0
     frontier = np.array([root] if root >= 0 else [], dtype=np.int64)
     while frontier.size:
         depth += 1
-        kids = nodes[frontier, 12:14].astype(np.int64).ravel()
+        kids = nodes[frontier, refs].astype(np.int64).ravel()
         frontier = kids[kids >= 0]
     return depth
 
@@ -248,9 +250,9 @@ def stream_traverse(nodes, tris, roots, cl_min, cl_max, o, d, t_max, any_hit=Fal
     nodes [C, NP, 64] (BVH8) or [C, NP, 16] (binary; the walk follows the
     node width, as the reference's does), tris [C, LP, 128], roots [C]
     i32, cl_min/cl_max [C, 3]; o, d [N, 3] (or 3-tuples of [N]); t_max
-    [N]; ``fused`` picks the fused-leaf binary walk, ``depth`` (binary
-    tables only, required there) is their deepest tree
-    (:func:`tree_depth`).  Returns (t [N], packed slot id [N], -1 =
+    [N]; ``fused`` picks the fused-leaf binary walk, ``depth`` is the
+    deepest tree (:func:`tree_depth`; required for binary tables, and
+    for 8-wide ones it lets the kernel take a stack smaller than 96).  Returns (t [N], packed slot id [N], -1 =
     miss); callers resolve slots through their own slot_to_prim map.
     """
     n = (o[0] if isinstance(o, (tuple, list)) else o).shape[0]
@@ -262,16 +264,16 @@ def stream_traverse(nodes, tris, roots, cl_min, cl_max, o, d, t_max, any_hit=Fal
         t, prim = stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit,
                                fused=fused, depth=depth)
     else:
-        t, prim = stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit)
+        t, prim = stream_walk8(nodes, tris, roots, clist, cnt, comps, any_hit=any_hit,
+                               depth=depth)
     return t[:n], prim[:n]
 
 
 class StreamBVH:
     """Streaming intersector for scenes of 4096 triangles or more; holds
     the cluster tables (BVH8 when ``wide``, else binary walked with the
-    plain or, with ``fused``, the fused-leaf walk) on ``device``.  Binary
-    clusters of more than ``MAX_STAGED_ROWS`` node rows raise: the walk
-    stages each in shared memory; ``depth`` is their deepest tree."""
+    plain or, with ``fused``, the fused-leaf walk) on ``device``;
+    ``depth`` is their deepest tree (it sizes the walk's stack)."""
 
     def __init__(self, mins, maxs, skips, firsts, counts,
                  tri_p0, tri_p1, tri_p2, target_tris: int | None = None,
@@ -283,13 +285,7 @@ class StreamBVH:
         )
         self.tables = t  # host copies (tests compare them to the reference)
         self.fused = fused
-        self.depth = None
-        if not wide:
-            if t["nodes"].shape[1] > MAX_STAGED_ROWS:
-                raise ValueError(
-                    f"binary clusters of {t['nodes'].shape[1]} node rows exceed the "
-                    f"{MAX_STAGED_ROWS} the streaming walk stages in shared memory")
-            self.depth = max(tree_depth(nf, int(r)) for nf, r in zip(t["nodes"], t["roots"]))
+        self.depth = max(tree_depth(nf, int(r)) for nf, r in zip(t["nodes"], t["roots"]))
         self.nodes = torch.as_tensor(t["nodes"], device=device)
         self.tris = torch.as_tensor(t["tris"], device=device)
         self.roots = torch.as_tensor(t["roots"], device=device)

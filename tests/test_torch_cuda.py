@@ -73,7 +73,7 @@ def test_stream_kernel_matches_plain():
     for any_hit in (False, True):
         before = bvh8_walk.LAUNCHES["stream_walk8"]
         kern = bvh8_walk.stream_walk8(sb.nodes, sb.tris, sb.roots, clist, cnt, comps,
-                                      any_hit=any_hit)
+                                      any_hit=any_hit, depth=sb.depth)
         torch.cuda.synchronize()
         assert bvh8_walk.LAUNCHES["stream_walk8"] == before + 1
         plain = bvh8_walk.stream_walk8_plain(
@@ -93,7 +93,7 @@ def test_wide_kernel_matches_plain():
         *(torch.as_tensor(a, device="cuda") for a in (o, d, t_max)), 8192)
     for any_hit in (False, True):
         kern = bvh8_walk.wide_walk8(wide.nodes, wide.tris, wide.root, comps,
-                                    any_hit=any_hit)
+                                    any_hit=any_hit, depth=wide.depth)
         torch.cuda.synchronize()
         plain = bvh8_walk.wide_walk8_plain(
             wide.nodes.cpu(), wide.tris.cpu(), wide.root.cpu(),

@@ -1,6 +1,7 @@
 """The redesigned kernels against their plain PyTorch versions on the card:
-the bitonic co-sort (tile, merge and gather kernels in one library call)
-and the streaming binary walks that stage cluster nodes in shared memory.
+the bitonic co-sort (tile, merge and gather kernels in one library call),
+the streaming binary walks with shared-memory stacks, and the 8-wide walks
+with shared-memory stacks and, streaming, segments on sparse sweeps.
 Every test is marked ``cuda`` and skips without a card; the file imports
 no JAX:
 
@@ -104,10 +105,10 @@ def test_bitonic_co_sort_matches_plain():
 
 @pytest.mark.cuda
 def test_staged_stream_walk2_matches_plain():
-    """K4 and K4b (staged node rows, shared-memory stacks) against the
-    plain walk: 20,000-triangle soup clusters (a small stack template)
-    and a 100-level comb, whose walks outgrow 96 entries and clamp, on
-    random rays, closest and any hit."""
+    """K4 and K4b (shared-memory stacks) against the plain walk:
+    20,000-triangle soup clusters (a small stack template) and a
+    100-level comb, whose walks outgrow 96 entries and clamp, on random
+    rays, closest and any hit."""
     torch = _need_card()
     from pbrt_tpu_torch.accel import bvh
     from pbrt_tpu_torch.kernels import bvh2_walk, bvh8_walk
@@ -164,17 +165,37 @@ def test_staged_stream_walk2_matches_plain():
 
 @pytest.mark.cuda
 def test_redesigned_wrappers_refuse_what_they_cannot_run():
-    """A binary cluster of more node rows than the walk stages raises when
-    the tables are built; the bitonic wrappers raise on bad shapes."""
+    """A binary comb of one cluster of more than 1024 node rows (which an
+    earlier, staging design refused) walks on the card, bit-equal to the
+    plain walk; the bitonic wrappers raise on bad shapes."""
     torch = _need_card()
     from pbrt_tpu_torch.kernels import bitonic, bvh2_walk
     from pbrt_tpu_torch.ops import stream_bvh
     from pbrt_tpu_torch.testscenes import comb_tree
 
-    levels = bvh2_walk.MAX_STAGED_ROWS // 2 + 8  # 2 levels per node row pair
-    with pytest.raises(ValueError, match="stages in shared memory"):
-        stream_bvh.StreamBVH(*comb_tree(levels), target_tris=1 << 20, leaf_slots=8,
-                             wide=False, device="cuda")
+    comb = stream_bvh.StreamBVH(*comb_tree(520), target_tris=1 << 20, leaf_slots=8,
+                                wide=False, device="cuda")
+    assert comb.nodes.shape[0] == 1 and comb.nodes.shape[1] > 1024
+    rng = np.random.default_rng(14)
+    n = 4096
+    o = np.stack([rng.uniform(-1, 0.9, n), rng.uniform(-0.45, 0.0, n),
+                  rng.uniform(-0.45, -0.05, n)], 1).astype(np.float32)
+    d = np.tile(np.float32([1, 0, 0]), (n, 1))
+    comps = stream_bvh.split_pad_rays(torch.as_tensor(o, device="cuda"),
+                                      torch.as_tensor(d, device="cuda"),
+                                      torch.full((n,), 1e4, device="cuda"), n)
+    clist, cnt = stream_bvh._stream_candidates(comb.cl_min, comb.cl_max, comps)
+    args = (comb.nodes, comb.tris, comb.roots, clist, cnt, comps)
+    cpu = tuple(tuple(c.cpu() for c in a) if isinstance(a, tuple) else a.cpu() for a in args)
+    for fused in (False, True):
+        for any_hit in (False, True):
+            kern = bvh2_walk.stream_walk2(*args, any_hit=any_hit, fused=fused, depth=comb.depth)
+            torch.cuda.synchronize()
+            plain = bvh2_walk.stream_walk2_plain(*cpu, any_hit=any_hit, fused=fused,
+                                                 depth=comb.depth)
+            assert (plain[1] >= 0).all()
+            for k, p in zip(kern, plain):
+                assert torch.equal(k.cpu(), p), f"fused={fused} any_hit={any_hit}"
     packed = torch.zeros(3 * 8192, dtype=torch.int64, device="cuda")
     with pytest.raises(ValueError, match="power-of-two"):
         bitonic.bitonic_tile(packed, 2, 8192)
@@ -183,3 +204,77 @@ def test_redesigned_wrappers_refuse_what_they_cannot_run():
     with pytest.raises(ValueError, match="multiple of 4"):
         bitonic.bitonic_co_sort(torch.zeros(32768, dtype=torch.int64, device="cuda"),
                                 [torch.zeros(32768, dtype=torch.bool, device="cuda")])
+
+
+@pytest.mark.cuda
+def test_walk8_kernels_match_plain():
+    """K2 on a sparse sweep (3000 live rays scattered over the first 8192
+    of 262,144: several segments per ray) and a dense one (all but every
+    97th live: one segment), K1 on an 8-wide comb whose walk outgrows the
+    96-entry stack and clamps; closest hit bit-equal to the plain walk,
+    any hit: masks and t equal."""
+    torch = _need_card()
+    from pbrt_tpu_torch.accel import bvh
+    from pbrt_tpu_torch.kernels import bvh8_walk
+    from pbrt_tpu_torch.ops import stream_bvh
+    from pbrt_tpu_torch.ops.bvh8 import WideBVH8
+    from pbrt_tpu_torch.testscenes import comb_tree
+
+    def check(kern, plain, any_hit):
+        t_k, s_k = (a.cpu() for a in kern)
+        t_p, s_p = plain
+        assert torch.equal(t_k, t_p) and (s_p >= 0).any()
+        assert torch.equal(s_k >= 0, s_p >= 0)
+        if not any_hit:
+            assert torch.equal(s_k, s_p)
+
+    rng = np.random.default_rng(15)
+    c = rng.uniform(-1, 1, (20000, 3)).astype(np.float32)
+    soup = (c, c + rng.uniform(-0.08, 0.08, (20000, 3)).astype(np.float32),
+            c + rng.uniform(-0.08, 0.08, (20000, 3)).astype(np.float32))
+    m, x, s, f, cc, perm = bvh.build_bvh(*soup, leaf_size=32)
+    sb = stream_bvh.StreamBVH(m, x, s, f, cc, *(p[perm] for p in soup), target_tris=4096,
+                              device="cuda")
+    n = 262144
+    o = rng.uniform(-2, 2, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_dense = rng.uniform(0.05, 0.5, n).astype(np.float32)
+    t_dense[::97] = 0.0
+    t_sparse = np.zeros(n, np.float32)
+    live = rng.choice(8192, 3000, replace=False)
+    t_sparse[live] = rng.uniform(0.5, 4.0, 3000)
+    for label, t_max in (("sparse", t_sparse), ("dense", t_dense)):
+        comps = stream_bvh.split_pad_rays(
+            *(torch.as_tensor(a, device="cuda") for a in (o, d, t_max)), n)
+        clist, cnt = stream_bvh._stream_candidates(sb.cl_min, sb.cl_max, comps)
+        args = (sb.nodes, sb.tris, sb.roots, clist, cnt, comps)
+        cpu = tuple(tuple(a.cpu() for a in x) if isinstance(x, tuple) else x.cpu()
+                    for x in args)
+        for any_hit in (False, True):
+            kern = bvh8_walk.stream_walk8(*args, any_hit=any_hit, depth=sb.depth)
+            torch.cuda.synchronize()
+            stats = bvh8_walk.segment_stats()
+            assert (stats["segments"] > 1) == (label == "sparse"), (label, stats)
+            check(kern, bvh8_walk.stream_walk8_plain(*cpu, any_hit=any_hit), any_hit)
+
+    comb = WideBVH8(*comb_tree(99), leaf_slots=8, device="cuda")
+    assert bvh8_walk.stack_capacity(comb.depth) == 96
+    n = 4096
+    o = np.stack([rng.uniform(-1, 0.9, n), rng.uniform(-0.45, 0.0, n),
+                  rng.uniform(-0.45, -0.05, n)], 1).astype(np.float32)
+    d = np.tile(np.float32([1, 0, 0]), (n, 1))
+    comps = stream_bvh.split_pad_rays(torch.as_tensor(o, device="cuda"),
+                                      torch.as_tensor(d, device="cuda"),
+                                      torch.full((n,), 1e4, device="cuda"), n)
+    cpu = tuple(a.cpu() for a in comps)
+    for any_hit in (False, True):
+        kern = bvh8_walk.wide_walk8(comb.nodes, comb.tris, comb.root, comps, any_hit=any_hit,
+                                    depth=comb.depth)
+        torch.cuda.synchronize()
+        counters = {}
+        plain = bvh8_walk.wide_walk8_plain(comb.nodes.cpu(), comb.tris.cpu(), comb.root.cpu(),
+                                           cpu, any_hit=any_hit, counters=counters)
+        check(kern, plain, any_hit)
+        if not any_hit:
+            assert counters["stack_max"] > 96  # the clamped writes were taken

@@ -97,30 +97,45 @@ def test_ordered_walk2_matches_reference():
         assert (got[0].numpy()[dead] == np.float32(-1e30)).all()  # inert
 
 
-def test_stream_walk2_matches_reference():
+@pytest.mark.parametrize("case", ["clusters", "one_big_cluster"])
+def test_stream_walk2_matches_reference(case):
+    """``clusters``: a 1500-triangle soup cut into clusters of at most 512
+    triangles; ``one_big_cluster``: 3000 triangles in leaves of at most 3
+    as one cluster of more than 1024 node rows, which the walk takes like
+    any other."""
     import torch
 
     from pbrt_tpu_torch.ops.stream_bvh import StreamBVH, pack_stream_tables, stream_traverse
 
-    p0, p1, p2 = _soup(1500, seed=1)
-    for leaf_slots in (32, 16):  # the main path's leaves; the walked ones span 2 rows
-        m, x, s, f, c, perm = build_bvh(p0, p1, p2, leaf_size=leaf_slots)
+    if case == "clusters":
+        p0, p1, p2 = _soup(1500, seed=1)
+        target, builds = 512, ((32, 32), (16, 16))  # (leaf size, leaf slots)
+    else:
+        p0, p1, p2 = _soup(3000, seed=1)
+        target, builds = 4096, ((3, 8),)
+    # the main path's leaves; the walked ones span 2 rows (clusters)
+    for leaf_size, leaf_slots in builds:
+        m, x, s, f, c, perm = build_bvh(p0, p1, p2, leaf_size=leaf_size)
         tp = (p0[perm], p1[perm], p2[perm])
-        ref = ref_pack_stream_tables(m, x, s, f, c, *tp, target_tris=512,
+        ref = ref_pack_stream_tables(m, x, s, f, c, *tp, target_tris=target,
                                      leaf_slots=leaf_slots, wide=False)
-        got = pack_stream_tables(m, x, s, f, c, *tp, target_tris=512,
+        got = pack_stream_tables(m, x, s, f, c, *tp, target_tris=target,
                                  leaf_slots=leaf_slots, wide=False)
         assert set(got) == set(ref)
         for k in ref:
             np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    port = StreamBVH(m, x, s, f, c, *tp, target_tris=512, leaf_slots=16, wide=False,
-                     device="cpu")
-    assert port.nodes.shape[0] >= 3 and port.nodes.shape[2] == 16  # binary clusters
+    port = StreamBVH(m, x, s, f, c, *tp, target_tris=target, leaf_slots=leaf_slots,
+                     wide=False, device="cpu")
+    assert port.nodes.shape[2] == 16  # binary clusters
+    if case == "clusters":
+        assert port.nodes.shape[0] >= 3
+    else:
+        assert port.nodes.shape[0] == 1 and port.nodes.shape[1] > 1024
     o, d, t_max = _rays(seed=3)
     for fused in (False, True):
         want = ref_stream_traverse(
             *(jnp.asarray(ref[k]) for k in ("nodes", "tris", "roots", "cl_min", "cl_max")),
-            jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max), leaf_slots=16,
+            jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max), leaf_slots=leaf_slots,
             interpret=True, fused=fused)
         for any_hit in (False, True):
             got = stream_traverse(port.nodes, port.tris, port.roots, port.cl_min,
