@@ -32,22 +32,31 @@ Phases (any failure raises and the script exits non-zero):
    dead on each config-3 walk's tables and on a 3000-triangle soup (the
    whole-tree walks), closest and any hit; 32,768 such rays through K4
    and K4b on one binary cluster of more than 1024 node rows (the soup in
-   leaves of at most 3); and 262,144 random keys with heavy duplicates
+   leaves of at most 3); 262,144 such rays, and the same with only 1000
+   of them live (several segments per ray), through K6 and the whole-tree
+   K4 on the soup with every triangle twice (exact t ties on every hit);
+   and 262,144 random keys with heavy duplicates
    and bit 31 set on half.  Walks: hit masks equal, t
-   within rtol 1e-6, slots equal except exact t ties, K6's b0/b1 within
-   rtol 1e-6; K5: keys and every payload column bit-equal.  The stack
+   within rtol 1e-6, slots equal except exact t ties; K6 and the
+   whole-tree K4 (closest hit): every output bit-equal, K6's b0/b1 too;
+   K5: keys and every payload column bit-equal.  The stack
    walks (K2, K1, K4, K4b) also print, per sweep, the live lanes, the
    plain walk's node steps and triangle tests per live ray and its
-   deepest stack beside the kernel's template, and K2 the segments per
-   ray its kernel chose.  Then each kernel's time (CUDA events)
+   deepest stack beside the kernel's template, and K2, K6 and the
+   whole-tree K4 the segments per ray their kernels chose (K6 and K4 also
+   the rays per task).  Then each
+   kernel's time (CUDA events)
    beside its plain version's on the card, its bound (the larger of
    bytes over 3.35 TB/s and float ops over 67 TFLOP/s, counted by the
    plain version on the same inputs) and, where one PyTorch call
    computes the same function, that call's time; for K5 besides, each
    kernel's device time from torch.profiler, the launches and library
    calls per co_sort, and the whole co_sort's time and bound beside
-   ``torch.sort`` + gathers; per timed sweep, each walk's time, and K1's
-   on each of the small torus's sweeps;
+   ``torch.sort`` + gathers; per timed sweep, each walk's time (with S
+   for K2 and K6), and K1's and the whole-tree K4's on each of the small
+   torus's sweeps (live rays and, K4, S); for K6 and the whole-tree K4
+   besides, the device time per sweep (torch.profiler: prepass and walk;
+   the event times of small sweeps include the host's launch overhead);
 4. the main path through the user entry points (``mesh_scene_renderer``,
    ``Renderer.render``): config 3 at 256x256, 8 spp, maxdepth 4 (50,180
    triangles: streaming walk) and the same scene with a 1152-triangle
@@ -101,6 +110,8 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # the payload columns the reference moves through every stage of K5
     "gather_rows": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:94"),
 }
+# the walks that cut a ray's walk into segments on sparse sweeps (K2 aside)
+SPLIT_WALKS = ("ordered_walk2", "skip_walk")
 # the renderers of phase 4: config 3 (or the small torus) under a walk and sort
 VARIANTS = {
     "default": ("config3", "bvh8", "stable"),
@@ -251,9 +262,10 @@ def record_sorts(renderer):
     return calls
 
 
-def random_rays(n, seed, lo, hi):
+def random_rays(n, seed, lo, hi, live=None):
     """n random rays on the card: t_max uniform in [0.05, 4), every 97th
-    lane dead (t_max = 0)."""
+    lane dead (t_max = 0); ``live``: only that many lanes, scattered, keep
+    their t_max."""
     import numpy as np
     import torch
 
@@ -263,6 +275,10 @@ def random_rays(n, seed, lo, hi):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     t_max = rng.uniform(0.05, 4.0, n).astype(np.float32)
     t_max[::97] = 0.0
+    if live is not None:
+        keep = np.zeros(n, bool)
+        keep[rng.choice(n, live, replace=False)] = True
+        t_max[~keep] = 0.0
     return tuple(torch.as_tensor(a, device=DEVICE) for a in (o, d, t_max))
 
 
@@ -293,7 +309,7 @@ def walk_call(name, walk, o, d, t_max):
            "skip_walk": (bvh2_walk.skip_walk, bvh2_walk.skip_walk_plain)}
     if name.startswith("stream_walk2"):
         kw["fused"] = name.endswith("fused")
-    if name.startswith("stream_walk") or name == "wide_walk8":
+    if name.startswith("stream_walk") or name in ("wide_walk8", "ordered_walk2"):
         kw["depth"] = walk.depth
     node_bytes = {"stream_walk8": 256, "wide_walk8": 256, "skip_walk": 48}.get(name, 64)
     leaf_bytes = 64 if name == "skip_walk" else 512
@@ -305,10 +321,12 @@ def walk_call(name, walk, o, d, t_max):
 def check_walk(name, label, walk, o, d, t_max, any_hit):
     """The kernel ``name`` against its plain version (CPU copies) on the
     inputs its intersector builds for these rays, to the contract of
-    ``bvh8_walk.walk_disagreement`` (K6: b0/b1 within rtol 1e-6 too).
-    Returns (max |dt| (or |db|) over hit lanes, the kernel's call,
-    (bytes, ops) of the work, (live lanes, node steps and triangle tests
-    per live lane of the plain walk, K2's segments per ray))."""
+    ``bvh8_walk.walk_disagreement``; the whole-tree K4 and K6, closest
+    hit: every output bit-equal (K6: t, triangle, b0 and b1).  Returns
+    (max |dt| (or |db|) over hit lanes, the kernel's call, (bytes, ops) of
+    the work, (live lanes, node steps and triangle tests per live lane of
+    the plain walk, the segments per ray that K2, K6 or the whole-tree K4
+    chose))."""
     import numpy as np
     import torch
 
@@ -319,7 +337,9 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
         name, walk, o, d, t_max)
     kern = kern_fn(*args, any_hit=any_hit, **kw)
     torch.cuda.synchronize()
-    segments = bvh8_walk.segment_stats()["segments"] if name == "stream_walk8" else None
+    split = (bvh8_walk.segment_stats() if name == "stream_walk8" else
+             bvh2_walk.segment_stats() if name in SPLIT_WALKS else {})
+    segments, rays = split.get("segments"), split.get("rays_per_task")
     counters = {}
     cpu = tuple(tuple(c.cpu() for c in a) if isinstance(a, tuple) else a.cpu() for a in args)
     plain = plain_fn(*cpu, any_hit=any_hit, counters=counters, **kw)
@@ -331,13 +351,10 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
     problem = walk_disagreement(t_p, s_p, t_k, s_k, any_hit, tris, o, d)
     hit = s_p >= 0
     err = 0.0 if any_hit or not hit.any() else float(np.abs(t_k[hit] - t_p[hit]).max())
-    if problem is None and name == "skip_walk" and not any_hit:
-        same = hit & (s_k == s_p)
-        for b in (2, 3):
-            b_k, b_p = kern[b].cpu().numpy()[:n][same], plain[b].numpy()[:n][same]
-            if not np.allclose(b_k, b_p, rtol=1e-6, atol=0.0):
-                problem = f"b{b - 2} differs beyond rtol 1e-6"
-            err = max(err, float(np.abs(b_k - b_p).max()) if same.any() else 0.0)
+    if problem is None and name in SPLIT_WALKS and not any_hit:
+        for i, (k, p) in enumerate(zip(kern, plain)):
+            if not np.array_equal(k.cpu().numpy()[:n], p.numpy()[:n]):
+                problem = f"output {i} (t, slot, b0, b1) not bit-equal"
     if problem is not None:
         raise AssertionError(f"{name} {label} (any_hit={any_hit}): {problem}")
     live = t_max > 1e-4
@@ -353,7 +370,7 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
     n_live = int(live.sum())
     boxes_per_step = {"stream_walk8": 8, "wide_walk8": 8, "skip_walk": 1}.get(name, 2)
     stats = (n_live, c["slab_tests"] / boxes_per_step / max(n_live, 1),
-             c["tri_tests"] / max(n_live, 1), segments)
+             c["tri_tests"] / max(n_live, 1), segments, rays)
     if "depth" in kw:
         cap = (bvh8_walk if name.endswith("walk8") else bvh2_walk).stack_capacity(kw["depth"])
         log(f"    {n_live} live lanes: {stats[1]:.2f} node steps and {stats[2]:.2f} triangle "
@@ -385,8 +402,9 @@ def check_sort(label, operands):
         f"keys and payload bit-equal")
 
 
-def soup_tables(leaf):
-    """A 3000-triangle soup's build (host arrays, leaf size ``leaf``)."""
+def soup_tables(leaf, twin=False):
+    """A 3000-triangle soup's build (host arrays, leaf size ``leaf``);
+    ``twin``: every triangle twice, so every hit is an exact t tie."""
     import numpy as np
 
     from pbrt_tpu_torch.accel.bvh import build_bvh
@@ -395,34 +413,51 @@ def soup_tables(leaf):
     c = rng.uniform(-1, 1, (3000, 3)).astype(np.float32)
     soup = (c, c + rng.uniform(-0.08, 0.08, (3000, 3)).astype(np.float32),
             c + rng.uniform(-0.08, 0.08, (3000, 3)).astype(np.float32))
+    if twin:
+        soup = tuple(np.concatenate([p, p]) for p in soup)
     m, x, s, f, cc, perm = build_bvh(*soup, leaf_size=leaf)
     return (m, x, s, f, cc) + tuple(p[perm] for p in soup)
 
 
 def time_walks(name, calls, stats):
     """Kernel and plain-version (on the card) ms per sweep over ``calls``
-    (kernel: mean of 20 launches after one; plain: one run), with a line
-    per sweep."""
+    (kernel: mean of 20 launches after one; plain: one run), and for the
+    split walks the kernels' device ms per sweep, with a line per sweep."""
     import numpy as np
 
     ms, plain_ms = [], []
     for fn, args, kw, plain_fn in calls:
         ms.append(cuda_ms(lambda: fn(*args, **kw), 20))
         plain_ms.append(cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False))
+    dev = walk_device_ms(name, calls)
     log(f"  {name}: kernel {[round(t, 4) for t in ms]} ms, plain "
         f"{[round(t, 1) for t in plain_ms]} ms")
-    sweep_lines(name, ms, stats)
-    return ms, float(np.mean(plain_ms))
+    sweep_lines(name, ms, stats, dev)
+    return ms, float(np.mean(plain_ms)), dev
 
 
-def sweep_lines(name, ms, stats):
+def walk_device_ms(name, calls):
+    """Device ms per call (torch.profiler: the prepass and the walk) of
+    each of ``calls`` for the split walks, else None.  On the small
+    sweeps, event times include the host's launch overhead."""
+    if name not in SPLIT_WALKS:
+        return None
+    names = ("whole_prep_kernel", f"{name}_kernel")
+    return [sum(v[0] or 0.0 for v in profiled_ms(lambda: fn(*args, **kw), 10, names).values())
+            for fn, args, kw, _ in calls]
+
+
+def sweep_lines(name, ms, stats, dev=None):
     """One line per timed sweep of a walk: its live lanes, the plain walk's
-    work per live lane, the kernel's ms and (K2) segments per ray."""
-    for i, (t, (n_live, steps, tris, segments)) in enumerate(zip(ms, stats)):
+    work per live lane, the kernel's ms (and device ms) and (K2, K6,
+    whole-tree K4) segments per ray."""
+    for i, (t, (n_live, steps, tris, segments, rays)) in enumerate(zip(ms, stats)):
         log(f"    sweep {i}: {n_live} live lanes, {steps:.2f} node steps and {tris:.2f} "
             f"triangle tests per live lane, {t:.4f} ms = "
             f"{t * 1e6 / max(steps, 1e-9):.1f} ns per node step of the mean lane"
-            + ("" if segments is None else f", S = {segments}"))
+            + ("" if dev is None else f", device {dev[i]:.4f} ms")
+            + ("" if segments is None else f", S = {segments}")
+            + ("" if rays is None else f", {rays} rays per task"))
 
 
 def profiled_ms(fn, reps, names):
@@ -573,7 +608,7 @@ def phase_kernels(rs):
     import torch
 
     from pbrt_tpu_torch.ops.bvh8 import WideBVH8
-    from pbrt_tpu_torch.ops.pallas_bvh import OrderedBVH2
+    from pbrt_tpu_torch.ops.pallas_bvh import OrderedBVH2, SkipLinkBVH
     from pbrt_tpu_torch.ops.stream_bvh import StreamBVH
 
     log("== phase 3: kernels against their plain versions")
@@ -586,7 +621,7 @@ def phase_kernels(rs):
                   if hasattr(w, k)}
         log(f"  {name}: {r.compiled.tri_data.count} triangles, {type(w).__name__} {shapes}")
     out = {}  # name -> [max_err, timed calls, their (bytes, ops), their stats]
-    torus = []  # K1's small-torus sweeps, timed for their own lines: (call, stats)
+    torus = {}  # the whole-tree walks' small-torus sweeps, timed for their own lines
 
     def run(name, label, walk, rays, any_hit, timed):
         err, call, work, stats = check_walk(name, label, walk, *rays, any_hit)
@@ -631,14 +666,23 @@ def phase_kernels(rs):
         calls = record_walks(rs[variant])
         if len(calls) != per_chunk * frame_chunks(rs[variant]):
             raise AssertionError(f"{variant}: recorded {len(calls)} sweeps")
-        for i, (o, d, t_max, any_hit) in enumerate(calls):
-            call = run(name, f"small-torus sweep {i}", rs[variant].compiled.intersector.walk,
-                       (o, d, t_max), any_hit, False)
-            if name == "wide_walk8":
-                torus.append(call)
+        torus[name] = [run(name, f"small-torus sweep {i}", rs[variant].compiled.intersector.walk,
+                           (o, d, t_max), any_hit, False)
+                       for i, (o, d, t_max, any_hit) in enumerate(calls)]
         rays = random_rays(SWEEP, 3, -2.0, 2.0)
         for any_hit in (False, True):
             run(name, "3000-triangle soup", soups[name], rays, any_hit, not any_hit)
+
+    # the split walks on a soup of twin triangles: every hit an exact t tie,
+    # which the merge key must resolve as the sequential walk does
+    twins = {"ordered_walk2": OrderedBVH2(*soup_tables(8, twin=True), device=DEVICE),
+             "skip_walk": SkipLinkBVH(*soup_tables(4, twin=True), device=DEVICE)}
+    for name, walk in twins.items():
+        for live in (None, 1000):  # one segment, several
+            rays = random_rays(SWEEP, 9, -2.0, 2.0, live)
+            for any_hit in (False, True):
+                run(name, f"6000-triangle twin soup, {live or 'all'} live", walk, rays,
+                    any_hit, False)
 
     # the bitonic network: every qualifying co_sort of a frame, random keys
     sorts = record_sorts(rs["bitonic"])
@@ -659,17 +703,29 @@ def phase_kernels(rs):
         "launches after one; plain: the PyTorch version on the card, one run)")
     res = {}
     for name, (err, calls, works, stats) in out.items():
-        ms, plain_ms = time_walks(name, calls, stats)
+        ms, plain_ms, dev = time_walks(name, calls, stats)
         b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
         res[name] = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=plain_ms,
                          bound_ms=b_ms, bound_by=b_by, library_ms=None, sweep_ms=ms,
                          sweep_live=[st[0] for st in stats])
-    res["stream_walk8"]["sweep_segments"] = [st[3] for st in out["stream_walk8"][3]]
-    torus_ms = [cuda_ms(lambda: fn(*args, **kw), 20) for (fn, args, kw, _), _ in torus]
-    log(f"  wide_walk8 on the small torus's {len(torus)} sweeps: kernel "
-        f"{[round(t, 4) for t in torus_ms]} ms")
-    sweep_lines("wide_walk8", torus_ms, [st for _, st in torus])
-    res["wide_walk8"]["torus_sweep_ms"] = torus_ms
+        if dev is not None:
+            res[name]["sweep_device_ms"] = dev
+    for name in ("stream_walk8",) + SPLIT_WALKS:
+        res[name]["sweep_segments"] = [st[3] for st in out[name][3]]
+        if name in SPLIT_WALKS:
+            res[name]["sweep_rays_per_task"] = [st[4] for st in out[name][3]]
+    for name, calls in torus.items():
+        torus_ms = [cuda_ms(lambda: fn(*args, **kw), 20) for (fn, args, kw, _), _ in calls]
+        dev = walk_device_ms(name, [call for call, _ in calls])
+        log(f"  {name} on the small torus's {len(calls)} sweeps: kernel "
+            f"{[round(t, 4) for t in torus_ms]} ms")
+        sweep_lines(name, torus_ms, [st for _, st in calls], dev)
+        res[name]["torus_sweep_ms"] = torus_ms
+        res[name]["torus_sweep_live"] = [st[0] for _, st in calls]
+        if name in SPLIT_WALKS:
+            res[name]["torus_sweep_segments"] = [st[3] for _, st in calls]
+            res[name]["torus_sweep_rays_per_task"] = [st[4] for _, st in calls]
+            res[name]["torus_sweep_device_ms"] = dev
 
     # K5: the widest recorded sort (the sorted carry)
     res.update(phase_sort(max(sorts, key=lambda x: sum(o[0].numel() for o in x))))

@@ -3,25 +3,37 @@
 Three wrappers over the hand-written kernels in ``csrc/bvh2_walk.cu``:
 
 * :func:`ordered_walk2` replaces ``pbrt_tpu/ops/pallas_bvh.py::_ordered_kernel``
-  (K4: the ordered near-first stack walk over one whole binary tree);
+  (K4: the ordered near-first stack walk over one whole binary tree), with
+  a per-thread stack of ``stack_capacity(depth)`` entries in shared
+  memory, ``depth`` the tree's (``ops/stream_bvh.tree_depth``); with
+  fewer live rays than resident warps each ray's walk is cut into 2^L
+  subtree tasks (:func:`subtree_root_plain` says where task j starts);
 * :func:`stream_walk2` replaces ``pbrt_tpu/ops/stream_bvh.py::_stream_kernel``
   with the binary walk ``_walk_tree`` (K4) or, with ``fused=True``,
   ``_walk_tree_fused`` (K4b: leaf children tested at their parent) over
-  clusters of any size, with a per-thread stack of
-  ``stack_capacity(depth)`` entries in shared memory, ``depth`` being the
-  deepest cluster tree (``ops/stream_bvh.tree_depth``);
+  clusters of any size, with the same stack, ``depth`` being the deepest
+  cluster tree;
 * :func:`skip_walk` replaces ``pbrt_tpu/ops/pallas_bvh.py::_traverse_kernel``
-  (K6: the skip-link walk over 4-triangle leaves, returning barycentrics).
+  (K6: the skip-link walk over 4-triangle leaves, returning barycentrics);
+  with fewer live rays than resident warps each ray's walk is cut into S
+  DFS node ranges (:func:`skip_walk_plain`'s ``start`` and ``end``).
+
+The two whole-tree kernels walk only live rays (a prepass lists them),
+fewer of them per warp on a sparse sweep, and choose their segments per
+ray on the device; the tasks of a ray merge exactly into the sequential
+walk's result (see the note at the top of the CUDA source);
+:func:`segment_stats` reads what the last launch chose.
 
 A wrapper runs its plain version (:func:`walk2_plain`,
 :func:`skip_walk_plain`) only because its tensors lie on the CPU; on CUDA
 tensors it launches its kernel or raises.  Kernel and plain version walk
 each ray in the same order with the same float operations, so their
-results are bit-equal; both take each ray's own direction octant where
-the TPU took one lane's per packet, so they may differ from the
-reference only on exact t ties (``bvh8_walk.walk_disagreement``).
-``LAUNCHES`` counts kernel launches per wrapper (the fused streaming walk
-apart from the plain one).
+results are bit-equal (any hit on a split ray: the same hit mask); both
+take each ray's own direction octant where the TPU took one lane's per
+packet, so they may differ from the reference only on exact t ties
+(``bvh8_walk.walk_disagreement``).  ``LAUNCHES`` counts wrapper calls
+that launched (the fused streaming walk apart from the plain one; a
+whole-tree call is one prepass and one walk kernel).
 """
 
 from __future__ import annotations
@@ -45,12 +57,17 @@ from pbrt_tpu_torch.kernels.bvh8_walk import (
 )
 
 NODE2_COLS = 16
-STACK_CAPACITIES = (16, 32, 64, STACK_DEPTH)  # the streaming walk's stack templates
+STACK_CAPACITIES = (16, 32, 64, STACK_DEPTH)  # the stack walks' stack templates
+# the most subtree levels a whole-tree ordered walk splits a ray into: the
+# merge key's low word holds (task << (32 - SPLIT_LOG2_MAX)) | slot
+SPLIT_LOG2_MAX = 8
+NVCC_DEFINES = {"SPLIT_LOG2_MAX": SPLIT_LOG2_MAX}
 
 LAUNCHES = {"ordered_walk2": 0, "stream_walk2": 0, "stream_walk2_fused": 0,
             "skip_walk": 0}
 
 _lib = None
+_last_scratch = None  # (scratch, rays) of the last whole-tree launch (segment_stats)
 
 
 def reset_launch_counts() -> None:
@@ -64,14 +81,30 @@ def load_library():
     if _lib is None:
         lib = build.load("bvh2_walk")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.launch_ordered_walk2.argtypes = [p] * 12 + [i] * 2 + [p]
+        lib.launch_ordered_walk2.argtypes = [p] * 13 + [i] * 4 + [p]
         lib.launch_ordered_walk2.restype = i
         lib.launch_stream_walk2.argtypes = [p] * 14 + [i] * 7 + [p]
         lib.launch_stream_walk2.restype = i
-        lib.launch_skip_walk.argtypes = [p] * 14 + [i] * 4 + [p]
+        lib.launch_skip_walk.argtypes = [p] * 15 + [i] * 4 + [p]
         lib.launch_skip_walk.restype = i
         _lib = lib
     return _lib
+
+
+def segment_stats():
+    """What the last :func:`ordered_walk2` or :func:`skip_walk` launch
+    found on the card: live rays, and the rays per task and segments per
+    ray it chose (synchronises)."""
+    scratch, n = _last_scratch
+    header = scratch[n:].view(torch.int32)[2 * n:2 * n + 4].tolist()
+    return {"live_rays": header[0], "segments": header[2], "rays_per_task": header[3]}
+
+
+def _whole_scratch(n, dev):
+    """The scratch of a whole-tree launch of n rays (int64 words): n merge
+    keys, then n listed lanes, n finished-task counts and a 4-int header
+    (live rays, next task, segments per ray, rays per task)."""
+    return torch.empty(2 * n + 2, dtype=torch.int64, device=dev)
 
 
 def stack_capacity(depth: int) -> int:
@@ -94,14 +127,15 @@ def _cuda_device(name, x):
 # ---------------------------------------------------------------------------
 
 
-def ordered_walk2(nodes, tris, root, comps, any_hit=False):
+def ordered_walk2(nodes, tris, root, comps, any_hit=False, *, depth):
     """Whole-tree ordered walk (K4): nodes [ni, 16] f32, tris [rows, 128]
     f32, root [1] i32, comps = 7 [N] f32 ray columns (ox oy oz dx dy dz
-    t_max).  Returns (t [N] f32, slot [N] i32, -1 = miss); lanes with
-    t_max <= RAY_EPS come back inert (t = -1e30), as do any-hit lanes
-    that found a hit."""
+    t_max), ``depth`` the tree's (picks the stack).  Returns (t [N] f32,
+    slot [N] i32, -1 = miss); lanes with t_max <= RAY_EPS come back inert
+    (t = -1e30), as do any-hit lanes that found a hit."""
+    global _last_scratch
     if nodes.device.type == "cpu":
-        return ordered_walk2_plain(nodes, tris, root, comps, any_hit)
+        return ordered_walk2_plain(nodes, tris, root, comps, any_hit, depth=depth)
     dev = _cuda_device("ordered_walk2", nodes)
     build.check_tensor("nodes", nodes, torch.float32, dev, 2)
     build.check_tensor("tris", tris, torch.float32, dev, 2)
@@ -109,16 +143,23 @@ def ordered_walk2(nodes, tris, root, comps, any_hit=False):
     n = check_rays(comps, dev)
     if nodes.shape[1] != NODE2_COLS or tris.shape[1] != 128:
         raise ValueError("ordered_walk2: expected [ni,16] nodes and [rows,128] tris")
+    if tris.shape[0] * LEAF_SLOTS > 1 << (32 - SPLIT_LOG2_MAX):
+        raise ValueError(f"ordered_walk2: {tris.shape[0] * LEAF_SLOTS} slots overflow the "
+                         f"{32 - SPLIT_LOG2_MAX}-bit slot field of the subtree merge key")
+    build.check_aligned("tris", tris)
     lib = load_library()
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = _whole_scratch(n, dev)
     build.launch_checked(
         lib, lib.launch_ordered_walk2,
         nodes.data_ptr(), tris.data_ptr(), root.data_ptr(),
         *[c.data_ptr() for c in comps], t_out.data_ptr(), prim_out.data_ptr(),
-        n, int(any_hit), torch.cuda.current_stream(dev).cuda_stream,
+        scratch.data_ptr(), n, int(depth), int(any_hit), stack_capacity(int(depth)),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     LAUNCHES["ordered_walk2"] += 1
+    _last_scratch = (scratch, n)
     return t_out, prim_out
 
 
@@ -163,12 +204,13 @@ def stream_walk2(nodes, tris, roots, clist, cnt, comps, any_hit=False, fused=Fal
 
 def skip_walk(nodes_f, nodes_i, tris, comps, any_hit=False):
     """Skip-link walk (K6): nodes_f [M, 8] f32 (box), nodes_i [M, 4] i32
-    (skip, first, count), tris [T, 16] f32, comps = 7 [N] f32 ray columns.
-    Returns (t, prim, b0, b1) [N]; prim is the DFS triangle index, -1 =
-    miss.  Lanes with t_max <= RAY_EPS come back inert (t = -1e30); the
-    reference's per-lane walk (``BVHIntersector._traverse_xla``) keeps
-    their t_max instead, and consumers read t only where prim >= 0, so
-    the two agree."""
+    (skip, first, count; leaf firsts growing in DFS order), tris [T, 16]
+    f32, comps = 7 [N] f32 ray columns.  Returns (t, prim, b0, b1) [N];
+    prim is the DFS triangle index, -1 = miss.  Lanes with t_max <=
+    RAY_EPS come back inert (t = -1e30); the reference's per-lane walk
+    (``BVHIntersector._traverse_xla``) keeps their t_max instead, and
+    consumers read t only where prim >= 0, so the two agree."""
+    global _last_scratch
     if nodes_f.device.type == "cpu":
         return skip_walk_plain(nodes_f, nodes_i, tris, comps, any_hit)
     dev = _cuda_device("skip_walk", nodes_f)
@@ -180,19 +222,23 @@ def skip_walk(nodes_f, nodes_i, tris, comps, any_hit=False):
     if (nodes_f.shape[1] != 8 or nodes_i.shape != (m, 4) or tris.shape[1] != 16
             or tris.shape[0] == 0):
         raise ValueError("skip_walk: expected [M,8] nodes_f, [M,4] nodes_i, [T,16] tris")
+    for name, x in (("nodes_f", nodes_f), ("nodes_i", nodes_i), ("tris", tris)):
+        build.check_aligned(name, x)
     lib = load_library()
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
     b0_out = torch.empty(n, dtype=torch.float32, device=dev)
     b1_out = torch.empty(n, dtype=torch.float32, device=dev)
+    scratch = _whole_scratch(n, dev)
     build.launch_checked(
         lib, lib.launch_skip_walk,
         nodes_f.data_ptr(), nodes_i.data_ptr(), tris.data_ptr(),
         *[c.data_ptr() for c in comps], t_out.data_ptr(), prim_out.data_ptr(),
-        b0_out.data_ptr(), b1_out.data_ptr(), n, m, tris.shape[0], int(any_hit),
-        torch.cuda.current_stream(dev).cuda_stream,
+        b0_out.data_ptr(), b1_out.data_ptr(), scratch.data_ptr(), n, m, tris.shape[0],
+        int(any_hit), torch.cuda.current_stream(dev).cuda_stream,
     )
     LAUNCHES["skip_walk"] += 1
+    _last_scratch = (scratch, n)
     return t_out, prim_out, b0_out, b1_out
 
 
@@ -201,8 +247,9 @@ def skip_walk(nodes_f, nodes_i, tris, comps, any_hit=False):
 # ---------------------------------------------------------------------------
 
 
-def ordered_walk2_plain(nodes, tris, root, comps, any_hit=False, counters=None):
+def ordered_walk2_plain(nodes, tris, root, comps, any_hit=False, counters=None, *, depth):
     """Plain version of :func:`ordered_walk2` (same arguments, any device;
+    its stack has the kernel's ``stack_capacity(depth)`` entries;
     ``counters``: see ``bvh8_walk.init_counters``)."""
     n = comps[0].shape[0]
     t_max = comps[6]
@@ -210,7 +257,39 @@ def ordered_walk2_plain(nodes, tris, root, comps, any_hit=False, counters=None):
     best_t = torch.where(live, t_max, INERT_T)
     cand = torch.zeros((n, 1), dtype=torch.int64, device=t_max.device)
     return walk2_plain(nodes, tris, root.long(), cand, live.long(), 0, 0, comps[:6],
-                       best_t, any_hit, False, counters)
+                       best_t, any_hit, False, counters, stack_capacity(int(depth)))
+
+
+def subtree_root_plain(nodes, root, comps, j, levels):
+    """Where task ``j`` of the ``2**levels`` subtree tasks of each ray
+    starts its walk in :func:`ordered_walk2`'s kernel: from the root,
+    ``levels`` steps down in the ray's own near-first order, to the near
+    child on a 0 bit of j and the far child on a 1 bit (most significant
+    first), each child's box tested at t_max.  A task whose box test on the
+    way fails, or that meets a leaf above the last level while a lower bit
+    of j is set (the leaf belongs to the task whose remaining bits are 0),
+    walks nothing.  Returns (ref [N] int64 to walk from, active [N] bool);
+    live lanes only (t_max > RAY_EPS)."""
+    ox, oy, oz, dx, dy, dz, t_max = comps
+    o = torch.stack([ox, oy, oz], dim=1)
+    inv = torch.stack([safe_inv(dx), safe_inv(dy), safe_inv(dz)], dim=1)
+    octant = (dx < 0).long() * 4 + (dy < 0).long() * 2 + (dz < 0).long()
+    ref = torch.full_like(octant, int(root[0]))
+    active = t_max > RAY_EPS
+    going = active.clone()  # still descending
+    for lvl in range(levels):
+        leaf = going & (ref < 0)
+        active &= ~leaf | ((j & ((1 << (levels - lvl)) - 1)) == 0)
+        going &= ~leaf
+        nf = nodes[torch.where(going, ref, 0)]
+        left_first = ((nf[:, 14].long() >> octant) & 1) == 1
+        take_left = left_first == (((j >> (levels - 1 - lvl)) & 1) == 0)
+        box = torch.where(take_left[:, None], nf[:, 0:6], nf[:, 6:12])
+        hit = _slab(box, o, inv, t_max)
+        active &= ~going | hit
+        going &= hit
+        ref = torch.where(going, torch.where(take_left, nf[:, 12], nf[:, 13]).long(), ref)
+    return ref, active
 
 
 def stream_walk2_plain(nodes, tris, roots, clist, cnt, comps, any_hit=False,
@@ -406,16 +485,21 @@ def walk2_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
     return best_t, best_prim.to(torch.int32)
 
 
-def skip_walk_plain(nodes_f, nodes_i, tris, comps, any_hit=False, counters=None):
+def skip_walk_plain(nodes_f, nodes_i, tris, comps, any_hit=False, counters=None, start=0,
+                    end=None):
     """Plain version of :func:`skip_walk` (same arguments, any device):
     per lane, descend to ``node + 1`` on a box hit at an interior node,
     else jump to ``skip``; leaves test their triangles, triangle ids
     clamped to T - 1 (``pallas_bvh.py:114``).  ``counters`` counts node
-    rows as skip nodes and leaf rows as triangles."""
+    rows as skip nodes and leaf rows as triangles.  ``start`` and ``end``:
+    walk the DFS node range [start, end) only, from ``start`` with t =
+    t_max, stopping at the first node >= end, as the kernel's range tasks
+    do (the defaults walk the whole tree)."""
     ox, oy, oz, dx, dy, dz, t_max = comps
     dev = t_max.device
     n = t_max.shape[0]
     m, n_tris = nodes_f.shape[0], tris.shape[0]
+    end = m if end is None else end
     if counters is not None:
         init_counters(counters, m, n_tris, dev)
     o = torch.stack([ox, oy, oz], dim=1)
@@ -423,10 +507,11 @@ def skip_walk_plain(nodes_f, nodes_i, tris, comps, any_hit=False, counters=None)
     inv = torch.stack([safe_inv(dx), safe_inv(dy), safe_inv(dz)], dim=1)
     live = t_max > RAY_EPS
     best_t = torch.where(live, t_max, INERT_T)
+    live &= start < end
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
     b0a = torch.zeros(n, dtype=torch.float32, device=dev)
     b1a = torch.zeros(n, dtype=torch.float32, device=dev)
-    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    node = torch.full((n,), start, dtype=torch.int64, device=dev)
     ni_all = nodes_i.long()
     while True:
         idx = live.nonzero()[:, 0]
@@ -460,7 +545,7 @@ def skip_walk_plain(nodes_f, nodes_i, tris, comps, any_hit=False, counters=None)
             best_t[li], best_prim[li], b0a[li], b1a[li] = bt, bp, b0l, b1l
         nxt = torch.where(box & (count == 0), nd + 1, skip)
         node[idx] = nxt
-        stop = nxt >= m
+        stop = nxt >= end
         if any_hit:
             stop = stop | (best_prim[idx] >= 0)
         live[idx[stop]] = False

@@ -17,7 +17,9 @@ Host packers (numpy copies of the reference's):
 :class:`OrderedBVH2` (counterpart of ``PallasBVH2``) walks the ordered
 tables with ``kernels/bvh2_walk.ordered_walk2``; :class:`SkipLinkBVH`
 (counterpart of ``PallasBVH``) walks the skip-link tables with
-``kernels/bvh2_walk.skip_walk``.
+``kernels/bvh2_walk.skip_walk``, whose range segments need leaf firsts
+that grow in DFS order (the native build emits them so; the class
+checks).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from pbrt_tpu_torch.kernels.bvh2_walk import ordered_walk2, skip_walk
 from pbrt_tpu_torch.kernels.bvh8_walk import LEAF_COUNT_BITS, LEAF_SLOTS
+from pbrt_tpu_torch.ops.stream_bvh import tree_depth
 
 
 def encode_children(skips, firsts, counts):
@@ -151,6 +154,7 @@ class OrderedBVH2:
         self.tris = torch.as_tensor(tris, device=device)
         self.root = torch.as_tensor(np.asarray([root], dtype=np.int32), device=device)
         self.slot_to_prim = slot_to_prim.astype(np.int64)
+        self.depth = tree_depth(nodes, int(root))  # sizes the walk's stack
 
     def traverse(self, o, d, t_max):
         """Closest-hit walk: o, d [N, 3] or 3-tuples of [N]; t_max [N].
@@ -166,17 +170,27 @@ class OrderedBVH2:
 
         n = (o[0] if isinstance(o, (tuple, list)) else o).shape[0]
         comps = split_pad_rays(o, d, t_max, n)
-        t, prim = ordered_walk2(self.nodes, self.tris, self.root, comps, any_hit=any_hit)
+        t, prim = ordered_walk2(self.nodes, self.tris, self.root, comps, any_hit=any_hit,
+                                depth=self.depth)
         return t[:n], prim[:n]
 
 
 class SkipLinkBVH:
     """Skip-link walk over the DFS tree that also returns barycentrics;
     counterpart of the reference's ``PallasBVH`` (and of the per-lane walk
-    ``BVHIntersector._traverse_xla`` that the reference takes on the CPU)."""
+    ``BVHIntersector._traverse_xla`` that the reference takes on the CPU).
+    Raises unless leaf firsts grow in DFS order (each leaf's triangles
+    after the previous leaf's): the kernel merges its node-range segments
+    by triangle id, which must then be the sequential walk's visiting
+    order."""
 
     def __init__(self, mins, maxs, skips, firsts, counts, tri_p0, tri_p1, tri_p2,
                  device="cuda"):
+        leaves = np.asarray(counts) > 0
+        lf, lc = np.asarray(firsts)[leaves], np.asarray(counts)[leaves]
+        if (np.diff(lf.astype(np.int64)) < lc[:-1]).any():
+            raise ValueError("SkipLinkBVH: leaf firsts must grow in DFS order (each "
+                             "leaf's triangles after the previous leaf's)")
         nodes_f, nodes_i, tris = pack_skip_tables(
             mins, maxs, skips, firsts, counts,
             np.asarray(tri_p0), np.asarray(tri_p1), np.asarray(tri_p2),

@@ -150,10 +150,11 @@ def test_binary_walks_and_bitonic_match_plain():
     skip = pallas_bvh.SkipLinkBVH(m, x, s, f, c, p0[perm], p1[perm], p2[perm],
                                   device="cuda")
     for any_hit in (False, True):
-        kern = bvh2_walk.ordered_walk2(whole.nodes, whole.tris, whole.root, comps, any_hit)
+        kern = bvh2_walk.ordered_walk2(whole.nodes, whole.tris, whole.root, comps, any_hit,
+                                       depth=whole.depth)
         torch.cuda.synchronize()
         plain = bvh2_walk.ordered_walk2_plain(whole.nodes.cpu(), whole.tris.cpu(),
-                                              whole.root.cpu(), cpu, any_hit)
+                                              whole.root.cpu(), cpu, any_hit, depth=whole.depth)
         _agree(kern, plain, any_hit, whole.tris.cpu().numpy(), o, d)
         kern = bvh2_walk.skip_walk(skip.nodes_f, skip.nodes_i, skip.tris, comps, any_hit)
         torch.cuda.synchronize()

@@ -144,7 +144,7 @@ def test_wrappers_reject_unsupported_devices():
     i32 = dict(dtype=torch.int32, **meta)
     with pytest.raises(ValueError, match="unsupported device"):
         bvh2_walk.ordered_walk2(torch.empty(8, 16, **meta), torch.empty(8, 128, **meta),
-                                torch.empty(1, **i32), comps)
+                                torch.empty(1, **i32), comps, depth=8)
     with pytest.raises(ValueError, match="unsupported device"):
         bvh2_walk.stream_walk2(torch.empty(2, 8, 16, **meta), torch.empty(2, 8, 128, **meta),
                                torch.empty(2, **i32), torch.empty(1, 2, **i32),
