@@ -4,7 +4,8 @@
 Run from the repository root:
 
     python3 chip_smoke.py            # the whole check
-    python3 chip_smoke.py --profile  # plus a torch.profiler table of one frame
+    python3 chip_smoke.py --profile  # plus torch.profiler over one config-3 and one
+                                     # Cornell frame (launches, device busy share)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -70,7 +71,22 @@ Phases (any failure raises and the script exits non-zero):
 5. image parity: config 3 at 32x32, 2 spp, maxdepth 3 on the card and on
    the CPU (plain versions), to the tolerance of tests/test_torch_slice.py;
 6. frame seconds and Mray/s ((closest + shadow queries) / s) of the
-   default and of each config-3 variant.
+   default and of each config-3 variant;
+7. the Cornell box (BASELINE scene 2) through ``cornell_renderer`` at
+   256x256, 32 spp, maxdepth 5, ``ray_batch = 1 << 18`` (8 chunks): the
+   brute-force intersector, spheres and the mirror lobe, which no kernel
+   serves (the launch counters, zeroed before the first frame, must read
+   0 after it); the image finite and not black, the query counters
+   2,097,152 x 5 closest and x 4 shadow; frame seconds (median of three
+   after that first frame) and Mray/s beside the card's name and power
+   limit;
+8. image parity on the card against the CPU, to phase 5's tolerance:
+   Cornell at 32x32 (2 spp, maxdepth 5); its variant with a constant
+   infinite light, a gaussian pixel filter and a crop window (the
+   escaped-ray MIS and the scatter film); and the 24x24 torus with a
+   mirror sphere (1,156 triangles and the sphere sweep beside the BVH)
+   under every walk, each CUDA render with the counters zeroed before it
+   and its walk's kernel (K1, the whole-tree K4, K6) launched.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -822,15 +838,138 @@ def phase_parity():
         raise AssertionError("cuda and cpu images disagree")
 
 
-def phase_profile(r3):
+def phase_profile(label, r, frame_s=None):
+    """torch.profiler over one frame of ``r``: the busiest kernels, the
+    kernels' launches and summed device time, and that time's share of
+    the profiled frame's wall time and of ``frame_s`` (an unprofiled
+    frame's; the profiler slows the host)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    log("== profile: one config-3 frame")
+    log(f"== profile: one {label} frame")
+    torch.cuda.synchronize()
+    t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r3.render()
+        r.render()
         torch.cuda.synchronize()
-    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+    wall = time.time() - t0
+    events = prof.key_averages()
+    log(events.table(sort_by="self_cuda_time_total", row_limit=15))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e6
+    busy = "" if frame_s is None else f", {device_s / frame_s:.1%} of a {frame_s:.4f} s frame"
+    log(f"  {label}: {len(kernels)} kernel launches, {device_s * 1e3:.2f} ms of kernel time: "
+        f"{device_s / wall:.1%} of the {wall:.4f} s profiled frame{busy}")
+    return dict(launches=len(kernels), device_s=device_s, profiled_frame_s=wall)
+
+
+CORNELL = dict(xres=256, yres=256, spp=32, maxdepth=5, ray_batch=1 << 18)
+PARITY_WALKS = {"bvh8": "wide_walk8", "binary": "ordered_walk2",
+                "binary_fused": "ordered_walk2", "skip": "skip_walk"}
+
+
+def phase_cornell(card):
+    """BASELINE scene 2 at full width: a first frame with the launch
+    counters zeroed before and read after (no kernel serves this path),
+    then frame seconds, median of three."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
+    from pbrt_tpu_torch.testscenes import cornell_renderer
+
+    log(f"== phase 7: the Cornell box at {CORNELL['xres']}x{CORNELL['yres']}, "
+        f"{CORNELL['spp']} spp, maxdepth {CORNELL['maxdepth']}, ray_batch {CORNELL['ray_batch']}")
+    r = cornell_renderer(**CORNELL, device=DEVICE)
+    if not isinstance(r.compiled.intersector, SoABruteForceIntersector):
+        raise AssertionError("Cornell must take the brute-force intersector")
+    closest, shadow = r.integrator.queries_per_sample()
+    samples = CORNELL["xres"] * CORNELL["yres"] * CORNELL["spp"]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state = r.render()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    img = r.image(state)
+    log(f"  first frame {first_s:.3f} s, {r.counters['chunks']} chunks, launches {launches}; "
+        f"image mean {img.mean():.6f} max {img.max():.4f}")
+    if launches:
+        raise AssertionError(f"the Cornell frame launched kernels: {launches}")
+    if r.counters["chunks"] != 8:
+        raise AssertionError(f"Cornell took {r.counters['chunks']} chunks, want 8")
+    if (r.counters["closest_queries"], r.counters["shadow_queries"]) != (
+            samples * 5, samples * 4) or (closest, shadow) != (5, 4):
+        raise AssertionError(f"Cornell query counters {r.counters}")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("Cornell image not finite or all black")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state = r.render()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    r.image(state)
+    median = sorted(times)[1]
+    queries = samples * (closest + shadow)
+    log(f"  Cornell frame {median:.4f} s ({[round(x, 4) for x in times]}), "
+        f"{queries} closest+shadow queries/frame, {queries / median / 1e6:.3f} Mray/s "
+        f"on {card}")
+    return r, dict(frame_s=median, frames_s=times, first_frame_s=first_s,
+                   mray_s=queries / median / 1e6, queries=queries, card=card)
+
+
+def compare_images(label, got, want):
+    """Phase 5's tolerance; raises where the images disagree."""
+    import numpy as np
+
+    rel_mean = abs(got.mean() - want.mean()) / want.mean()
+    close = np.isclose(got, want, rtol=1e-3, atol=1e-4).all(axis=-1).mean()
+    err = np.abs(got - want).max(axis=-1)
+    worst = np.unravel_index(np.argmax(err), err.shape)
+    log(f"  {label}: mean rel diff {rel_mean:.3e}; {close:.4f} of pixels close; worst "
+        f"pixel {tuple(int(i) for i in worst)}: cpu {want[worst]} cuda {got[worst]}")
+    if not (np.isfinite(got).all() and got.max() > 0 and rel_mean <= 1e-3 and close >= 0.99):
+        raise AssertionError(f"{label}: cuda and cpu images disagree")
+    return dict(mean_rel_diff=float(rel_mean), close=float(close))
+
+
+def phase_cornell_parity():
+    """The slice's pieces on the card against the CPU: Cornell, its
+    environment/filter/crop variant, and the torus with a mirror sphere
+    under every walk (each walk's kernel must launch)."""
+    import torch
+
+    from pbrt_tpu_torch.testscenes import cornell_renderer, mesh_scene_renderer
+
+    log("== phase 8: image parity on the card against the CPU")
+    res = {}
+    for label, env in (("cornell", False), ("cornell_environment", True)):
+        imgs = {}
+        for dev in (DEVICE, "cpu"):
+            r = cornell_renderer(xres=32, yres=32, spp=2, maxdepth=5, device=dev,
+                                 environment=env)
+            imgs[dev] = r.image(r.render())
+        res[label] = compare_images(f"{label} 32x32, 2 spp, maxdepth 5", imgs[DEVICE],
+                                    imgs["cpu"])
+    scene = dict(xres=32, yres=32, spp=2, maxdepth=3, nu=24, nv=24, sphere=True)
+    for walk, kname in PARITY_WALKS.items():
+        r, _ = mesh_scene_renderer(**scene, device=DEVICE, walk=walk)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = r.image(r.render())
+        launched = {k: v for k, v in read_counts().items() if v}
+        if not launched.get(kname):
+            raise AssertionError(f"torus+sphere under walk={walk}: {kname} never "
+                                 f"launched ({launched})")
+        r, _ = mesh_scene_renderer(**scene, device="cpu", walk=walk)
+        res[f"torus_sphere_{walk}"] = compare_images(
+            f"torus+sphere 32x32, walk={walk} (launches {launched})", got,
+            r.image(r.render()))
+    return res
 
 
 def main(argv=None):
@@ -863,9 +1002,9 @@ def main(argv=None):
     kern = phase_kernels(rs)
     launches, first_s = phase_main_path(rs)
     phase_parity()
-    if args.profile:
-        phase_profile(rs["default"])
     frames = phase_frames(rs)
+    if args.profile:
+        phase_profile("config-3", rs["default"], frames["default"][0])
     closest, shadow = rs["default"].integrator.queries_per_sample()
     queries = PIXELS * 8 * (closest + shadow)
     log(f"== phase 6: config-3 frame seconds (median of three, taken in turns; "
@@ -873,6 +1012,13 @@ def main(argv=None):
     for name, (median, t) in frames.items():
         log(f"  {name}: {median:.4f} s ({[round(x, 4) for x in t]}), "
             f"{queries / median / 1e6:.3f} Mray/s; first frame {first_s[name]:.3f} s")
+    del rs
+    cornell, cornell_frame = phase_cornell(card)
+    if args.profile:
+        cornell_frame["profile"] = phase_profile("Cornell", cornell, cornell_frame["frame_s"])
+    del cornell
+    cornell_frame["parity"] = phase_cornell_parity()
+    print(json.dumps({"cornell": cornell_frame}))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

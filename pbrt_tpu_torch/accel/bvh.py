@@ -28,7 +28,10 @@ order (``_traverse_sorted``); the skip walk, as in the reference, does
 not.  ``sort`` picks the ``co_sort`` network of those sorts and of the
 integrator's sorted carry ("stable" or "bitonic", ``ops/sortnet.py``).
 
-Spheres (the reference's brute-force sphere sweep) are not ported yet.
+Spheres take the reference's brute-force sweep
+(``ops/intersect_soa.py``) after every walk, in the rays' lane order: a
+sphere replaces a triangle hit only when strictly nearer, and any hit is
+either kind's.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.rng import MASK32
-from pbrt_tpu_torch.ops.intersect import KIND_NONE, KIND_TRI, RAY_EPS
+from pbrt_tpu_torch.ops.intersect import KIND_NONE, KIND_SPHERE, KIND_TRI, RAY_EPS
+from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
 
 # at or above this triangle count the streaming (cluster) walk is used
 STREAM_MIN_TRIS = 4096
@@ -69,15 +73,21 @@ def _part1by2(v):
 
 class BVHIntersector:
     """BVH over the scene's triangles, walked by ``walk`` (see the module
-    docstring); ``sort`` is the ``co_sort`` network ("stable" or
-    "bitonic")."""
+    docstring), and a brute-force sweep over its spheres (``sph_data``, or
+    None); ``sort`` is the ``co_sort`` network ("stable" or "bitonic")."""
 
-    def __init__(self, tri_data, device="cuda", walk="bvh8", sort="stable"):
+    # the integrator may keep its wavefront in sort_keys order
+    supports_sort_hint = True
+
+    def __init__(self, tri_data, sph_data=None, device="cuda", walk="bvh8", sort="stable"):
         if walk not in WALKS:
             raise ValueError(f"unknown walk {walk!r}; expected one of {WALKS}")
         if sort not in ("stable", "bitonic"):
             raise ValueError(f"unknown sort {sort!r}; expected 'stable' or 'bitonic'")
         self.n_tri = tri_data.count
+        self.n_sph = sph_data.count if sph_data is not None else 0
+        self._sph_brute = (SoABruteForceIntersector(None, sph_data, device=device)
+                           if self.n_sph else None)
         self.walk_name = walk
         self.sort_network = sort
         use_stream = self.n_tri >= STREAM_MIN_TRIS and walk != "skip"
@@ -193,12 +203,20 @@ class BVHIntersector:
             # hit triangle (the packed walks carry only (t, slot))
             b0 = b1 = None
         got = prim >= 0
+        best_t = torch.where(got, t, best_t)
         kind = torch.where(got, KIND_TRI, KIND_NONE).to(torch.int32)
+        prim = torch.where(got, self.perm[prim.clamp(min=0).long()], 0).to(torch.int32)
+        if self.n_sph:
+            sph = self._sph_brute.intersect(o, d, best_t)
+            closer = sph["hit"] & (sph["t"] < best_t)
+            best_t = torch.where(closer, sph["t"], best_t)
+            kind = torch.where(closer, KIND_SPHERE, kind)
+            prim = torch.where(closer, sph["prim"], prim)
         return {
-            "t": torch.where(got, t, best_t),
-            "hit": got,
+            "t": best_t,
+            "hit": kind != KIND_NONE,
             "kind": kind,
-            "prim": torch.where(got, self.perm[prim.clamp(min=0).long()], 0).to(torch.int32),
+            "prim": prim,
             "b0": None if b0 is None else torch.where(got, b0, 0.0),
             "b1": None if b1 is None else torch.where(got, b1, 0.0),
         }
@@ -210,4 +228,7 @@ class BVHIntersector:
             prim = self.walk.occluded_slots(o, d, t_max)[1]
         else:
             _, prim = self._traverse(o, d, t_max, any_hit=True, sort=sort)
-        return prim >= 0
+        found = prim >= 0
+        if self.n_sph:
+            found = found | self._sph_brute.occluded(o, d, t_max)
+        return found

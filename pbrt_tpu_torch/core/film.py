@@ -1,10 +1,21 @@
 """Film: pixel bounds (host) and the accumulated XYZ state (tensors).
 
-Counterpart of ``pbrt_tpu/core/film.py`` for the dense path only:
-``initial_state`` and ``to_rgb``.  Samples are accumulated by
-``render.Renderer`` with a reshape-sum per pixel (the reference's
-``_step_impl_dense``); the filtered scatter (``add_samples``) and splats
-wait for the scatter film port (ROADMAP Queue 1 item 4).
+Counterpart of ``pbrt_tpu/core/film.py``: ``initial_state``,
+``add_samples`` (the filtered scatter: each sample adds its filter-weighted
+XYZ to every pixel of its half-open support, with the max-sample-luminance
+clamp and the crop window) and ``to_rgb``.  The dense path's per-pixel
+sums are taken by ``render.Renderer`` (the reference's
+``_step_impl_dense``).  Splats wait for the integrators that make them
+(ROADMAP Queue 1 item 8).
+
+The reference's scatter wraps negative pixel offsets around, so samples
+within the filter radius left of (above) the cropped film add to its
+right (bottom) edge; ``add_samples`` keeps that for parity (ROADMAP.md
+Queue 3).
+
+``add_samples`` accumulates with ``index_put_(..., accumulate=True)``: on
+a CUDA tensor the adds are atomic and land in no fixed order, so sums
+over several samples differ from the CPU's in the last bits.
 """
 
 from __future__ import annotations
@@ -17,7 +28,7 @@ import torch
 
 from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core import spectrum as spec
-from pbrt_tpu_torch.core.filters import BoxFilter
+from pbrt_tpu_torch.core.filters import FILTER_TABLE_WIDTH, BoxFilter
 from pbrt_tpu_torch.core.geometry import Bounds2f, Bounds2i
 
 
@@ -58,6 +69,9 @@ class Film:
         self.xyz_to_rgb = torch.as_tensor(
             np.asarray(spec.XYZ_TO_RGB, dtype=float_t), device=self.device
         )
+        self.filter_table = torch.as_tensor(
+            self.filter.table(FILTER_TABLE_WIDTH), device=self.device
+        )
 
     def get_sample_bounds(self) -> Bounds2i:
         rx, ry = self.filter.radius
@@ -74,6 +88,62 @@ class Film:
             "xyz": torch.zeros((h, w, 3), **z),
             "weight": torch.zeros((h, w), **z),
         }
+
+    def _filter_support(self):
+        """Candidate pixels per axis of the half-open support (-r, r]."""
+        rx, ry = self.filter.radius
+        return int(math.floor(2 * rx)) + 1, int(math.floor(2 * ry)) + 1
+
+    def add_samples(self, state, p_film, L_rgb, mask=None):
+        """Accumulate filtered samples: p_film [N, 2] continuous raster
+        positions, L_rgb [N, 3], mask [N] valid lanes -> the new state."""
+        rx, ry = self.filter.radius
+        inv_rx, inv_ry = 1.0 / rx, 1.0 / ry
+        bx, by = self.cropped_pixel_bounds.p_min
+        w, h = self.cropped_pixel_bounds.diagonal()
+        fw, fh = self._filter_support()
+        if mask is None:
+            mask = torch.ones(p_film.shape[0], dtype=torch.bool, device=p_film.device)
+        if math.isfinite(self.max_sample_luminance):
+            y = 0.212671 * L_rgb[..., 0] + 0.715160 * L_rgb[..., 1] + 0.072169 * L_rgb[..., 2]
+            s = torch.where(y > self.max_sample_luminance,
+                            self.max_sample_luminance / torch.clamp(y, min=1e-20), 1.0)
+            L_rgb = L_rgb * s[..., None]
+        xyz = L_rgb @ self.rgb_to_xyz.T
+        # half-open support (-r, r] per axis: a sample on a pixel boundary
+        # belongs to the pixel it floors into, as on the dense path
+        px = p_film[..., 0] - 0.5
+        py = p_film[..., 1] - 0.5
+        x0 = (torch.floor(px - rx) + 1).to(torch.int32)
+        y0 = (torch.floor(py - ry) + 1).to(torch.int32)
+        x1 = torch.floor(px + rx).to(torch.int32)
+        y1 = torch.floor(py + ry).to(torch.int32)
+        film_xyz = state["xyz"].reshape(-1, 3).clone()
+        film_w = state["weight"].reshape(-1).clone()
+        last = FILTER_TABLE_WIDTH - 1
+        for j in range(fh):
+            for i in range(fw):
+                pxl_x = x0 + i
+                pxl_y = y0 + j
+                dx = torch.abs((pxl_x.to(torch.float32) - px) * inv_rx * FILTER_TABLE_WIDTH)
+                dy = torch.abs((pxl_y.to(torch.float32) - py) * inv_ry * FILTER_TABLE_WIDTH)
+                ix = torch.clamp(dx.to(torch.int32), max=last).long()
+                iy = torch.clamp(dy.to(torch.int32), max=last).long()
+                lx = pxl_x - bx
+                ly = pxl_y - by
+                # the reference's scatter indexes as NumPy does: a pixel up
+                # to one film width (height) left of (above) the cropped
+                # film lands that far from its right (bottom) edge, and
+                # only pixels beyond that, or right of (below) it, drop
+                ok = (mask & (pxl_x <= x1) & (pxl_y <= y1)
+                      & (lx >= -w) & (lx < w) & (ly >= -h) & (ly < h))
+                lx = torch.where(lx < 0, lx + w, lx)
+                ly = torch.where(ly < 0, ly + h, ly)
+                wgt = torch.where(ok, self.filter_table[iy, ix], 0.0)
+                idx = torch.where(ok, ly * w + lx, 0).long()
+                film_xyz.index_put_((idx,), xyz * wgt[..., None], accumulate=True)
+                film_w.index_put_((idx,), wgt, accumulate=True)
+        return {"xyz": film_xyz.reshape(h, w, 3), "weight": film_w.reshape(h, w)}
 
     def to_rgb(self, state):
         """Final [H, W, 3] RGB in the reference's write order."""

@@ -3,7 +3,8 @@ of ``pbrt_tpu/core/sampling.py``), batched over tensors.
 
 The warps keep the reference's polynomial sin/cos (``fast_sincos``) so
 that sampled directions agree with it to float32 rounding.
-Distribution2D (environment maps) waits for the infinite-light port.
+Distribution2D (image-mapped environment lights) waits for ROADMAP Queue 1
+item 8.
 """
 
 from __future__ import annotations
@@ -56,6 +57,18 @@ def cosine_sample_hemisphere(u):
     d = concentric_sample_disk(u)
     z = torch.sqrt(torch.clamp(1.0 - d[..., 0] ** 2 - d[..., 1] ** 2, min=0.0))
     return torch.stack([d[..., 0], d[..., 1], z], dim=-1)
+
+
+def sincos_2pi(u):
+    """(sin 2 pi u, cos 2 pi u) for u in [0, 1) (periodic fold to [-pi, pi])."""
+    return fast_sincos((u - torch.round(u)) * (2.0 * PI))
+
+
+def uniform_sample_sphere(u):
+    z = 1.0 - 2.0 * u[..., 0]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    s, c = sincos_2pi(u[..., 1])
+    return torch.stack([r * c, r * s, z], dim=-1)
 
 
 def uniform_sample_triangle(u):

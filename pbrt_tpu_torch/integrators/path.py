@@ -11,15 +11,20 @@ value is a pure function of (pixel, sample index, dimension):
     +0 light select    +1,+2 light u2   +3 lobe select
     +4,+5 bsdf u2      +6 russian roulette
 
-Sorted carry: at the end of every bounce the whole wavefront is
-co-sorted into the next bounce's traversal order (``sort_keys``; the
-intersector's ``co_sort`` network, 22 columns as in the reference, with
-alive and specular_bounce packed into one flags column), the closest-hit
-sweeps run sort-free, shadow sweeps sort per call, and one scatter
-restores lane order for the film.  Intersection queries run
+Rays that escape collect the infinite lights' radiance, weighted by MIS
+against the lights' sampling pdf.
+
+Sorted carry, where the reference takes it (an intersector with a sort
+hint and triangles, i.e. the BVH): at the end of every bounce the whole
+wavefront is co-sorted into the next bounce's traversal order
+(``sort_keys``; the intersector's ``co_sort`` network, 22 columns as in
+the reference, with alive and specular_bounce packed into one flags
+column), the closest-hit sweeps run sort-free, shadow sweeps sort per
+call, and one scatter restores lane order for the film.  The brute-force
+intersector keeps lanes in order throughout.  Intersection queries run
 under ``torch.no_grad()`` (the reference's ``stop_gradient`` on the
-query inputs).  Infinite lights, media, the remat/gradient path and the
-merged shadow+carry sort are not ported (ROADMAP Queue 1).
+query inputs).  Media, the remat/gradient path and the merged
+shadow+carry sort are not ported (ROADMAP Queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
@@ -58,6 +63,10 @@ class PathIntegrator:
         self.c = compiled
         self.max_depth = int(max_depth)
         self.rr_threshold = float(rr_threshold)
+        # the reference's rule: keep the wavefront in traversal order across
+        # bounces when the intersector takes a sort hint and has triangles
+        itx = compiled.intersector
+        self._sc = bool(getattr(itx, "supports_sort_hint", False)) and itx.n_tri > 0
 
     def queries_per_sample(self):
         """(closest, shadow) intersector queries per pixel-sample lane:
@@ -65,13 +74,31 @@ class PathIntegrator:
         the last (the final vertex collects emission only)."""
         return self.max_depth, self.max_depth - 1
 
-    def _intersect(self, o, d, t_max):
+    def _intersect(self, o, d, t_max, sort):
         with torch.no_grad():
-            return self.c.intersector.intersect(o, d, t_max, sort=False)
+            if getattr(self.c.intersector, "supports_sort_hint", False):
+                return self.c.intersector.intersect(o, d, t_max, sort=sort)
+            return self.c.intersector.intersect(o, d, t_max)
 
     def _occluded(self, o, d, t_max):
         with torch.no_grad():
-            return self.c.intersector.occluded(o, d, t_max, sort=True)
+            return self.c.intersector.occluded(o, d, t_max)
+
+    def _env_radiance(self, d):
+        le = torch.zeros_like(d)
+        for lt in self.c.lights:
+            if lt.is_infinite:
+                le = le + lt.le_escaped(d)
+        return le
+
+    def _env_pdf(self, p, d):
+        """Combined light-strategy pdf that BSDF-sampled direction d escapes
+        into an infinite light (for MIS)."""
+        pdf = torch.zeros(p.shape[:-1], dtype=p.dtype, device=p.device)
+        for lt in self.c.lights:
+            if lt.is_infinite:
+                pdf = pdf + lt.pdf_li(p, d)
+        return pdf / len(self.c.lights)
 
     def _emitted(self, si, wo):
         """Area-light emission toward wo at hit points."""
@@ -128,6 +155,8 @@ class PathIntegrator:
         for bounce in range(self.max_depth):
             carry = self._bounce(bounce, sampler, carry)
         L, lane = carry[0], carry[-1]
+        if not self._sc:
+            return L
         out = torch.zeros_like(L)
         out[lane] = L
         return out
@@ -139,7 +168,18 @@ class PathIntegrator:
         base = 5 + 7 * bounce
         # dead lanes trace with t_max = 0 (they sort into trailing blocks)
         t_far = torch.where(alive, INF_T, 0.0)
-        hit = self._intersect(o, d, t_far)
+        # camera rays arrive pixel-major; sorted-carry lanes were sorted at
+        # the end of the previous bounce
+        hit = self._intersect(o, d, t_far, sort=bounce > 0 and not self._sc)
+
+        if any(lt.is_infinite for lt in c.lights):
+            esc = alive & ~hit["hit"]
+            env_le = self._env_radiance(d)
+            light_pdf = self._env_pdf(prev_p, d)
+            w_env = torch.where(
+                specular_bounce, 1.0, power_heuristic(1, prev_bsdf_pdf, 1, light_pdf)
+            )
+            L = L + torch.where(esc[..., None], beta * env_le * w_env[..., None], 0.0)
         alive = alive & hit["hit"]
 
         ray_diff = None
@@ -221,6 +261,10 @@ class PathIntegrator:
                 beta,
             )
             alive = alive & survive
+
+        if not self._sc:
+            return (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
+                    pixel_xy, sample_index, lane)
 
         # --- sorted carry: one co-sort into the next traversal order -------
         t_next = torch.where(alive, INF_T, 0.0)

@@ -1,11 +1,15 @@
 """Lights, batched over wavefronts (counterpart of
-``pbrt_tpu/lights/__init__.py:44-76, 344-423, 438-498``).
+``pbrt_tpu/lights/__init__.py:37-76, 246-423, 438-498``).
 
 Contract (SoA tensors):
   sample_li(p, u2) -> (wi, Li, pdf, dist): one NEE sample toward the light
+  pdf_li(p, wi)    -> solid-angle pdf of sample_li, for MIS
+  le_escaped(d)    -> radiance for rays leaving the scene (infinite only)
 
-Point and diffuse-area lights are ported.  Spot, distant, goniometric,
-projection and infinite lights wait for ROADMAP Queue 1 item 8.
+Point, diffuse-area and constant infinite lights are ported.  Spot,
+distant, goniometric and projection lights and the image-mapped
+infinite light wait for ROADMAP Queue 1 item 8 (the last needs
+``core/imageio.py``, ``core/mipmap.py`` and Distribution2D).
 """
 
 from __future__ import annotations
@@ -13,15 +17,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
-from pbrt_tpu_torch.core.sampling import Distribution1D, uniform_sample_triangle
+from pbrt_tpu_torch import PI, float_t
+from pbrt_tpu_torch.core.sampling import (
+    Distribution1D,
+    uniform_sample_sphere,
+    uniform_sample_triangle,
+)
 from pbrt_tpu_torch.core.spectrum import promote_rgb
-from pbrt_tpu_torch.core.transform import Transform
+from pbrt_tpu_torch.core.transform import Transform, apply_vector
 from pbrt_tpu_torch.ops.tables import select_rows
+
+BIG_DIST = 1e7  # NEE distance to an infinite light
 
 
 class Light:
     is_delta = False
+    is_infinite = False
 
 
 class PointLight(Light):
@@ -38,6 +49,32 @@ class PointLight(Light):
         wi = to_l / torch.clamp(dist[..., None], min=1e-12)
         li = self._id / torch.clamp(d2, min=1e-12)[..., None]
         return wi, li, torch.ones_like(dist), dist
+
+
+class InfiniteAreaLight(Light):
+    """Environment light of constant radiance (the reference's
+    ``InfiniteAreaLight`` without ``mapname``): uniform sphere sampling."""
+
+    is_infinite = True
+
+    def __init__(self, light_to_world: Transform, l_rgb, device="cuda"):
+        self._l2wm = torch.as_tensor(light_to_world.m.astype(float_t), device=device)
+        self.l_rgb = promote_rgb(np.asarray(l_rgb, dtype=float_t), illuminant=True)
+        self._ld = torch.as_tensor(np.asarray(self.l_rgb, dtype=float_t), device=device)
+
+    def le_escaped(self, d):
+        return torch.broadcast_to(self._ld, d.shape[:-1] + (3,))
+
+    def sample_li(self, p, u2):
+        n = p.shape[0]
+        wi = apply_vector(self._l2wm, uniform_sample_sphere(u2))
+        li = torch.broadcast_to(self._ld, (n, 3))
+        pdf = torch.full((n,), 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
+        dist = torch.full((n,), BIG_DIST, dtype=p.dtype, device=p.device)
+        return wi, li, pdf, dist
+
+    def pdf_li(self, p, wi):
+        return torch.full(p.shape[:-1], 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
 
 
 class DiffuseAreaLight(Light):
@@ -96,8 +133,19 @@ class DiffuseAreaLight(Light):
 def make_light(record, device="cuda"):
     """LightRecord (core/api.py) -> Light."""
     name, params, l2w = record.name, record.params, record.light_to_world
+    one = np.ones(3, dtype=float_t)
+    if name in ("infinite", "exinfinite"):
+        l_rgb = params.find_one_spectrum_raw("L", one)
+        scale = params.find_one_spectrum_raw("scale", one)
+        if params.find_one_filename("mapname", ""):
+            raise NotImplementedError(
+                "image-mapped infinite lights ('mapname') are not ported yet (ROADMAP.md "
+                "Queue 1 item 8: they need core/imageio.py, core/mipmap.py and "
+                "Distribution2D)"
+            )
+        params.find_one_int("samples", params.find_one_int("nsamples", 1))
+        return InfiniteAreaLight(l2w, l_rgb * scale, device=device)
     if name == "point":
-        one = np.ones(3, dtype=float_t)
         i = promote_rgb(
             params.find_one_spectrum_raw("I", one)
             * params.find_one_spectrum_raw("scale", one),
@@ -107,5 +155,5 @@ def make_light(record, device="cuda"):
         return PointLight(l2w * Transform.translate(from_p), i, device=device)
     raise NotImplementedError(
         f"Light '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "only 'point' and diffuse area lights are"
+        "only 'point', 'infinite' and diffuse area lights are"
     )

@@ -3,9 +3,9 @@
 
 Scene build produces a list of :class:`MaterialEntry`; at shading time
 :func:`eval_material_params` evaluates each entry's textures across the
-wavefront and mask-selects into SoA parameter tensors.  Only ``matte``
-(and the emitter-only ``none``) is ported; every other material raises
-(ROADMAP Queue 1 item 8).  The differentiable ``theta`` override waits
+wavefront and mask-selects into SoA parameter tensors.  ``matte``,
+``mirror`` and the emitter-only ``none`` are ported; every other material
+raises (ROADMAP Queue 1 item 8).  The differentiable ``theta`` override waits
 for the gradient slice (Queue 1 item 7).
 """
 
@@ -44,15 +44,19 @@ def build_material(record) -> MaterialEntry:
                 "sigma": tp.get_float_texture("sigma", 0.0),
             },
         )
+    if name == "mirror":
+        return MaterialEntry(
+            B.MIRROR, {"kr": tp.get_spectrum_texture("Kr", np.full(3, 0.9, dtype=float_t))}
+        )
     raise NotImplementedError(
         f"Material '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "only 'matte' is"
+        "only 'matte' and 'mirror' are"
     )
 
 
 def eval_material_params(entries, mat_id, si):
     """Evaluate all material entries over the wavefront -> SoA params
-    (the slots the diffuse lobe reads: type, kd, sigma).
+    (the slots the ported lobes read: type, kd, kr, sigma).
 
     mat_id: [N] int32 indices into ``entries`` (-1 = background/none).
     """
@@ -61,6 +65,7 @@ def eval_material_params(entries, mat_id, si):
     params = {
         "type": torch.full((n,), B.NONE, dtype=torch.int32, device=dev),
         "kd": torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        "kr": torch.zeros((n, 3), dtype=torch.float32, device=dev),
         "sigma": torch.zeros((n,), dtype=torch.float32, device=dev),
         # static set of present material types: lobe code for absent
         # types is skipped
@@ -74,12 +79,13 @@ def eval_material_params(entries, mat_id, si):
     for k, e in enumerate(entries):
         mask = mat_id == k
         put("type", mask, torch.tensor(e.type_id, dtype=torch.int32, device=dev))
-        tex = e.textures.get("kd")
-        if tex is not None:
-            v = tex.eval(si)
-            if v.dim() == 1:
-                v = v[..., None] * torch.ones((1, 3), dtype=v.dtype, device=dev)
-            put("kd", mask, v)
+        for slot in ("kd", "kr"):
+            tex = e.textures.get(slot)
+            if tex is not None:
+                v = tex.eval(si)
+                if v.dim() == 1:
+                    v = v[..., None] * torch.ones((1, 3), dtype=v.dtype, device=dev)
+                put(slot, mask, v)
         stex = e.textures.get("sigma")
         if stex is not None:
             s = stex.eval(si)

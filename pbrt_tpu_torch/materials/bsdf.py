@@ -2,13 +2,15 @@
 ``pbrt_tpu/materials/bsdf.py:173-197, 308-639``).
 
 Every lane carries a material type id and SoA parameters; lobes are
-evaluated with masked selects.  Only the diffuse lobe (Lambert and
-Oren-Nayar, material ``matte``) is ported: a parameter set whose static
-type set (``params["_active"]``) names any other lobe raises.  Mirror,
-glass, plastic, metal, substrate, uber, translucent, hair, fourier and
-mix wait for ROADMAP Queue 1 item 8.
+evaluated with masked selects.  The diffuse lobe (Lambert and
+Oren-Nayar, material ``matte``) and the perfect mirror (``mirror``) are
+ported: a parameter set whose static type set (``params["_active"]``)
+names any other lobe raises.  Glass, plastic, metal, substrate, uber,
+translucent, hair, fourier and mix wait for ROADMAP Queue 1 item 8.
 
-Local shading frame: z = shading normal; wo/wi in local coordinates.
+Local shading frame: z = shading normal; wo/wi in local coordinates.  For
+specular lobes f already includes 1/|cos| (pdf 1), so the path weight
+f |cos| / pdf is the same expression for every lobe.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ HAIR = 9
 FOURIER = 10
 NONE = 15  # pure emitter
 
-PORTED = frozenset({MATTE, NONE})
+PORTED = frozenset({MATTE, MIRROR, NONE})
 
 
 def _check_ported(params):
@@ -40,7 +42,7 @@ def _check_ported(params):
     if missing:
         raise NotImplementedError(
             f"BSDF lobe types {sorted(missing)} are not ported yet "
-            "(ROADMAP.md Queue 1 item 8); only the diffuse (matte) lobe is"
+            "(ROADMAP.md Queue 1 item 8); only the diffuse (matte) and mirror lobes are"
         )
 
 
@@ -80,7 +82,7 @@ def _diffuse_f(params, wo, wi):
 
 
 def bsdf_eval(params, wo, wi):
-    """f(wo, wi) [N, 3]."""
+    """f(wo, wi) [N, 3] (specular lobes contribute 0)."""
     _check_ported(params)
     f = torch.zeros_like(params["kd"])
     if MATTE in params["_active"]:
@@ -91,7 +93,7 @@ def bsdf_eval(params, wo, wi):
 
 
 def bsdf_pdf(params, wo, wi):
-    """Solid-angle pdf of :func:`bsdf_sample`."""
+    """Solid-angle pdf of :func:`bsdf_sample` (0 on specular lanes)."""
     _check_ported(params)
     pdf = torch.zeros(wo.shape[:-1], dtype=wo.dtype, device=wo.device)
     if MATTE in params["_active"]:
@@ -106,12 +108,23 @@ def bsdf_sample(params, wo, u_lobe, u2):
     """Sample an outgoing direction.
 
     Returns (wi [N, 3], f [N, 3], pdf [N], specular [N] bool): the
-    cosine-weighted hemisphere on wo's side, f and pdf by evaluation.
+    cosine-weighted hemisphere on wo's side with f and pdf by evaluation;
+    on mirror lanes the reflection of wo with f = kr / |cos| and pdf 1.
     """
-    del u_lobe  # one lobe: no lobe choice
+    del u_lobe  # no lobe of a ported material chooses between lobes
     _check_ported(params)
     sign_o = torch.sign(torch.where(wo[..., 2] == 0.0, 1.0, wo[..., 2]))
     wi = cosine_sample_hemisphere(u2)
     wi = wi * torch.stack([torch.ones_like(sign_o), torch.ones_like(sign_o), sign_o], dim=-1)
-    specular = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
-    return wi, bsdf_eval(params, wo, wi), bsdf_pdf(params, wo, wi), specular
+    specular = params["type"] == MIRROR
+    if MIRROR in params["_active"]:
+        wi_mirror = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+        wi = torch.where(specular[..., None], wi_mirror, wi)
+    f = bsdf_eval(params, wo, wi)
+    pdf = bsdf_pdf(params, wo, wi)
+    if MIRROR in params["_active"]:
+        # FresnelNoOp (pbrt's MirrorMaterial): f = kr / |cos|, pdf = 1
+        abs_ci = torch.clamp(torch.abs(wi[..., 2]), min=1e-7)
+        f = torch.where(specular[..., None], params["kr"] / abs_ci[..., None], f)
+        pdf = torch.where(specular, 1.0, pdf)
+    return wi, f, pdf, specular

@@ -3,8 +3,9 @@
 
 Hit record (SoA dict of [N] tensors): t, hit (bool), kind, prim, and
 b0/b1 (None when the walk returns only (t, prim):
-``compute_interaction`` re-derives barycentrics).  The brute-force and
-SoA sweeps wait for the slice-1 port (ROADMAP Queue 1 item 4).
+``compute_interaction`` re-derives barycentrics).  The intersectors are
+``accel/bvh.py::BVHIntersector`` and ``ops/intersect_soa.py``'s
+brute-force sweep.
 """
 
 KIND_NONE = -1

@@ -4,11 +4,17 @@
 tables on ``device`` (a CUDA card unless the caller asks for the CPU),
 with the BVH walk and ``co_sort`` network named by ``walk`` and ``sort``
 (``accel/bvh.py``), and sweeps (pixel, sample) lanes in chunks of
-``options.ray_batch``: camera rays -> path integrator -> film.  Only the
-dense (scatter-free) film path is ported: box filter of radius <= 0.5,
-chunks aligned to whole pixels, each chunk adding its per-pixel sums to
-a contiguous run of the row-major film.  The filtered scatter path,
-splats and checkpoint/resume raise (ROADMAP Queue 1 items 4 and 9).
+``options.ray_batch``: camera rays -> path integrator -> film.  Two film
+paths, chosen as the reference chooses them:
+
+* dense (box filter of radius <= 0.5, no crop margin): chunks aligned to
+  whole pixels, each chunk adding its per-pixel sums to a contiguous run
+  of the row-major film (the reference's ``_frame_dense``);
+* scatter (any other filter radius, or a crop window): lanes over the
+  sample bounds, each chunk's samples added to the film through the
+  filter table (``Film.add_samples``; the reference's ``_step_impl``).
+
+Splats and checkpoint/resume wait for ROADMAP Queue 1 items 8 and 9.
 """
 
 from __future__ import annotations
@@ -42,8 +48,18 @@ class Renderer:
         self.counters = {"camera_samples": 0, "closest_queries": 0,
                          "shadow_queries": 0, "chunks": 0}
 
+    def _radiance(self, pixel_xy, sample_index, spp):
+        """Camera rays of the lanes -> (film positions [N, 2], weighted
+        finite radiance [N, 3])."""
+        sampler = self.sampler.bounded(spp)
+        p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sample_index, 0)
+        u_lens = sampler.get2(pixel_xy, sample_index, 2)
+        o, d, wgt = self.camera.generate_rays(p_film, u_lens)
+        L = self.integrator.li(sampler, pixel_xy, sample_index, o, d)
+        return p_film, torch.where(torch.isfinite(L), L, 0.0) * wgt[..., None]
+
     def _chunk(self, flat, pix_start, n_pix, pix_per_chunk, spp):
-        """One chunk: lanes pixel-major with ``spp`` consecutive samples."""
+        """One dense chunk: lanes pixel-major with ``spp`` consecutive samples."""
         b = self.film.cropped_pixel_bounds
         w = b.width
         x0, y0 = b.p_min
@@ -55,13 +71,7 @@ class Renderer:
         pixel_xy = pixel_xy.repeat_interleave(spp, dim=0)
         sample_index = torch.arange(spp, device=dev).repeat(pix_per_chunk)
         lane_mask = pix_ok.repeat_interleave(spp)
-
-        sampler = self.sampler.bounded(spp)
-        p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sample_index, 0)
-        u_lens = sampler.get2(pixel_xy, sample_index, 2)
-        o, d, wgt = self.camera.generate_rays(p_film, u_lens)
-        L = self.integrator.li(sampler, pixel_xy, sample_index, o, d)
-        L = torch.where(torch.isfinite(L), L, 0.0) * wgt[..., None]
+        _, L = self._radiance(pixel_xy, sample_index, spp)
         L = torch.where(lane_mask[..., None], L, 0.0)
         xyz = L @ self.film.rgb_to_xyz.T
         pix_xyz = xyz.reshape(pix_per_chunk, spp, 3).sum(dim=1)
@@ -83,31 +93,49 @@ class Renderer:
         b = film.cropped_pixel_bounds
         dense = (rx <= 0.5 and ry <= 0.5 and sample_bounds.p_min == b.p_min
                  and sample_bounds.p_max == b.p_max)
-        if not dense:
-            raise NotImplementedError(
-                "the filtered scatter film path (filter radius > 0.5 or a crop "
-                "window) is not ported yet: ROADMAP.md Queue 1 item 4"
-            )
         state = film.initial_state()
-        pix_per_chunk = batch // spp
-        dev = self.device
-        flat = {
-            "fx": torch.zeros((n_chunks * pix_per_chunk, 3), dtype=torch.float32, device=dev),
-            "fw": torch.zeros((n_chunks * pix_per_chunk,), dtype=torch.float32, device=dev),
-        }
         with torch.no_grad():
-            for ci in range(n_chunks):
-                self._chunk(flat, ci * pix_per_chunk, n_pix, pix_per_chunk, spp)
-        h, w = b.height, b.width
-        state = {
-            "xyz": state["xyz"] + flat["fx"][: h * w].reshape(h, w, 3),
-            "weight": state["weight"] + flat["fw"][: h * w].reshape(h, w),
-        }
+            if dense:
+                state = self._render_dense(state, n_pix, n_chunks, batch // spp, spp)
+            else:
+                state = self._render_scatter(state, sample_bounds, n_lanes, n_chunks,
+                                             batch, spp)
         closest, shadow = self.integrator.queries_per_sample()
         self.counters["camera_samples"] += n_pix * spp
         self.counters["closest_queries"] += n_pix * spp * closest
         self.counters["shadow_queries"] += n_pix * spp * shadow
         self.counters["chunks"] += n_chunks
+        return state
+
+    def _render_dense(self, state, n_pix, n_chunks, pix_per_chunk, spp):
+        b = self.film.cropped_pixel_bounds
+        dev = self.device
+        flat = {
+            "fx": torch.zeros((n_chunks * pix_per_chunk, 3), dtype=torch.float32, device=dev),
+            "fw": torch.zeros((n_chunks * pix_per_chunk,), dtype=torch.float32, device=dev),
+        }
+        for ci in range(n_chunks):
+            self._chunk(flat, ci * pix_per_chunk, n_pix, pix_per_chunk, spp)
+        h, w = b.height, b.width
+        return {
+            "xyz": state["xyz"] + flat["fx"][: h * w].reshape(h, w, 3),
+            "weight": state["weight"] + flat["fw"][: h * w].reshape(h, w),
+        }
+
+    def _render_scatter(self, state, sample_bounds, n_lanes, n_chunks, batch, spp):
+        """Lanes pixel-major over the sample bounds (``spp`` consecutive
+        samples per pixel); the last chunk's padding lanes repeat the last
+        pixel with sample 0 and are masked out of the film."""
+        w = sample_bounds.width
+        x0, y0 = sample_bounds.p_min
+        for ci in range(n_chunks):
+            lane = ci * batch + torch.arange(batch, device=self.device)
+            lane_mask = lane < n_lanes
+            pix = torch.clamp(lane, max=n_lanes - 1) // spp
+            pixel_xy = torch.stack([x0 + pix % w, y0 + pix // w], dim=-1)
+            sample_index = torch.where(lane_mask, lane % spp, 0)
+            p_film, L = self._radiance(pixel_xy, sample_index, spp)
+            state = self.film.add_samples(state, p_film, L, mask=lane_mask)
         return state
 
     def image(self, state) -> np.ndarray:

@@ -1,15 +1,18 @@
 """Compile a parsed SceneDescription into device tables and render objects
-(counterpart of ``pbrt_tpu/scene/builder.py:144-568, 634-878``).
+(counterpart of ``pbrt_tpu/scene/builder.py:97-142, 144-568, 618-878``).
 
 Output is SoA: all triangles of the scene concatenated in world space,
-per-triangle material/light ids, the material entries and the lights,
-every table on the ``device`` handed to :func:`build_scene`.
+analytic spheres with their transforms, per-primitive material/light ids,
+the material entries and the lights, every table on the ``device``
+handed to :func:`build_scene`.
 
-Ported for the triangle-mesh scenes of the BVH slice: film, camera,
-sampler, materials, point and area lights, the triangle tables and the
-``_flags`` that prune interaction work.  Spheres, media, instancing and
-motion blur raise (ROADMAP Queue 1 items 4 and 8); a scene under the
-BVH's ``minprims`` threshold needs the brute-force intersector (item 4).
+Ported: film, camera, sampler, materials, lights, the triangle and
+sphere tables (emitting spheres become triangle meshes, as in the
+reference), the ``_flags`` that prune interaction work, and the
+reference's intersector choice: the BVH for ``bvh``/``kdtree`` scenes of
+at least ``minprims`` triangles, the brute-force sweep otherwise.  Media,
+instancing, subsurface materials and motion blur raise (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -28,10 +31,17 @@ from pbrt_tpu_torch.core.filters import make_filter
 from pbrt_tpu_torch.core.spectrum import promote_rgb
 from pbrt_tpu_torch.lights import DiffuseAreaLight, Light, make_light
 from pbrt_tpu_torch.materials import MaterialEntry, build_material
-from pbrt_tpu_torch.ops.intersect import KIND_TRI
+from pbrt_tpu_torch.ops.intersect import KIND_SPHERE, KIND_TRI
+from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
 from pbrt_tpu_torch.ops.tables import select_rows
 from pbrt_tpu_torch.samplers import make_sampler
-from pbrt_tpu_torch.shapes import TriangleData, concat_triangle_data, make_shape
+from pbrt_tpu_torch.shapes import (
+    SphereData,
+    TriangleData,
+    concat_sphere_data,
+    concat_triangle_data,
+    make_shape,
+)
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -53,11 +63,48 @@ class CompiledScene:
     tables: Dict[str, object]
     intersector: object
     tri_data: Optional[TriangleData]
+    sph_data: Optional[SphereData]
+    world_bounds: tuple
     device: torch.device
 
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def _tessellate_emitting_sphere(sph: SphereData, sub=24):
+    """Emitting spheres become triangles so area sampling is uniform (the
+    reference's ``_tessellate_emitting_sphere``)."""
+    from pbrt_tpu_torch.core.transform import Transform
+
+    parts = []
+    for i in range(sph.count):
+        r = float(sph.radius[i])
+        us = np.linspace(0, 2 * np.pi, 2 * sub + 1)
+        vs = np.linspace(0, np.pi, sub + 1)
+        uu, vv = np.meshgrid(us, vs, indexing="ij")
+        pts = np.stack([r * np.sin(vv) * np.cos(uu), r * np.sin(vv) * np.sin(uu),
+                        r * np.cos(vv)], axis=-1)
+        t = Transform(sph.o2w[i])
+        pts_w = t.apply_p(pts.reshape(-1, 3)).reshape(pts.shape)
+        nrm_w = t.apply_n(pts.reshape(-1, 3)).reshape(pts.shape)
+        nn = np.linalg.norm(nrm_w, axis=-1, keepdims=True)
+        nrm_w = nrm_w / np.where(nn == 0, 1, nn)
+        corners = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2")}
+        nu, nv = uu.shape[0] - 1, uu.shape[1] - 1
+        for a in range(nu):
+            for b in range(nv):
+                quad = [(a, b), (a + 1, b), (a + 1, b + 1), (a, b + 1)]
+                for tri in ((0, 1, 2), (0, 2, 3)):
+                    for c, k in enumerate(tri):
+                        v = quad[k]
+                        corners[f"p{c}"].append(pts_w[v])
+                        corners[f"n{c}"].append(nrm_w[v])
+                        corners[f"uv{c}"].append((v[0] / nu, v[1] / nv))
+        td = TriangleData(**{k: np.asarray(v, dtype=float_t) for k, v in corners.items()})
+        keep = td.areas() > 1e-14
+        parts.append(TriangleData(**{k: getattr(td, k)[keep] for k in corners}))
+    return concat_triangle_data(parts)
 
 
 def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
@@ -115,17 +162,28 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
     tri_parts: List[TriangleData] = []
     tri_mat: List[np.ndarray] = []
     tri_light: List[np.ndarray] = []
+    sph_parts: List[SphereData] = []
+    sph_mat: List[int] = []
     area_lights: List[DiffuseAreaLight] = []
     for rec in desc.shapes:
         if rec.object_to_world_end is not None:
             raise _not_ported("motion blur", 8)
         if rec.inside_medium or rec.outside_medium:
             raise _not_ported("participating media", 8)
+        if rec.material.name in ("subsurface", "kdsubsurface"):
+            raise _not_ported("subsurface materials (their interior media)", 8)
         shape = make_shape(rec.name, rec.params, rec.object_to_world, rec.reverse_orientation)
         if shape is None:
             continue
         rec.params.report_unused()
         m_idx = mat_index(rec.material)
+        if isinstance(shape, SphereData):
+            if not rec.area_light_name:
+                sph_parts.append(shape)
+                sph_mat.extend([m_idx] * shape.count)
+                continue
+            # area sampling lives on the triangle tables
+            shape = _tessellate_emitting_sphere(shape)
         light_idx = -1
         if rec.area_light_name:
             ap = rec.area_light_params
@@ -145,6 +203,7 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
         tri_light.append(np.full(shape.count, light_idx, dtype=np.int32))
 
     tri_data = concat_triangle_data(tri_parts)
+    sph_data = concat_sphere_data(sph_parts)
     lights: List[Light] = [make_light(lr, device=device) for lr in desc.lights]
     lights.extend(area_lights)
     if not lights:
@@ -162,6 +221,18 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
             if not np.isfinite(host[k]).all():
                 raise ValueError(f"Non-finite values in scene table 'tri.{k}'")
         tables["tri"] = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+    if sph_data is not None:
+        for k in ("o2w", "w2o", "radius", "z_min", "z_max"):
+            if not np.isfinite(getattr(sph_data, k)).all():
+                raise ValueError(f"Non-finite values in scene table 'sph.{k}'")
+        sph_host = {
+            "o2w": sph_data.o2w.astype(float_t), "w2o": sph_data.w2o.astype(float_t),
+            "radius": sph_data.radius, "z_min": sph_data.z_min, "z_max": sph_data.z_max,
+            "phi_max": sph_data.phi_max, "reverse": sph_data.reverse_orientation,
+            "mat": np.asarray(sph_mat, dtype=np.int32),
+        }
+        tables["sph"] = {k: torch.as_tensor(v, device=device) for k, v in sph_host.items()}
+        tables["sph_cols"] = _sph_cols(tables["sph"])
 
     # static interaction flags: uv only for non-constant textures, shading
     # normals only for non-flat meshes, footprints only for textures that
@@ -191,14 +262,13 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
     }
 
     min_prims = desc.accelerator_params.find_one_int("minprims", 512)
-    if not (desc.accelerator_name in ("bvh", "kdtree") and tri_data is not None
+    if (desc.accelerator_name in ("bvh", "kdtree") and tri_data is not None
             and tri_data.count >= min_prims):
-        raise _not_ported(
-            f"the brute-force intersector (scenes below {min_prims} triangles)", 4
-        )
-    from pbrt_tpu_torch.accel.bvh import BVHIntersector
+        from pbrt_tpu_torch.accel.bvh import BVHIntersector
 
-    intersector = BVHIntersector(tri_data, device=device, walk=walk, sort=sort)
+        intersector = BVHIntersector(tri_data, sph_data, device=device, walk=walk, sort=sort)
+    else:
+        intersector = SoABruteForceIntersector(tri_data, sph_data, device=device)
     desc.accelerator_params.report_unused()
     return CompiledScene(
         film=film, camera=camera, sampler=sampler,
@@ -206,8 +276,30 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
         integrator_params=desc.integrator_params,
         accelerator_name=desc.accelerator_name,
         materials=materials, lights=lights, area_lights=area_lights,
-        tables=tables, intersector=intersector, tri_data=tri_data, device=device,
+        tables=tables, intersector=intersector, tri_data=tri_data, sph_data=sph_data,
+        world_bounds=_world_bounds(tri_data, sph_data), device=device,
     )
+
+
+def _world_bounds(tri_data, sph_data):
+    """(mins, maxs) over the triangles and the spheres' scaled radii."""
+    from pbrt_tpu_torch.core.transform import Transform
+
+    mins = np.full(3, np.inf)
+    maxs = np.full(3, -np.inf)
+    if tri_data is not None:
+        for p in (tri_data.p0, tri_data.p1, tri_data.p2):
+            mins = np.minimum(mins, p.min(axis=0))
+            maxs = np.maximum(maxs, p.max(axis=0))
+    if sph_data is not None:
+        for i in range(sph_data.count):
+            c = Transform(sph_data.o2w[i]).apply_p(np.zeros(3))
+            r = sph_data.radius[i] * np.abs(sph_data.o2w[i][:3, :3]).max()
+            mins = np.minimum(mins, c - r)
+            maxs = np.maximum(maxs, c + r)
+    if not np.isfinite(mins).all():
+        mins, maxs = -np.ones(3), np.ones(3)
+    return mins, maxs
 
 
 def _tri_cols(tr, need_normals=True, need_uv=True):
@@ -232,8 +324,19 @@ def _tri_cols(tr, need_normals=True, need_uv=True):
     return torch.cat(parts, dim=1), layout
 
 
+def _sph_cols(sp):
+    """Pack the sphere table: w2o rows (12) radius z_min z_max phi_max
+    reverse mat (6) -> [S, 18] f32."""
+    parts = [
+        sp["w2o"][:, :3, :4].reshape(sp["w2o"].shape[0], 12),
+        sp["radius"][:, None], sp["z_min"][:, None], sp["z_max"][:, None],
+        sp["phi_max"][:, None], sp["reverse"][:, None], sp["mat"][:, None],
+    ]
+    return torch.cat([p.to(torch.float32) for p in parts], dim=1)
+
+
 def compute_interaction(tables, hit, o, d, ray_diff=None):
-    """Hit record -> SoA surface interaction dict (triangles).
+    """Hit record -> SoA surface interaction dict (triangles and spheres).
 
     Keys: p, ng, ng_raw, ns [N, 3], uv [N, 2], mat, light, med_in,
     med_out [N], wo [N, 3]; with ``ray_diff = (dxd, dyd)`` (the +1-pixel
@@ -357,6 +460,47 @@ def compute_interaction(tables, hit, o, d, ray_diff=None):
         light = torch.where(is_tri, col_int("light"), light)
         med_in = torch.where(is_tri, col_int("med_in"), med_in)
         med_out = torch.where(is_tri, col_int("med_out"), med_out)
+
+    if "sph" in tables:
+        cols = tables["sph_cols"]
+        idx = torch.clamp(hit["prim"].long(), 0, cols.shape[0] - 1)
+        is_sph = hit["hit"] & (hit["kind"] == KIND_SPHERE)
+        srows = select_rows(cols, idx)
+        m3 = srows[:, 0:12].reshape(-1, 3, 4)
+        p_obj = torch.sum(m3[:, :, :3] * p[:, None, :], dim=-1) + m3[:, :, 3]
+        n_obj = p_obj / torch.clamp(torch.linalg.norm(p_obj, dim=-1, keepdim=True), min=1e-12)
+        # the normal transforms by (w2o)^T
+        n_w = torch.sum(m3[:, :, :3] * n_obj[:, :, None], dim=1)
+        n_w = n_w / torch.clamp(torch.linalg.norm(n_w, dim=-1, keepdim=True), min=1e-12)
+        n_w = torch.where(srows[:, 16:17] != 0.0, -n_w, n_w)
+        m = is_sph[..., None]
+        if uv_needed:
+            # (phi, theta) parameterization, only for textured scenes
+            phi = torch.atan2(p_obj[..., 1], p_obj[..., 0])
+            phi = torch.where(phi < 0, phi + 2 * np.pi, phi)
+            r = srows[:, 12]
+            u_s = phi / srows[:, 15]
+            zmin = srows[:, 13]
+            zmax = srows[:, 14]
+            r_safe = torch.clamp(r, min=1e-12)
+            theta = torch.arccos(torch.clamp(p_obj[..., 2] / r_safe, -1, 1))
+            theta_min = torch.arccos(torch.clamp(zmax / r_safe, -1, 1))
+            theta_max = torch.arccos(torch.clamp(zmin / r_safe, -1, 1))
+            v_s = (theta - theta_min) / torch.clamp(theta_max - theta_min, min=1e-9)
+            uv = torch.where(m, torch.stack([u_s, v_s], dim=-1), uv)
+            if ray_diff is not None:
+                dpdx, dpdy = _plane_offsets(n_w)
+                # arc-length footprint estimate: uv spans ~pi*r of surface
+                wid = torch.maximum(
+                    torch.linalg.norm(dpdx, dim=-1), torch.linalg.norm(dpdy, dim=-1)
+                ) / torch.clamp(r * np.pi, min=1e-9)
+                tex_width = torch.where(is_sph, wid, tex_width)
+                duvdx = torch.where(m, torch.stack([wid, wid], dim=-1), duvdx)
+                duvdy = torch.where(m, 0.0, duvdy)
+        ng = torch.where(m, n_w, ng)
+        ng_raw = torch.where(m, n_w, ng_raw)
+        ns = torch.where(m, n_w, ns)
+        mat = torch.where(is_sph, torch.round(srows[:, 17]).to(torch.int32), mat)
 
     out = {
         "p": p, "ng": ng, "ng_raw": ng_raw, "ns": ns, "uv": uv,

@@ -1,12 +1,14 @@
-"""Shapes: host-side construction into flat triangle tables (numpy copy
-of the triangle-mesh half of ``pbrt_tpu/shapes/__init__.py``).
+"""Shapes: host-side construction into flat triangle tables and analytic
+sphere records (numpy copy of the triangle-mesh and sphere parts of
+``pbrt_tpu/shapes/__init__.py``).
 
-Only ``trianglemesh`` is ported.  Spheres and the tessellated quadrics,
+``trianglemesh`` and ``sphere`` are ported.  The tessellated quadrics,
 PLY, Loop subdivision, curves and NURBS wait for ROADMAP Queue 1 item 2.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from dataclasses import dataclass
 from typing import Optional
@@ -35,6 +37,35 @@ class TriangleData:
     @property
     def count(self) -> int:
         return len(self.p0)
+
+    def areas(self) -> np.ndarray:
+        c = np.cross(self.p1 - self.p0, self.p2 - self.p0)
+        return 0.5 * np.linalg.norm(c, axis=-1)
+
+
+@dataclass
+class SphereData:
+    """Host SoA for analytic spheres (object space plus transforms)."""
+
+    o2w: np.ndarray  # [S, 4, 4] float64
+    w2o: np.ndarray
+    radius: np.ndarray
+    z_min: np.ndarray
+    z_max: np.ndarray
+    phi_max: np.ndarray  # radians
+    reverse_orientation: np.ndarray  # bool
+
+    @property
+    def count(self) -> int:
+        return len(self.radius)
+
+
+def concat_sphere_data(parts):
+    """Concatenate SphereData batches (None when there are none)."""
+    if not parts:
+        return None
+    return SphereData(*(np.concatenate([getattr(p, f.name) for p in parts])
+                        for f in dataclasses.fields(SphereData)))
 
 
 def _mesh_from_params(params, o2w, reverse):
@@ -85,12 +116,26 @@ def _mesh_from_params(params, o2w, reverse):
 
 
 def make_shape(name: str, params, o2w, reverse: bool):
-    """Build a shape -> TriangleData | None."""
+    """Build a shape -> TriangleData | SphereData | None."""
     if name == "trianglemesh":
         return _mesh_from_params(params, o2w, reverse)
+    if name == "sphere":
+        radius = params.find_one_float("radius", 1.0)
+        z_min = params.find_one_float("zmin", -radius)
+        z_max = params.find_one_float("zmax", radius)
+        phi_max = np.deg2rad(params.find_one_float("phimax", 360.0))
+        return SphereData(
+            o2w=o2w.m[None].astype(np.float64),
+            w2o=o2w.m_inv[None].astype(np.float64),
+            radius=np.array([radius], dtype=float_t),
+            z_min=np.array([np.clip(min(z_min, z_max), -radius, radius)], dtype=float_t),
+            z_max=np.array([np.clip(max(z_min, z_max), -radius, radius)], dtype=float_t),
+            phi_max=np.array([np.clip(phi_max, 0.0, 2.0 * np.pi)], dtype=float_t),
+            reverse_orientation=np.array([reverse]),
+        )
     raise NotImplementedError(
         f"Shape '{name}' is not ported yet (ROADMAP.md Queue 1 item 2); "
-        "only 'trianglemesh' is"
+        "only 'trianglemesh' and 'sphere' are"
     )
 
 

@@ -1,11 +1,16 @@
 """Built-in benchmark scenes (counterpart of ``pbrt_tpu/testscenes.py``).
 
+BASELINE scene 2: the analytic Cornell box (12 triangles of diffuse
+quads, a mirror sphere and a matte sphere, a ceiling area light, path
+integrator), below the BVH's ``minprims``, so the brute-force
+intersector sweeps it.
+
 BASELINE config 3: a procedurally displaced ~50k-triangle torus with a
 checkerboard-textured matte material on a matte floor, lit by a point
-light and a quad area light, path integrator with MIS.  The scene text
-and mesh are the reference's, so both packages build the same scene.
-The Cornell box (slice 1) waits for the brute-force intersector
-(ROADMAP Queue 1 item 4).
+light and a quad area light, path integrator with MIS.
+
+The scene texts and meshes are the reference's, so both packages build
+the same scenes.
 """
 
 from __future__ import annotations
@@ -15,6 +20,93 @@ import numpy as np
 from pbrt_tpu_torch import Options
 from pbrt_tpu_torch.core.api import PbrtAPI
 from pbrt_tpu_torch.core.paramset import ParamSet
+
+
+CORNELL_BOX = """
+LookAt 278 273 -800  278 273 0  0 1 0
+Camera "perspective" "float fov" 39.3
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator "path" "integer maxdepth" {maxdepth}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+     "string filename" "{filename}"
+WorldBegin
+# ceiling area light
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [17 12 4]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [213 548.7 227  343 548.7 227  343 548.7 332  213 548.7 332]
+AttributeEnd
+# floor
+Material "matte" "rgb Kd" [0.73 0.73 0.73]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [552.8 0 0  0 0 0  0 0 559.2  549.6 0 559.2]
+# ceiling
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [556 548.8 0  556 548.8 559.2  0 548.8 559.2  0 548.8 0]
+# back wall
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [549.6 0 559.2  0 0 559.2  0 548.8 559.2  556 548.8 559.2]
+# right wall (green)
+Material "matte" "rgb Kd" [0.12 0.45 0.15]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [0 0 559.2  0 0 0  0 548.8 0  0 548.8 559.2]
+# left wall (red)
+Material "matte" "rgb Kd" [0.65 0.05 0.05]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [552.8 0 0  549.6 0 559.2  556 548.8 559.2  556 548.8 0]
+# mirror sphere
+AttributeBegin
+  Material "mirror" "rgb Kr" [0.95 0.95 0.95]
+  Translate 185 100 170
+  Shape "sphere" "float radius" 100
+AttributeEnd
+# matte sphere
+AttributeBegin
+  Material "matte" "rgb Kd" [0.8 0.7 0.6]
+  Translate 370 90 350
+  Shape "sphere" "float radius" 90
+AttributeEnd
+WorldEnd
+"""
+
+
+def cornell_text(xres=256, yres=256, spp=4, maxdepth=5, filename="cornell.png",
+                 environment=False):
+    """The Cornell scene's text.  ``environment``: add a constant infinite
+    light (the box is open toward the camera), a gaussian pixel filter and
+    a crop window, so the render takes the escaped-ray MIS and the
+    filtered scatter film."""
+    text = CORNELL_BOX.format(xres=xres, yres=yres, spp=spp, maxdepth=maxdepth,
+                              filename=filename)
+    if environment:
+        text = text.replace('"string filename"', '"float cropwindow" [0.2 0.8 0.1 0.7]\n'
+                            '     "string filename"')
+        text = text.replace("WorldBegin\n", 'PixelFilter "gaussian"\nWorldBegin\n'
+                            'LightSource "infinite" "rgb L" [0.2 0.2 0.25]\n')
+    return text
+
+
+def cornell_description(xres=256, yres=256, spp=4, maxdepth=5, filename="cornell.png",
+                        options=None, environment=False):
+    """Parse the Cornell scene (:func:`cornell_text`) -> (SceneDescription,
+    Options)."""
+    api = PbrtAPI(options or Options(), render_on_world_end=False)
+    api.init()
+    api.parse_string(cornell_text(xres, yres, spp, maxdepth, filename, environment))
+    return api.scene, api.opt
+
+
+def cornell_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16, seed=0,
+                     device="cuda", walk="bvh8", sort="stable", environment=False):
+    """BASELINE scene 2 (or its ``environment`` variant) on ``device`` ->
+    Renderer.  ``walk`` and ``sort`` reach only a scene that takes the BVH
+    (``accel/bvh.py``)."""
+    from pbrt_tpu_torch.render import Renderer
+
+    desc, opts = cornell_description(xres, yres, spp, maxdepth,
+                                     options=Options(ray_batch=ray_batch),
+                                     environment=environment)
+    return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort)
 
 
 def _torus_mesh_params(nu=224, nv=112, major=1.0, minor=0.4, displace=0.08):
@@ -75,16 +167,27 @@ Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
   "point P" [-8 -8 -0.7  8 -8 -0.7  8 8 -0.7  -8 8 -0.7]
 """
 
+# an analytic mirror sphere between the camera and the torus (spheres beside
+# the BVH)
+MIRROR_SPHERE = """
+AttributeBegin
+  Material "mirror" "rgb Kr" [0.9 0.9 0.9]
+  Translate 1.2 0.6 1.0
+  Shape "sphere" "float radius" 0.5
+AttributeEnd
+"""
+
 
 def mesh_scene_description(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16,
-                           nu=224, nv=112):
-    """Parse BASELINE config 3 -> (SceneDescription, Options, n_torus_tris)."""
+                           nu=224, nv=112, sphere=False):
+    """Parse BASELINE config 3 (``sphere``: with :data:`MIRROR_SPHERE`) ->
+    (SceneDescription, Options, n_torus_tris)."""
     api = PbrtAPI(Options(ray_batch=ray_batch), render_on_world_end=False)
     api.init()
     api.parse_string(MESH_SCENE.format(spp=spp, maxdepth=maxdepth, xres=xres, yres=yres))
     ps, n_tris = _torus_mesh_params(nu, nv)
     api.shape("trianglemesh", ps)
-    api.parse_string(FLOOR)
+    api.parse_string(FLOOR + (MIRROR_SPHERE if sphere else ""))
     api.scene.film_params.add_int("xresolution", [xres])
     api.scene.film_params.add_int("yresolution", [yres])
     return api.scene, api.opt, n_tris
@@ -92,14 +195,14 @@ def mesh_scene_description(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 <<
 
 def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16,
                         nu=224, nv=112, seed=0, device="cuda", walk="bvh8",
-                        sort="stable"):
-    """BASELINE config 3 on ``device`` with the BVH walk ``walk`` and the
-    ``co_sort`` network ``sort`` (``accel/bvh.py``) -> (Renderer,
-    n_torus_tris)."""
+                        sort="stable", sphere=False):
+    """BASELINE config 3 (``sphere``: with a mirror sphere) on ``device``
+    with the BVH walk ``walk`` and the ``co_sort`` network ``sort``
+    (``accel/bvh.py``) -> (Renderer, n_torus_tris)."""
     from pbrt_tpu_torch.render import Renderer
 
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
-                                                nu, nv)
+                                                nu, nv, sphere)
     return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort), n_tris
 
 
