@@ -4,8 +4,9 @@
 Run from the repository root:
 
     python3 chip_smoke.py            # the whole check
-    python3 chip_smoke.py --profile  # plus torch.profiler over one config-3 and one
-                                     # Cornell frame (launches, device busy share)
+    python3 chip_smoke.py --profile  # plus torch.profiler over one config-3, one
+                                     # Cornell and one config-5 frame (launches,
+                                     # device busy share)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -86,10 +87,38 @@ Phases (any failure raises and the script exits non-zero):
    escaped-ray MIS and the scatter film); and the 24x24 torus with a
    mirror sphere (1,156 triangles and the sphere sweep beside the BVH)
    under every walk, each CUDA render with the counters zeroed before it
-   and its walk's kernel (K1, the whole-tree K4, K6) launched.
+   and its walk's kernel (K1, the whole-tree K4, K6) launched;
+9. BASELINE config 5 at full width: the 1,000,004-triangle torus scene at
+   256x256, 4 spp, maxdepth 4 (one 262,144-lane chunk): scene build
+   seconds; a first frame with the counters zeroed before and read after
+   (K2 ``stream_walk8`` launched 7 times, nothing else); the image finite
+   and not black; the 7 sweeps of a recorded frame through K2 against its
+   plain version run on the card, to phase 3's rules, and K2's time per
+   sweep beside its bound; frame seconds (median of three) and Mray/s;
+   the same scene's image on the card against the CPU's at 16x16, 1 spp,
+   maxdepth 3, to phase 5's tolerance;
+10. gradients (``diff/grad.py``): (a) one config-5 loss-and-gradient step
+   at full width, ``make_loss_fn`` over all 65,536 pixels at 4 spp against
+   a target rendered with the floor's kd changed: forward and
+   forward+backward seconds (median of three), K2's launches in the
+   forward and in the backward (the per-bounce checkpoint's replay, which
+   must launch it, at most as often as the forward),
+   ``torch.cuda.max_memory_allocated`` with ``remat=True`` and with
+   ``remat=False`` (their gradients equal), the floor-kd gradient against
+   a central finite difference (eps 1e-2, rtol 0.05, the difference
+   non-zero), every leaf finite; (b) every gradient leaf on the card
+   against the CPU's (rtol 1e-3, or 1e-6 of the CPU gradient's largest
+   magnitude) on config 3 at 16x16 (K2, sorted carry), the 24x24 torus
+   (K1), tests/test_grad.py's sphere and nested-mix scenes,
+   tests/test_texture_grad.py's image-texture scene (its texture written
+   as PFM under ``build/chip_smoke/``) and Cornell at 16x16 (area light,
+   the mirror's kr), with Cornell's area-light gradient against finite
+   differences on the card; (c) ``sort="bitonic"`` with a theta that
+   requires grad raises on the card.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The lines before the last are JSON objects: ``{"cornell": ...}``,
+``{"config5": ...}``, ``{"gradients": ...}`` and one with an entry per
+kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -334,9 +363,9 @@ def walk_call(name, walk, o, d, t_max):
                         comps[0].shape[0], blocks)
 
 
-def check_walk(name, label, walk, o, d, t_max, any_hit):
-    """The kernel ``name`` against its plain version (CPU copies) on the
-    inputs its intersector builds for these rays, to the contract of
+def check_walk(name, label, walk, o, d, t_max, any_hit, plain_device="cpu"):
+    """The kernel ``name`` against its plain version (on copies on
+    ``plain_device``) on the inputs its intersector builds for these rays, to the contract of
     ``bvh8_walk.walk_disagreement``; the whole-tree K4 and K6, closest
     hit: every output bit-equal (K6: t, triangle, b0 and b1).  Returns
     (max |dt| (or |db|) over hit lanes, the kernel's call, (bytes, ops) of
@@ -357,19 +386,20 @@ def check_walk(name, label, walk, o, d, t_max, any_hit):
              bvh2_walk.segment_stats() if name in SPLIT_WALKS else {})
     segments, rays = split.get("segments"), split.get("rays_per_task")
     counters = {}
-    cpu = tuple(tuple(c.cpu() for c in a) if isinstance(a, tuple) else a.cpu() for a in args)
+    cpu = tuple(tuple(c.to(plain_device) for c in a) if isinstance(a, tuple)
+                else a.to(plain_device) for a in args)
     plain = plain_fn(*cpu, any_hit=any_hit, counters=counters, **kw)
     n = o.shape[0]
     o, d, t_max = (x.cpu().numpy() for x in (o, d, t_max))
     t_k, s_k = (x.cpu().numpy()[:n] for x in kern[:2])
-    t_p, s_p = (x.numpy()[:n] for x in plain[:2])
+    t_p, s_p = (x.cpu().numpy()[:n] for x in plain[:2])
     tris = tris.cpu().numpy()
     problem = walk_disagreement(t_p, s_p, t_k, s_k, any_hit, tris, o, d)
     hit = s_p >= 0
     err = 0.0 if any_hit or not hit.any() else float(np.abs(t_k[hit] - t_p[hit]).max())
     if problem is None and name in SPLIT_WALKS and not any_hit:
         for i, (k, p) in enumerate(zip(kern, plain)):
-            if not np.array_equal(k.cpu().numpy()[:n], p.numpy()[:n]):
+            if not np.array_equal(k.cpu().numpy()[:n], p.cpu().numpy()[:n]):
                 problem = f"output {i} (t, slot, b0, b1) not bit-equal"
     if problem is not None:
         raise AssertionError(f"{name} {label} (any_hit={any_hit}): {problem}")
@@ -972,6 +1002,345 @@ def phase_cornell_parity():
     return res
 
 
+CONFIG5 = dict(xres=256, yres=256, spp=4, maxdepth=4, ray_batch=1 << 18, nu=1000, nv=500)
+FLOOR = 2  # the floor's material row in the mesh scene (light quad, torus, floor)
+FD_EPS = 1e-2
+FD_RTOL = 0.05  # the reference tests' tolerance of AD against finite differences
+GRAD_RTOL = 1e-3  # card against CPU, every element of every leaf ...
+GRAD_ATOL_SHARE = 1e-6  # ... or within this share of the CPU gradient's largest magnitude
+
+
+def timed(fn, reps=3):
+    """(median seconds, all seconds) of ``reps`` runs of fn, host clock
+    around work that ends in a synchronise."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    return sorted(times)[len(times) // 2], times
+
+
+def phase_config5(card):
+    """BASELINE config 5 at full width (``bench.py:118-133``, nothing cut):
+    scene build seconds; one frame with the launch counters zeroed before
+    and read after (K2 ``stream_walk8``: 7 launches, one 262,144-lane
+    chunk); the image finite and not black; every sweep of a recorded
+    frame through K2 against its plain version on the card; K2's time per
+    sweep beside its bound; frame seconds (median of three) and Mray/s;
+    then the 1M-triangle scene's image on the card against the CPU's at
+    16x16, 1 spp, maxdepth 3."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.testscenes import mesh_scene_renderer
+
+    log(f"== phase 9: config 5 ({CONFIG5['nu']}x{CONFIG5['nv']} torus) at "
+        f"{CONFIG5['xres']}x{CONFIG5['yres']}, {CONFIG5['spp']} spp, maxdepth "
+        f"{CONFIG5['maxdepth']}, ray_batch {CONFIG5['ray_batch']}")
+    t0 = time.time()
+    r, _ = mesh_scene_renderer(**CONFIG5, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    walk = r.compiled.intersector.walk
+    n_tri = r.compiled.tri_data.count
+    log(f"  scene build {build_s:.2f} s: {n_tri} triangles, {type(walk).__name__} nodes "
+        f"{tuple(walk.nodes.shape)}, tris {tuple(walk.tris.shape)}, depth {walk.depth}")
+    if n_tri != 2 * CONFIG5["nu"] * CONFIG5["nv"] + 4:
+        raise AssertionError(f"config 5 has {n_tri} triangles")
+    closest, shadow = r.integrator.queries_per_sample()
+    chunks = frame_chunks(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    state = r.render()
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    img = r.image(state)
+    log(f"  first frame {first_s:.3f} s, {chunks} chunk(s), launches {launches}; image "
+        f"mean {img.mean():.6f} max {img.max():.4f}")
+    if launches != {"stream_walk8": (closest + shadow) * chunks} or (closest + shadow) != 7:
+        raise AssertionError(f"config 5 frame launches {launches}, want stream_walk8 x 7")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("config 5 image not finite or all black")
+
+    calls = record_walks(r)
+    if len(calls) != (closest + shadow) * chunks:
+        raise AssertionError(f"config 5: recorded {len(calls)} sweeps")
+    timed_calls, works, stats, err = [], [], [], 0.0
+    for i, (o, d, t_max, any_hit) in enumerate(calls):
+        e, call, work, st = check_walk("stream_walk8", f"config-5 sweep {i}", walk, o, d,
+                                       t_max, any_hit, plain_device=DEVICE)
+        err = max(err, e)
+        timed_calls.append(call)
+        works.append(work)
+        stats.append(st)
+    del calls
+    ms, plain_ms, _ = time_walks("stream_walk8", timed_calls, stats)
+    del timed_calls
+    sweep_bounds = [bound(*w) for w in works]
+    b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
+    log(f"  stream_walk8 on config 5's sweeps: mean {np.mean(ms):.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}), {b_ms / np.mean(ms):.2%} of it; per sweep bound "
+        f"{[round(x[0], 5) for x in sweep_bounds]} ms")
+
+    median, times = timed(lambda: r.image(r.render()))
+    queries = CONFIG5["xres"] * CONFIG5["yres"] * CONFIG5["spp"] * (closest + shadow)
+    log(f"  config 5 frame {median:.4f} s ({[round(x, 4) for x in times]}), {queries} "
+        f"closest+shadow queries/frame, {queries / median / 1e6:.3f} Mray/s on {card}")
+
+    imgs = {}
+    small = dict(CONFIG5, xres=16, yres=16, spp=1, maxdepth=3)
+    for dev in (DEVICE, "cpu"):
+        rr, _ = mesh_scene_renderer(**small, device=dev)
+        imgs[dev] = rr.image(rr.render())
+        del rr
+    parity = compare_images("config 5 at 16x16, 1 spp, maxdepth 3", imgs[DEVICE], imgs["cpu"])
+    k2 = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=plain_ms, bound_ms=b_ms,
+              bound_by=b_by, sweep_ms=ms, sweep_bound_ms=[x[0] for x in sweep_bounds],
+              sweep_live=[st[0] for st in stats], sweep_segments=[st[3] for st in stats],
+              launches_per_frame=launches["stream_walk8"])
+    return r, dict(build_s=build_s, triangles=n_tri, first_frame_s=first_s, frame_s=median,
+                   frames_s=times, mray_s=queries / median / 1e6, queries=queries,
+                   parity=parity, card=card), k2
+
+
+def compare_grads(label, got, want, path=""):
+    """Every leaf of a card gradient against the CPU's: within GRAD_RTOL,
+    or GRAD_ATOL_SHARE of the CPU gradient's largest magnitude; returns the
+    largest |card - cpu| over that magnitude."""
+    import numpy as np
+
+    def flat(tree, pre=""):
+        for k, v in tree.items():
+            if k == "tex_images":  # ids count textures per process: match by order
+                v = {i: v[key] for i, key in enumerate(sorted(v))}
+            if isinstance(v, dict):
+                yield from flat(v, f"{pre}{k}.")
+            else:
+                yield f"{pre}{k}", v.detach().cpu().numpy()
+
+    g, w = dict(flat(got)), dict(flat(want))
+    if g.keys() != w.keys():
+        raise AssertionError(f"{label}: gradient leaves {sorted(g)} against {sorted(w)}")
+    scale = max(float(np.abs(v).max(initial=0.0)) for v in w.values())
+    worst = 0.0
+    for k in w:
+        if not np.isfinite(g[k]).all():
+            raise AssertionError(f"{label}: gradient {k} not finite")
+        if not np.allclose(g[k], w[k], rtol=GRAD_RTOL, atol=GRAD_ATOL_SHARE * scale):
+            raise AssertionError(f"{label}: gradient {k} on the card {g[k].tolist()} against "
+                                 f"the CPU's {w[k].tolist()}")
+        worst = max(worst, float(np.abs(g[k] - w[k]).max(initial=0.0)) / max(scale, 1e-30))
+    return worst
+
+
+def fd_check(label, loss, theta, key, index, ad, args):
+    """Central finite difference (eps FD_EPS) of loss at theta[key][index]
+    against the autograd value ``ad``, to FD_RTOL, the difference non-zero."""
+    import torch
+
+    def at(delta):
+        t2 = dict(theta)
+        t2[key] = theta[key].clone()
+        t2[key][index] += delta
+        with torch.no_grad():
+            return float(loss(t2, *args))
+
+    fd = (at(FD_EPS) - at(-FD_EPS)) / (2 * FD_EPS)
+    rel = abs(ad - fd) / max(abs(fd), 1e-30)
+    log(f"  {label}: d loss / d {key}{list(index)}: autograd {ad:.6e}, central difference "
+        f"{fd:.6e}, rel diff {rel:.3e}")
+    if fd == 0.0 or rel > FD_RTOL:
+        raise AssertionError(f"{label}: autograd {ad} against finite difference {fd}")
+    return dict(autograd=ad, fd=fd, rel_diff=rel)
+
+
+def phase_grad_step(r, card):
+    """Phase 10 (a): one config-5 loss-and-gradient step at full width,
+    ``make_loss_fn`` over all 65,536 pixels at 4 spp against a target
+    rendered with the floor's kd changed."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.diff.grad import make_loss_fn, render_image_diff, value_and_grad
+
+    log("== phase 10 (a): a config-5 gradient step: make_loss_fn over all "
+        f"{PIXELS} pixels, {CONFIG5['spp']} spp, floor kd changed in the target")
+    theta = r.compiled.initial_theta()
+    if theta["kd"][FLOOR].tolist() != [0.4000000059604645, 0.4000000059604645,
+                                       0.41999998688697815]:
+        raise AssertionError(f"material row {FLOOR} is not the floor")
+    t_theta = dict(theta, kd=theta["kd"].clone())
+    t_theta["kd"][FLOOR] += torch.tensor([0.1, -0.08, 0.05], device=DEVICE)
+    with torch.no_grad():
+        target = render_image_diff(r, t_theta, spp=CONFIG5["spp"], batch=PIXELS).cpu().numpy()
+    px = torch.as_tensor(r.film.cropped_pixel_bounds.offsets(), device=DEVICE)
+    loss = make_loss_fn(r, target, spp=CONFIG5["spp"])
+    fwd, bwd = {}, {}
+
+    def counted(t, pixels):
+        reset_counts()
+        value = loss(t, pixels)
+        torch.cuda.synchronize()
+        fwd.update(read_counts())
+        reset_counts()
+        return value
+
+    value, grads = value_and_grad(counted, theta, px)
+    torch.cuda.synchronize()
+    bwd.update(read_counts())
+    k2_fwd, k2_bwd = fwd["stream_walk8"], bwd["stream_walk8"]
+    log(f"  loss {float(value):.6e}; stream_walk8 launches: forward {k2_fwd}, backward "
+        f"(the replay) {k2_bwd}; other launches forward "
+        f"{ {k: v for k, v in fwd.items() if v and k != 'stream_walk8'} }, backward "
+        f"{ {k: v for k, v in bwd.items() if v and k != 'stream_walk8'} }")
+    if not 0 < k2_bwd <= k2_fwd or k2_fwd != 7 * CONFIG5["spp"]:
+        raise AssertionError(f"stream_walk8 launched {k2_fwd} times forward, {k2_bwd} in "
+                             "the replay")
+    for k, v in grads.items():
+        if not isinstance(v, dict) and not torch.isfinite(v).all():
+            raise AssertionError(f"config-5 gradient {k} not finite")
+    log(f"  floor kd gradient {grads['kd'][FLOOR].tolist()}; area light "
+        f"{grads['area_l'].tolist()}")
+
+    with torch.no_grad():
+        fwd_s, fwd_all = timed(lambda: loss(theta, px))
+    step_s, step_all = timed(lambda: value_and_grad(loss, theta, px))
+    log(f"  forward {fwd_s:.4f} s ({[round(x, 4) for x in fwd_all]}), forward+backward "
+        f"{step_s:.4f} s ({[round(x, 4) for x in step_all]}), median of three, on {card}")
+
+    memory = {}
+    for remat in (True, False):
+        del grads
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, grads = value_and_grad(make_loss_fn(r, target, CONFIG5["spp"], remat=remat),
+                                  theta, px)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        memory[f"remat_{str(remat).lower()}"] = dict(peak_bytes=peak, above_base_bytes=peak - base)
+        log(f"  remat={remat}: torch.cuda.max_memory_allocated {peak / 2**30:.3f} GiB "
+            f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before)")
+        if remat:
+            kept = {k: v for k, v in grads.items() if not isinstance(v, dict)}
+    worst = max(float(np.abs((grads[k] - kept[k]).cpu().numpy()).max(initial=0.0))
+                for k in kept)
+    log(f"  remat=False against remat=True: max |diff| {worst:.3e}")
+    if worst > 1e-6 * float(kept["kd"].abs().max()):
+        raise AssertionError("remat=False and remat=True gradients differ")
+    fd = fd_check("config 5", loss, theta, "kd", (FLOOR, 0), float(kept["kd"][FLOOR, 0]),
+                  (px,))
+    return dict(loss=float(value), forward_s=fwd_s, forward_all_s=fwd_all,
+                forward_backward_s=step_s, forward_backward_all_s=step_all, memory=memory,
+                k2_launches_forward=k2_fwd, k2_launches_backward=k2_bwd,
+                floor_kd_grad=kept["kd"][FLOOR].tolist(), fd=fd, card=card)
+
+
+def grad_scenes(tex_path):
+    """Phase 10 (b)'s renderer makers, (device) -> (Renderer, the kernel
+    its path launches or None)."""
+    from pbrt_tpu_torch.testscenes import (GRAD_MATTE, GRAD_NESTED_MIX, GRAD_SPHERE,
+                                           GRAD_TEXTURE, cornell_renderer,
+                                           mesh_scene_renderer, text_renderer)
+
+    return {
+        "config3_16x16": (lambda dev: mesh_scene_renderer(
+            xres=16, yres=16, spp=2, maxdepth=3, device=dev)[0], "stream_walk8"),
+        "torus_24x24": (lambda dev: mesh_scene_renderer(
+            xres=12, yres=12, spp=2, maxdepth=3, nu=24, nv=24, device=dev)[0], "wide_walk8"),
+        "sphere": (lambda dev: text_renderer(GRAD_SPHERE.format(material=GRAD_MATTE), 64,
+                                             device=dev), None),
+        "nested_mix": (lambda dev: text_renderer(
+            GRAD_SPHERE.format(material=GRAD_NESTED_MIX), 64, device=dev), None),
+        "texture": (lambda dev: text_renderer(GRAD_TEXTURE.format(path=tex_path), 576,
+                                              device=dev), None),
+        "cornell_16x16": (lambda dev: cornell_renderer(xres=16, yres=16, spp=2, maxdepth=5,
+                                                       device=dev), None),
+    }
+
+
+def phase_grad_parity():
+    """Phase 10 (b): every leaf of each small scene's gradient on the card
+    against the CPU's (a zero target, 2 spp); the walk kernel of each BVH
+    scene launched; Cornell's area-light gradient against finite
+    differences on the card.  (c): a bitonic sort refuses a theta that
+    requires grad on the card."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.core.geometry import Bounds2i
+    from pbrt_tpu_torch.core.imageio import write_image
+    from pbrt_tpu_torch.diff.grad import make_loss_fn, value_and_grad
+    from pbrt_tpu_torch.testscenes import mesh_scene_renderer
+
+    log("== phase 10 (b): gradients on the card against the CPU, every leaf")
+    os.makedirs("build/chip_smoke", exist_ok=True)
+    tex_path = os.path.abspath("build/chip_smoke/tex.pfm")
+    write_image(tex_path, np.random.default_rng(3).uniform(0.1, 0.9, (8, 8, 3)),
+                Bounds2i((0, 0), (8, 8)))
+    res = {}
+    for label, (make, kname) in grad_scenes(tex_path).items():
+        grads = {}
+        for dev in (DEVICE, "cpu"):
+            r = make(dev)
+            b = r.film.cropped_pixel_bounds
+            px = torch.as_tensor(b.offsets(), device=dev)
+            loss = make_loss_fn(r, np.zeros((b.height, b.width, 3), np.float32), spp=2)
+            theta = r.compiled.initial_theta()
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                reset_counts()
+            _, grads[dev] = value_and_grad(loss, theta, px)
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in read_counts().items() if v}
+                if (kname is None) != (not launched) or (kname and not launched.get(kname)):
+                    raise AssertionError(f"{label}: launches {launched}, want {kname}")
+                card_loss, card_theta, card_px = loss, theta, px
+        worst = compare_grads(label, grads[DEVICE], grads["cpu"])
+        res[label] = dict(max_rel_to_scale=worst, launches=launched)
+        log(f"  {label}: every leaf equal, max |card - cpu| {worst:.3e} of the largest "
+            f"magnitude; launches {launched}")
+        if label == "cornell_16x16":
+            from pbrt_tpu_torch.materials.bsdf import MIRROR
+
+            (mirror,) = [i for i, e in enumerate(r.compiled.materials) if e.type_id == MIRROR]
+            kr = grads[DEVICE]["kr"][mirror]
+            log(f"  Cornell area_l {grads[DEVICE]['area_l'].tolist()}, mirror kr {kr.tolist()}")
+            if not bool((kr != 0).any()):
+                raise AssertionError("Cornell: the mirror's kr gets no gradient")
+            res[label]["fd"] = fd_check("Cornell on the card", card_loss, card_theta,
+                                        "area_l", (0, 0),
+                                        float(grads[DEVICE]["area_l"][0, 0]), (card_px,))
+
+    log("== phase 10 (c): sort='bitonic' under gradients on the card")
+    r, _ = mesh_scene_renderer(xres=256, yres=128, spp=1, maxdepth=2, nu=24, nv=24,
+                               device=DEVICE, sort="bitonic")
+    px = torch.as_tensor(r.film.cropped_pixel_bounds.offsets(), device=DEVICE)
+    loss = make_loss_fn(r, np.zeros((128, 256, 3), np.float32), spp=1)
+    try:
+        value_and_grad(loss, r.compiled.initial_theta(), px)
+    except RuntimeError as e:
+        if "not differentiable" not in str(e):
+            raise
+        log(f"  {px.shape[0]} lanes: refused ({e})")
+    else:
+        raise AssertionError("the bitonic co_sort took gradients on the card")
+    res["bitonic_refused"] = True
+    return res
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1019,6 +1388,19 @@ def main(argv=None):
     del cornell
     cornell_frame["parity"] = phase_cornell_parity()
     print(json.dumps({"cornell": cornell_frame}))
+    r5, config5, kern["stream_walk8"]["config5"] = phase_config5(card)
+    if args.profile:
+        config5["profile"] = phase_profile("config-5", r5, config5["frame_s"])
+    print(json.dumps({"config5": config5}))
+    step = phase_grad_step(r5, card)
+    del r5
+    gradients = dict(config5_step=step, parity=phase_grad_parity())
+    kern["stream_walk8"]["config5"].update(
+        grad_launches_forward=step["k2_launches_forward"],
+        grad_launches_backward=step["k2_launches_backward"])
+    kern["wide_walk8"]["grad_launches"] = gradients["parity"]["torus_24x24"]["launches"].get(
+        "wide_walk8", 0)
+    print(json.dumps({"gradients": gradients}))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

@@ -62,6 +62,15 @@ def gamma_correct(value):
     return out if out.ndim else out.item()
 
 
+def inverse_gamma_correct(value):
+    """Inverse of :func:`gamma_correct` (pbrt-v3 InverseGammaCorrect)."""
+    v = np.asarray(value, dtype=float_t)
+    lo = v / 12.92
+    hi = np.power((np.maximum(v, 0.0) + 0.055) / 1.055, 2.4)
+    out = np.where(v <= 0.04045, lo, hi).astype(float_t)
+    return out if out.ndim else out.item()
+
+
 __all__ = [
     "Options",
     "float_t",
@@ -77,4 +86,5 @@ __all__ = [
     "SQRT_2",
     "INFINITY",
     "gamma_correct",
+    "inverse_gamma_correct",
 ]

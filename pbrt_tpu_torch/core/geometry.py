@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -31,6 +32,12 @@ class Bounds2i:
     @property
     def height(self) -> int:
         return self.p_max[1] - self.p_min[1]
+
+    def offsets(self) -> np.ndarray:
+        """All pixel coordinates as an [N, 2] int array, row-major."""
+        gx, gy = np.meshgrid(np.arange(self.p_min[0], self.p_max[0]),
+                             np.arange(self.p_min[1], self.p_max[1]))
+        return np.stack([gx.ravel(), gy.ravel()], axis=-1)
 
 
 @dataclasses.dataclass(frozen=True)

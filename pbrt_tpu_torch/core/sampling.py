@@ -77,12 +77,21 @@ def uniform_sample_triangle(u):
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):
-    """Beta=2 power heuristic for MIS (pbrt-v3 §13.10.1)."""
+    """Beta=2 power heuristic for MIS (pbrt-v3 §13.10.1).
+
+    Where the squares overflow float32 (an area-light sample taken from a
+    lane that escaped to t = 1e8 has a pdf near 1e22) the weight comes
+    from the pdfs' ratio, where the reference's arithmetic gives inf / inf
+    = NaN.  Such lanes are masked out of the radiance, but a NaN factor
+    turns the zero gradient that reaches them into NaN."""
     f = nf * f_pdf
     g = ng * g_pdf
     denom = f * f + g * g
     safe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    return torch.where(denom > 0.0, f * f / safe, torch.zeros_like(denom))
+    w = torch.where(denom > 0.0, f * f / safe, torch.zeros_like(denom))
+    big = torch.isinf(denom)
+    ratio = g / torch.where(big, f, torch.ones_like(f))
+    return torch.where(big, 1.0 / (1.0 + ratio * ratio), w)
 
 
 class Distribution1D:

@@ -94,6 +94,12 @@ class Transform:
         return Transform(np.linalg.inv(c2w), c2w)
 
     @staticmethod
+    def orthographic(z_near, z_far) -> "Transform":
+        """Orthographic projection (pbrt-v3 §6.2.1)."""
+        return Transform.scale(1.0, 1.0, 1.0 / (z_far - z_near)) * Transform.translate(
+            [0.0, 0.0, -z_near])
+
+    @staticmethod
     def perspective(fov_deg, n, f) -> "Transform":
         """Perspective projection (pbrt-v3 §6.2.2)."""
         persp = np.array(

@@ -21,18 +21,32 @@ wavefront is co-sorted into the next bounce's traversal order
 the reference, with alive and specular_bounce packed into one flags
 column), the closest-hit sweeps run sort-free, shadow sweeps sort per
 call, and one scatter restores lane order for the film.  The brute-force
-intersector keeps lanes in order throughout.  Intersection queries run
-under ``torch.no_grad()`` (the reference's ``stop_gradient`` on the
-query inputs).  Media, the remat/gradient path and the merged
-shadow+carry sort are not ported (ROADMAP Queue 1 items 7 and 8).
+intersector keeps lanes in order throughout.
+
+Gradients (path replay): ``li(..., theta=...)`` reads the scene
+parameters from ``theta`` (``CompiledScene.initial_theta``), and
+``torch.autograd`` differentiates the smooth factors (BSDF values, light
+radiances, MIS weights) while every sampling decision stays as the
+forward pass's random numbers made it.  Intersection queries run under
+``torch.no_grad()`` (the reference's ``stop_gradient`` on the query
+inputs): the walks are discrete lookups.  ``remat=True`` wraps each
+bounce in ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``): the backward pass replays the bounce from its
+inputs, walks included, instead of keeping its wavefront state, so the
+memory kept per bounce is the carry alone.  Media and the merged
+shadow+carry sort are not ported (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pbrt_tpu_torch.core.geometry import shading_frame
 from pbrt_tpu_torch.core.sampling import power_heuristic
+from pbrt_tpu_torch.lights import DiffuseAreaLight, InfiniteAreaLight
 from pbrt_tpu_torch.materials import bsdf as B
 from pbrt_tpu_torch.materials import eval_material_params
 from pbrt_tpu_torch.ops.sortnet import co_sort
@@ -59,10 +73,11 @@ def _offset_origin(p, ng, w):
 
 
 class PathIntegrator:
-    def __init__(self, compiled, max_depth=5, rr_threshold=1.0):
+    def __init__(self, compiled, max_depth=5, rr_threshold=1.0, remat=False):
         self.c = compiled
         self.max_depth = int(max_depth)
         self.rr_threshold = float(rr_threshold)
+        self.remat = bool(remat)
         # the reference's rule: keep the wavefront in traversal order across
         # bounces when the intersector takes a sort hint and has triangles
         itx = compiled.intersector
@@ -84,11 +99,13 @@ class PathIntegrator:
         with torch.no_grad():
             return self.c.intersector.occluded(o, d, t_max)
 
-    def _env_radiance(self, d):
+    def _env_radiance(self, d, theta=None):
         le = torch.zeros_like(d)
+        env_i = 0
         for lt in self.c.lights:
             if lt.is_infinite:
-                le = le + lt.le_escaped(d)
+                le = le + lt.le_escaped(d, None if theta is None else theta["env_l"][env_i])
+                env_i += 1
         return le
 
     def _env_pdf(self, p, d):
@@ -100,11 +117,12 @@ class PathIntegrator:
                 pdf = pdf + lt.pdf_li(p, d)
         return pdf / len(self.c.lights)
 
-    def _emitted(self, si, wo):
+    def _emitted(self, si, wo, theta=None):
         """Area-light emission toward wo at hit points."""
         le = torch.zeros_like(wo)
         for i, al in enumerate(self.c.area_lights):
-            le = torch.where((si["light"] == i)[..., None], al.l_emitted(si["ng"], wo), le)
+            ov = None if theta is None else theta["area_l"][i]
+            le = torch.where((si["light"] == i)[..., None], al.l_emitted(si["ng"], wo, ov), le)
         return le
 
     def _area_light_pdf(self, prev_p, si, d):
@@ -115,7 +133,7 @@ class PathIntegrator:
             pdf = torch.where(si["light"] == i, pv, pdf)
         return pdf / len(self.c.lights)
 
-    def _sample_one_light(self, p, u_sel, u2):
+    def _sample_one_light(self, p, u_sel, u2, theta=None):
         """Uniformly pick a light -> (wi, li, pdf, dist, is_delta)."""
         n_lights = len(self.c.lights)
         wi = torch.zeros_like(p)
@@ -124,9 +142,17 @@ class PathIntegrator:
         dist = torch.full_like(u_sel, INF_T)
         delta = torch.zeros(u_sel.shape, dtype=torch.bool, device=p.device)
         pick = torch.clamp((u_sel * n_lights).to(torch.int32), max=n_lights - 1)
+        env_i = area_i = 0
         for i, lt in enumerate(self.c.lights):
             mask = pick == i
-            wi_i, li_i, pdf_i, dist_i = lt.sample_li(p, u2)
+            if theta is not None and isinstance(lt, InfiniteAreaLight):
+                wi_i, li_i, pdf_i, dist_i = lt.sample_li(p, u2, theta["env_l"][env_i])
+            elif theta is not None and isinstance(lt, DiffuseAreaLight):
+                wi_i, li_i, pdf_i, dist_i = lt.sample_li(p, u2, theta["area_l"][area_i])
+            else:
+                wi_i, li_i, pdf_i, dist_i = lt.sample_li(p, u2)
+            env_i += isinstance(lt, InfiniteAreaLight)
+            area_i += isinstance(lt, DiffuseAreaLight)
             wi = torch.where(mask[..., None], wi_i, wi)
             li = torch.where(mask[..., None], li_i, li)
             pdf = torch.where(mask, pdf_i, pdf)
@@ -134,9 +160,10 @@ class PathIntegrator:
             delta = torch.where(mask, lt.is_delta, delta)
         return wi, li, pdf / n_lights, dist, delta
 
-    def li(self, sampler, pixel_xy, sample_index, o, d):
+    def li(self, sampler, pixel_xy, sample_index, o, d, theta=None):
         """Radiance for a wavefront of camera rays: pixel_xy [N, 2] int,
-        sample_index [N] int64, o, d [N, 3] -> L [N, 3] in lane order."""
+        sample_index [N] int64, o, d [N, 3] -> L [N, 3] in lane order.
+        ``theta``: the scene parameters to read (and differentiate)."""
         n = o.shape[0]
         dev = o.device
         carry = (
@@ -153,7 +180,11 @@ class PathIntegrator:
             torch.arange(n, device=dev),  # original lane id
         )
         for bounce in range(self.max_depth):
-            carry = self._bounce(bounce, sampler, carry)
+            body = functools.partial(self._bounce, bounce, sampler, theta)
+            if self.remat:
+                carry = checkpoint(body, carry, use_reentrant=False)
+            else:
+                carry = body(carry)
         L, lane = carry[0], carry[-1]
         if not self._sc:
             return L
@@ -161,7 +192,7 @@ class PathIntegrator:
         out[lane] = L
         return out
 
-    def _bounce(self, bounce, sampler, carry):
+    def _bounce(self, bounce, sampler, theta, carry):
         c = self.c
         (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
          pixel_xy, sample_index, lane) = carry
@@ -174,7 +205,7 @@ class PathIntegrator:
 
         if any(lt.is_infinite for lt in c.lights):
             esc = alive & ~hit["hit"]
-            env_le = self._env_radiance(d)
+            env_le = self._env_radiance(d, theta)
             light_pdf = self._env_pdf(prev_p, d)
             w_env = torch.where(
                 specular_bounce, 1.0, power_heuristic(1, prev_bsdf_pdf, 1, light_pdf)
@@ -197,7 +228,7 @@ class PathIntegrator:
         wo = si["wo"]
 
         if c.area_lights:
-            le_hit = self._emitted(si, wo)
+            le_hit = self._emitted(si, wo, theta)
             al_pdf = self._area_light_pdf(prev_p, si, d)
             w_le = torch.where(
                 specular_bounce, 1.0, power_heuristic(1, prev_bsdf_pdf, 1, al_pdf)
@@ -210,14 +241,15 @@ class PathIntegrator:
 
         ns, ss, ts = shading_frame(si, wo)
         wo_l = _to_local(ns, ss, ts, wo)
-        params = eval_material_params(c.materials, si["mat"], si)
+        params = eval_material_params(c.materials, si["mat"], si, theta)
         alive = alive & (si["mat"] >= 0) & (params["type"] != B.NONE)
 
         # --- next-event estimation ----------------------------------------
         if c.lights:
             u_sel = sampler.get(pixel_xy, sample_index, base + 0)
             u_l = sampler.get2(pixel_xy, sample_index, base + 1)
-            wi_w, li, l_pdf, l_dist, l_delta = self._sample_one_light(si["p"], u_sel, u_l)
+            wi_w, li, l_pdf, l_dist, l_delta = self._sample_one_light(si["p"], u_sel, u_l,
+                                                                      theta)
             wi_l = _to_local(ns, ss, ts, wi_w)
             f = B.bsdf_eval(params, wo_l, wi_l)
             b_pdf = B.bsdf_pdf(params, wo_l, wi_l)

@@ -208,13 +208,27 @@ def gather_rows(perm, srcs, dsts):
     LAUNCHES["gather_rows"] += k > 0
 
 
+def _refuse_grad(payloads):
+    """Raise where grad mode is on and a payload requires grad: the card's
+    outputs are written through raw pointers and carry no autograd graph,
+    so gradients would silently stop at the sort."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in payloads):
+        raise RuntimeError(
+            "the bitonic co_sort is not differentiable (nor is the reference's): a "
+            "payload requires grad; take gradients with sort='stable'"
+        )
+
+
 def bitonic_co_sort(keys, payloads):
     """The whole co-sort: keys [n] int64 (uint32 values), payloads with
     leading dim n (f32, i32, i64; rows a multiple of 4 bytes).  Returns
     (sorted keys [n], lane permutation [n] int64, gathered payloads).  On
     the card: one call into the library, which makes the launches of
     ``schedule(padded_size(n))``, handed to it as a step table, and one
-    gather launch."""
+    gather launch.  Not differentiable, on any device: with grad mode on,
+    a payload that requires grad raises (the reference's network cannot
+    be differentiated either)."""
+    _refuse_grad(payloads)
     if keys.device.type == "cpu":
         return bitonic_co_sort_plain(keys, payloads)
     dev = keys.device

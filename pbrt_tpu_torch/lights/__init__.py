@@ -6,10 +6,13 @@ Contract (SoA tensors):
   pdf_li(p, wi)    -> solid-angle pdf of sample_li, for MIS
   le_escaped(d)    -> radiance for rays leaving the scene (infinite only)
 
-Point, diffuse-area and constant infinite lights are ported.  Spot,
-distant, goniometric and projection lights and the image-mapped
-infinite light wait for ROADMAP Queue 1 item 8 (the last needs
-``core/imageio.py``, ``core/mipmap.py`` and Distribution2D).
+The infinite and area lights take ``l_override``: a [3] tensor that
+replaces their radiance (``theta["env_l"]`` / ``theta["area_l"]`` rows),
+so that gradients reach it.
+
+Point, distant, diffuse-area and constant infinite lights are ported.
+Spot, goniometric and projection lights and the image-mapped infinite
+light wait for ROADMAP Queue 1 item 8 (the last needs Distribution2D).
 """
 
 from __future__ import annotations
@@ -51,6 +54,22 @@ class PointLight(Light):
         return wi, li, torch.ones_like(dist), dist
 
 
+class DistantLight(Light):
+    is_delta = True
+
+    def __init__(self, light_to_world: Transform, radiance, from_p, to_p, device="cuda"):
+        w = light_to_world.apply_v(np.asarray(from_p, np.float64) - np.asarray(to_p, np.float64))
+        self.w_light = (w / np.linalg.norm(w)).astype(float_t)  # toward the light
+        self._wd = torch.as_tensor(self.w_light, device=device)
+        self._ld = torch.as_tensor(np.asarray(radiance, dtype=float_t), device=device)
+
+    def sample_li(self, p, u2):
+        n = p.shape[0]
+        dist = torch.full((n,), BIG_DIST, dtype=p.dtype, device=p.device)
+        return (self._wd.expand(n, 3), self._ld.expand(n, 3),
+                torch.ones((n,), dtype=p.dtype, device=p.device), dist)
+
+
 class InfiniteAreaLight(Light):
     """Environment light of constant radiance (the reference's
     ``InfiniteAreaLight`` without ``mapname``): uniform sphere sampling."""
@@ -62,13 +81,18 @@ class InfiniteAreaLight(Light):
         self.l_rgb = promote_rgb(np.asarray(l_rgb, dtype=float_t), illuminant=True)
         self._ld = torch.as_tensor(np.asarray(self.l_rgb, dtype=float_t), device=device)
 
-    def le_escaped(self, d):
-        return torch.broadcast_to(self._ld, d.shape[:-1] + (3,))
+    def _le_dir(self, d_world, l_override=None):
+        """Radiance along world direction d (leaving the scene)."""
+        ld = self._ld if l_override is None else l_override
+        return torch.broadcast_to(ld, d_world.shape[:-1] + (3,))
 
-    def sample_li(self, p, u2):
+    def le_escaped(self, d, l_override=None):
+        return self._le_dir(d, l_override)
+
+    def sample_li(self, p, u2, l_override=None):
         n = p.shape[0]
         wi = apply_vector(self._l2wm, uniform_sample_sphere(u2))
-        li = torch.broadcast_to(self._ld, (n, 3))
+        li = torch.broadcast_to(self._ld if l_override is None else l_override, (n, 3))
         pdf = torch.full((n,), 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
         dist = torch.full((n,), BIG_DIST, dtype=p.dtype, device=p.device)
         return wi, li, pdf, dist
@@ -82,7 +106,8 @@ class DiffuseAreaLight(Light):
     Distribution1D over triangle areas."""
 
     def __init__(self, l_emit, two_sided, tri_p0, tri_p1, tri_p2, device="cuda"):
-        self._ld = torch.as_tensor(np.asarray(l_emit, dtype=float_t), device=device)
+        self.l_emit = np.asarray(l_emit, dtype=float_t)
+        self._ld = torch.as_tensor(self.l_emit, device=device)
         self.two_sided = bool(two_sided)
         cr = np.cross(tri_p1 - tri_p0, tri_p2 - tri_p0)
         areas = 0.5 * np.linalg.norm(cr, axis=-1)
@@ -95,14 +120,14 @@ class DiffuseAreaLight(Light):
             device=device,
         )
 
-    def l_emitted(self, n_hit, w_out):
+    def l_emitted(self, n_hit, w_out, l_override=None):
         """Radiance leaving a point with normal n_hit toward w_out."""
         ok = torch.sum(n_hit * w_out, dim=-1) > 0
         if self.two_sided:
             ok = torch.ones_like(ok)
-        return torch.where(ok[..., None], self._ld, 0.0)
+        return torch.where(ok[..., None], self._ld if l_override is None else l_override, 0.0)
 
-    def sample_li(self, p, u2):
+    def sample_li(self, p, u2, l_override=None):
         x, _pdf_tri, tri_idx = self.area_dist.sample_continuous(u2[..., 0])
         # the fractional part of x serves as one fresh uniform
         frac = torch.clamp(x * self.area_dist.n - tri_idx, 0.0, 0.999999)
@@ -118,7 +143,7 @@ class DiffuseAreaLight(Light):
         cos_term = torch.abs(cos_l) if self.two_sided else torch.clamp(cos_l, min=0.0)
         pdf = d2 / torch.clamp(cos_term * self.total_area, min=1e-9)
         lit = cos_term > 1e-7
-        li = torch.where(lit[..., None], self._ld, 0.0)
+        li = torch.where(lit[..., None], self._ld if l_override is None else l_override, 0.0)
         pdf = torch.where(lit, pdf, 0.0)
         return wi, li, pdf, dist * (1.0 - 1e-3)
 
@@ -153,7 +178,16 @@ def make_light(record, device="cuda"):
         )
         from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
         return PointLight(l2w * Transform.translate(from_p), i, device=device)
+    if name == "distant":
+        l_rgb = promote_rgb(
+            params.find_one_spectrum_raw("L", one)
+            * params.find_one_spectrum_raw("scale", one),
+            illuminant=True,
+        )
+        from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
+        to_p = params.find_one_point3f("to", np.array([0, 0, 1], dtype=float_t))
+        return DistantLight(l2w, l_rgb, from_p, to_p, device=device)
     raise NotImplementedError(
         f"Light '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "only 'point', 'infinite' and diffuse area lights are"
+        "only 'point', 'distant', 'infinite' and diffuse area lights are"
     )

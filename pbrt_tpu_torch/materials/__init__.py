@@ -4,15 +4,21 @@
 Scene build produces a list of :class:`MaterialEntry`; at shading time
 :func:`eval_material_params` evaluates each entry's textures across the
 wavefront and mask-selects into SoA parameter tensors.  ``matte``,
-``mirror`` and the emitter-only ``none`` are ported; every other material
-raises (ROADMAP Queue 1 item 8).  The differentiable ``theta`` override waits
-for the gradient slice (Queue 1 item 7).
+``mirror``, ``mix`` (of ported materials, nested mixes included) and the
+emitter-only ``none`` are ported; every other material raises (ROADMAP
+Queue 1 item 8).
+
+``theta`` (:func:`material_theta`, ``CompiledScene.initial_theta``) is
+the differentiable override: constant-texture slots read their rows from
+it, so gradients reach them.  Scenes with mix materials get a split
+``{"a": ..., "b": ...}`` theta, one half per child.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -20,12 +26,20 @@ import torch
 from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core.paramset import TextureParams
 from pbrt_tpu_torch.materials import bsdf as B
+from pbrt_tpu_torch.textures.constant import ConstantTexture
+
+log = logging.getLogger("pbrt_tpu_torch")
+
+_SPECTRUM_SLOTS = ("kd", "ks", "kr", "kt")
 
 
 @dataclass
 class MaterialEntry:
     type_id: int
     textures: Dict[str, object] = field(default_factory=dict)  # slot -> Texture
+    # mix only (pbrt-v3 MixMaterial): two child entries and the blend texture
+    mix_children: Optional[tuple] = None
+    mix_amount: object = None
 
 
 def build_material(record) -> MaterialEntry:
@@ -34,62 +48,168 @@ def build_material(record) -> MaterialEntry:
         record.params, record.params, record.float_textures, record.spectrum_textures
     )
     name = record.name
+
+    def spec_tex(pname, default):
+        return tp.get_spectrum_texture(pname, np.full(3, default, dtype=float_t))
+
     if name in ("", "none"):
         return MaterialEntry(B.NONE)
     if name == "matte":
         return MaterialEntry(
-            B.MATTE,
-            {
-                "kd": tp.get_spectrum_texture("Kd", np.full(3, 0.5, dtype=float_t)),
-                "sigma": tp.get_float_texture("sigma", 0.0),
-            },
+            B.MATTE, {"kd": spec_tex("Kd", 0.5), "sigma": tp.get_float_texture("sigma", 0.0)}
         )
     if name == "mirror":
-        return MaterialEntry(
-            B.MIRROR, {"kr": tp.get_spectrum_texture("Kr", np.full(3, 0.9, dtype=float_t))}
-        )
+        return MaterialEntry(B.MIRROR, {"kr": spec_tex("Kr", 0.9)})
+    if name == "mix":
+        # f = amount f1 + (1 - amount) f2; the children were resolved
+        # against the named materials when the record was made
+        children = record.mix_children
+        if not children or children[0] is None or children[1] is None:
+            log.error("mix material missing children; using matte")
+            return MaterialEntry(B.MATTE, {"kd": spec_tex("Kd", 0.5)})
+        kids = [build_material(ch) for ch in children]
+        return MaterialEntry(kids[0].type_id, mix_children=(kids[0], kids[1]),
+                             mix_amount=spec_tex("amount", 0.5))
     raise NotImplementedError(
         f"Material '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "only 'matte' and 'mirror' are"
+        "only 'matte', 'mirror' and 'mix' are"
     )
 
 
-def eval_material_params(entries, mat_id, si):
+def iter_entries_deep(entries):
+    """Every MaterialEntry, each mix entry followed by its children
+    (depth first): the order in which build-time scans meet textures."""
+    for e in entries:
+        yield e
+        if e.mix_children is not None:
+            yield from iter_entries_deep(list(e.mix_children))
+
+
+def _split(entries, half):
+    """The entry list of one mix child: each mix entry replaced by its
+    child ``half`` (0 or 1), the others kept, indices unchanged."""
+    return [e.mix_children[half] if e.mix_children is not None else e for e in entries]
+
+
+def material_theta(entries, device="cpu"):
+    """The differentiable constant-parameter dict of ``entries``: [M, 3]
+    kd/ks/kr/kt and [M] roughness/sigma rows on ``device``; rows of
+    slots without a constant texture hold defaults and are not read.  A
+    list holding mix entries gives ``{"a": ..., "b": ...}``, one half per
+    child list, nesting as the mixes nest."""
+    if any(e.mix_children is not None for e in entries):
+        return {"a": material_theta(_split(entries, 0), device),
+                "b": material_theta(_split(entries, 1), device)}
+    return _material_theta_flat(entries, device)
+
+
+def _material_theta_flat(entries, device="cpu"):
+    m = len(entries)
+    out = {slot: np.zeros((m, 3), dtype=float_t) for slot in _SPECTRUM_SLOTS}
+    out["roughness"] = np.full((m,), 0.1, dtype=float_t)
+    out["sigma"] = np.zeros((m,), dtype=float_t)
+    for k, e in enumerate(entries):
+        for slot in _SPECTRUM_SLOTS:
+            tex = e.textures.get(slot)
+            if isinstance(tex, ConstantTexture):
+                v = np.asarray(tex.value, dtype=float_t).reshape(-1)
+                out[slot][k] = v if v.size == 3 else np.full(3, float(v[0]))
+        for slot in ("roughness", "sigma"):
+            tex = e.textures.get(slot)
+            if isinstance(tex, ConstantTexture):
+                out[slot][k] = float(np.asarray(tex.value).reshape(-1)[0])
+    return {k: torch.as_tensor(v, device=device) for k, v in out.items()}
+
+
+def eval_material_params(entries, mat_id, si, theta=None):
     """Evaluate all material entries over the wavefront -> SoA params
-    (the slots the ported lobes read: type, kd, kr, sigma).
+    (type, kd, ks, kr, kt, sigma and the static type set ``_active``).
 
     mat_id: [N] int32 indices into ``entries`` (-1 = background/none).
+    theta: optional override from :func:`material_theta` (plus
+    ``tex_images``): constant-texture slots then read their rows from it.
+    Mix materials give a second complete parameter set under
+    ``params["mix_b"]``, the per-channel blend ``mix_amt`` [N, 3] and
+    the luminance selection probability ``mix_pa`` [N] (bsdf.py's
+    wrappers read them); nested mixes nest.
     """
+    if not any(e.mix_children is not None for e in entries):
+        return _eval_material_params_single(entries, mat_id, si, theta)
+    theta_a = theta_b = None
+    if theta is not None:
+        if "a" not in theta:
+            raise ValueError(
+                "mix scenes need the split {a, b} theta from material_theta; "
+                "got a flat parameter dict"
+            )
+        tex = {"tex_images": theta["tex_images"]} if "tex_images" in theta else {}
+        theta_a = {**theta["a"], **tex}
+        theta_b = {**theta["b"], **tex}
+    params = eval_material_params(_split(entries, 0), mat_id, si, theta_a)
+    params_b = eval_material_params(_split(entries, 1), mat_id, si, theta_b)
+    n = mat_id.shape[0]
+    dev = mat_id.device
+    amt = torch.ones((n, 3), dtype=params["kd"].dtype, device=dev)
+    is_mix = torch.zeros((n,), dtype=torch.bool, device=dev)
+    for k, e in enumerate(entries):
+        if e.mix_children is None:
+            continue
+        mask = mat_id == k
+        v = e.mix_amount.eval(si)
+        if v.dim() == 1:
+            v = v[..., None] * torch.ones((1, 3), dtype=v.dtype, device=dev)
+        amt = torch.where(mask[..., None], torch.clamp(v, 0.0, 1.0), amt)
+        is_mix = is_mix | mask
+    y = torch.tensor([0.212671, 0.715160, 0.072169], dtype=amt.dtype, device=dev)
+    pa = torch.sum(amt * y, dim=-1)
+    params["mix_b"] = params_b
+    params["mix_amt"] = amt
+    params["mix_pa"] = torch.where(is_mix, torch.clamp(pa, 1e-3, 1.0 - 1e-3), 1.0)
+    return params
+
+
+def _eval_material_params_single(entries, mat_id, si, theta=None):
+    """One entry list over the wavefront -> SoA params."""
     n = mat_id.shape[0]
     dev = mat_id.device
     params = {
         "type": torch.full((n,), B.NONE, dtype=torch.int32, device=dev),
-        "kd": torch.zeros((n, 3), dtype=torch.float32, device=dev),
-        "kr": torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        **{slot: torch.zeros((n, 3), dtype=torch.float32, device=dev)
+           for slot in _SPECTRUM_SLOTS},
         "sigma": torch.zeros((n,), dtype=torch.float32, device=dev),
         # static set of present material types: lobe code for absent
         # types is skipped
         "_active": frozenset(e.type_id for e in entries),
     }
+    if theta is not None and "tex_images" in theta:
+        si = {**si, "_tex": theta["tex_images"]}
 
     def put(slot, mask, val):
         m = mask[..., None] if params[slot].dim() == 2 else mask
         params[slot] = torch.where(m, val, params[slot])
 
+    safe_id = torch.clamp(mat_id, 0, max(len(entries) - 1, 0)).long()
     for k, e in enumerate(entries):
         mask = mat_id == k
         put("type", mask, torch.tensor(e.type_id, dtype=torch.int32, device=dev))
-        for slot in ("kd", "kr"):
+        for slot in _SPECTRUM_SLOTS:
             tex = e.textures.get(slot)
-            if tex is not None:
+            if tex is None:
+                continue
+            if theta is not None and isinstance(tex, ConstantTexture):
+                v = theta[slot][safe_id]
+            else:
                 v = tex.eval(si)
                 if v.dim() == 1:
                     v = v[..., None] * torch.ones((1, 3), dtype=v.dtype, device=dev)
-                put(slot, mask, v)
+            put(slot, mask, v)
         stex = e.textures.get("sigma")
         if stex is not None:
-            s = stex.eval(si)
-            if s.dim() > 1:
-                s = s.mean(dim=-1)
+            if theta is not None and isinstance(stex, ConstantTexture):
+                s = theta["sigma"][safe_id]
+            else:
+                s = stex.eval(si)
+                if s.dim() > 1:
+                    s = s.mean(dim=-1)
             put("sigma", mask, s)
     return params

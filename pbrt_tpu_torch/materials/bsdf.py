@@ -3,10 +3,18 @@
 
 Every lane carries a material type id and SoA parameters; lobes are
 evaluated with masked selects.  The diffuse lobe (Lambert and
-Oren-Nayar, material ``matte``) and the perfect mirror (``mirror``) are
-ported: a parameter set whose static type set (``params["_active"]``)
-names any other lobe raises.  Glass, plastic, metal, substrate, uber,
-translucent, hair, fourier and mix wait for ROADMAP Queue 1 item 8.
+Oren-Nayar, material ``matte``), the perfect mirror (``mirror``) and
+their blends (``mix``) are ported: a parameter set whose static type set
+(``params["_active"]``) names any other lobe raises.  Glass, plastic,
+metal, substrate, uber, translucent, hair and fourier wait for ROADMAP
+Queue 1 item 8.
+
+Mix (pbrt-v3 MixMaterial): ``eval_material_params`` gives a second
+parameter set under ``params["mix_b"]`` with the blend ``mix_amt`` and
+the selection probability ``mix_pa``.  f and pdf blend linearly;
+sampling picks a child by ``mix_pa`` and rescales the lobe sample.  A
+child that is itself a mix carries its own ``mix_b``, and the public
+functions below recurse into it.
 
 Local shading frame: z = shading normal; wo/wi in local coordinates.  For
 specular lobes f already includes 1/|cos| (pdf 1), so the path weight
@@ -17,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from pbrt_tpu_torch import INV_PI, PI
+from pbrt_tpu_torch import INV_PI, ONE_MINUS_EPSILON, PI
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere
 
 # Material type ids (table order kept in sync with the reference)
@@ -81,8 +89,8 @@ def _diffuse_f(params, wo, wi):
     return params["kd"] * (INV_PI * on)[..., None]
 
 
-def bsdf_eval(params, wo, wi):
-    """f(wo, wi) [N, 3] (specular lobes contribute 0)."""
+def _bsdf_eval_one(params, wo, wi):
+    """f(wo, wi) [N, 3] of one parameter set (specular lobes contribute 0)."""
     _check_ported(params)
     f = torch.zeros_like(params["kd"])
     if MATTE in params["_active"]:
@@ -92,8 +100,8 @@ def bsdf_eval(params, wo, wi):
     return f
 
 
-def bsdf_pdf(params, wo, wi):
-    """Solid-angle pdf of :func:`bsdf_sample` (0 on specular lanes)."""
+def _bsdf_pdf_one(params, wo, wi):
+    """Solid-angle pdf of :func:`_bsdf_sample_one` (0 on specular lanes)."""
     _check_ported(params)
     pdf = torch.zeros(wo.shape[:-1], dtype=wo.dtype, device=wo.device)
     if MATTE in params["_active"]:
@@ -104,8 +112,8 @@ def bsdf_pdf(params, wo, wi):
     return pdf
 
 
-def bsdf_sample(params, wo, u_lobe, u2):
-    """Sample an outgoing direction.
+def _bsdf_sample_one(params, wo, u_lobe, u2):
+    """Sample an outgoing direction from one parameter set.
 
     Returns (wi [N, 3], f [N, 3], pdf [N], specular [N] bool): the
     cosine-weighted hemisphere on wo's side with f and pdf by evaluation;
@@ -120,11 +128,61 @@ def bsdf_sample(params, wo, u_lobe, u2):
     if MIRROR in params["_active"]:
         wi_mirror = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
         wi = torch.where(specular[..., None], wi_mirror, wi)
-    f = bsdf_eval(params, wo, wi)
-    pdf = bsdf_pdf(params, wo, wi)
+    f = _bsdf_eval_one(params, wo, wi)
+    pdf = _bsdf_pdf_one(params, wo, wi)
     if MIRROR in params["_active"]:
         # FresnelNoOp (pbrt's MirrorMaterial): f = kr / |cos|, pdf = 1
         abs_ci = torch.clamp(torch.abs(wi[..., 2]), min=1e-7)
         f = torch.where(specular[..., None], params["kr"] / abs_ci[..., None], f)
         pdf = torch.where(specular, 1.0, pdf)
     return wi, f, pdf, specular
+
+
+def bsdf_eval(params, wo, wi):
+    """f(wo, wi) [N, 3] (specular lobes contribute 0)."""
+    f = _bsdf_eval_one(params, wo, wi)
+    pb = params.get("mix_b")
+    if pb is not None:
+        amt = params["mix_amt"]
+        f = amt * f + (1.0 - amt) * bsdf_eval(pb, wo, wi)
+    return f
+
+
+def bsdf_pdf(params, wo, wi):
+    """Solid-angle pdf of :func:`bsdf_sample` on non-specular lanes."""
+    pdf = _bsdf_pdf_one(params, wo, wi)
+    pb = params.get("mix_b")
+    if pb is not None:
+        pa = params["mix_pa"]
+        pdf = pa * pdf + (1.0 - pa) * bsdf_pdf(pb, wo, wi)
+    return pdf
+
+
+def bsdf_sample(params, wo, u_lobe, u2):
+    """Sample an outgoing direction -> (wi [N, 3], f [N, 3], pdf [N],
+    specular [N] bool).  On specular lanes f includes 1/|cos| and, under a
+    mix, the child's blend weight over its selection probability; pdf 1."""
+    pb = params.get("mix_b")
+    if pb is None:
+        return _bsdf_sample_one(params, wo, u_lobe, u2)
+    pa = params["mix_pa"]
+    choose_a = u_lobe < pa
+    u_a = torch.clamp(u_lobe / torch.clamp(pa, min=1e-6), 0.0, ONE_MINUS_EPSILON)
+    u_b = torch.clamp((u_lobe - pa) / torch.clamp(1.0 - pa, min=1e-6), 0.0, ONE_MINUS_EPSILON)
+    wi_a, f_a, _, spec_a = _bsdf_sample_one(params, wo, u_a, u2)
+    wi_b, f_b, _, spec_b = bsdf_sample(pb, wo, u_b, u2)
+    wi = torch.where(choose_a[..., None], wi_a, wi_b)
+    spec = torch.where(choose_a, spec_a, spec_b)
+    f = bsdf_eval(params, wo, wi)
+    pdf = bsdf_pdf(params, wo, wi)
+    # a sampled specular child keeps its own delta f, scaled by the blend
+    # amount over the selection probability
+    amt = params["mix_amt"]
+    f_spec = torch.where(
+        choose_a[..., None],
+        amt * f_a / torch.clamp(pa, min=1e-6)[..., None],
+        (1.0 - amt) * f_b / torch.clamp(1.0 - pa, min=1e-6)[..., None],
+    )
+    f = torch.where(spec[..., None], f_spec, f)
+    pdf = torch.where(spec, 1.0, pdf)
+    return wi, f, pdf, spec

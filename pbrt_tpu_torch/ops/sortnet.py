@@ -18,6 +18,12 @@ lanes sort last as in the reference.  Two networks:
 
 The reference splits a sort of more than 22 columns into groups (the
 merged shadow+carry sort, not ported); here such a bitonic sort raises.
+
+Gradients: the stable network is a permutation by indexing, which
+autograd differentiates.  The bitonic network is not differentiable (the
+reference's raises under ``jax.grad``; the card's kernel writes through
+raw pointers): where it would run, a payload that requires grad raises
+while grad mode is on, on every device.
 """
 
 from __future__ import annotations

@@ -67,6 +67,45 @@ class CompiledScene:
     world_bounds: tuple
     device: torch.device
 
+    def initial_theta(self):
+        """The differentiable scene parameters, a dict of tensors on the
+        scene's device: the material slots of ``material_theta`` (split
+        ``{"a", "b"}`` in mix scenes), ``env_l`` [infinite lights, 3],
+        ``area_l`` [area lights, 3] and ``tex_images`` {tex_id: packed
+        pyramid} of every image texture, mix children included.  Hand it
+        (or a copy that requires grad) to ``diff/grad.py``'s functions."""
+        from pbrt_tpu_torch.lights import InfiniteAreaLight
+        from pbrt_tpu_torch.materials import material_theta
+        from pbrt_tpu_torch.textures.imagemap import ImageTexture
+
+        dev = self.device
+        theta = material_theta(self.materials, dev)
+
+        def rows(vals):
+            return torch.as_tensor(np.stack(vals) if vals else np.zeros((0, 3), float_t),
+                                   device=dev)
+
+        theta["env_l"] = rows([np.asarray(lt.l_rgb, dtype=float_t) for lt in self.lights
+                               if isinstance(lt, InfiniteAreaLight)])
+        theta["area_l"] = rows([al.l_emit for al in self.area_lights])
+        theta["tex_images"] = {
+            tex.tex_id: tex.mipmap.flat_on(dev).clone()
+            for tex in image_textures(self.materials) if isinstance(tex, ImageTexture)
+        }
+        return theta
+
+
+def image_textures(materials):
+    """Every texture of ``materials`` and their mix children (blend
+    textures included), in ``iter_entries_deep`` order; the image
+    textures among them are the ``tex_images`` of ``initial_theta``."""
+    from pbrt_tpu_torch.materials import iter_entries_deep
+
+    for e in iter_entries_deep(materials):
+        yield from e.textures.values()
+        if e.mix_amount is not None:
+            yield e.mix_amount
+
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
@@ -236,13 +275,16 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
 
     # static interaction flags: uv only for non-constant textures, shading
     # normals only for non-flat meshes, footprints only for textures that
-    # filter (the checkerboard)
+    # filter (the checkerboard and image textures)
+    from pbrt_tpu_torch.materials import iter_entries_deep
     from pbrt_tpu_torch.textures.checkerboard import CheckerboardTexture
     from pbrt_tpu_torch.textures.constant import ConstantTexture
+    from pbrt_tpu_torch.textures.imagemap import ImageTexture
 
     uv_needed = any(
-        not isinstance(tex, ConstantTexture) for e in materials for tex in e.textures.values()
-    )
+        not isinstance(tex, ConstantTexture)
+        for e in iter_entries_deep(materials) for tex in e.textures.values()
+    ) or any(e.mix_children is not None for e in materials)
     tri_flat = False
     if tri_data is not None:
         fn = np.cross(tri_data.p1 - tri_data.p0, tri_data.p2 - tri_data.p0)
@@ -252,7 +294,8 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
             np.allclose(getattr(tri_data, f), fn, atol=1e-5) for f in ("n0", "n1", "n2")
         )
     tex_width_needed = any(
-        isinstance(tex, CheckerboardTexture) for e in materials for tex in e.textures.values()
+        isinstance(tex, (ImageTexture, CheckerboardTexture))
+        for e in iter_entries_deep(materials) for tex in e.textures.values()
     )
     tables["_flags"] = {
         "uv": bool(uv_needed),

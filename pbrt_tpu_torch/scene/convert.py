@@ -1,4 +1,4 @@
-"""Carry device tables across from the reference.
+"""Carry device tables and scene parameters across from the reference.
 
 A renderer has no weights, but it has device tables (``CompiledScene.
 tables``, the packed BVH tables, light and material parameters).  The
@@ -24,3 +24,33 @@ def tables_from_numpy(tables, device):
     if isinstance(tables, np.ndarray):
         return torch.tensor(tables, device=device)  # copies (JAX views are read-only)
     return tables
+
+
+def theta_from_numpy(ref_theta, compiled, device):
+    """The reference's theta (``CompiledScene.initial_theta()`` of
+    ``pbrt_tpu``, its leaves as numpy arrays) -> the port's, on ``device``.
+
+    Both packages key ``tex_images`` by a process-global counter, and the
+    two counters drift apart in one process; textures are therefore
+    matched by order: both parsers make a scene's textures in the same
+    order, so the reference's keys in ascending order map to the ids of
+    the port's image textures (``iter_entries_deep`` over ``compiled``'s
+    materials) in ascending order."""
+    from pbrt_tpu_torch.scene.builder import image_textures
+    from pbrt_tpu_torch.textures.imagemap import ImageTexture
+
+    out = {}
+    for k, v in ref_theta.items():
+        if k == "tex_images":
+            ids = sorted({t.tex_id for t in image_textures(compiled.materials)
+                          if isinstance(t, ImageTexture)})
+            ref = [v[key] for key in sorted(v)]
+            if len(ref) != len(ids):
+                raise ValueError(f"theta_from_numpy: {len(ref)} reference textures, "
+                                 f"{len(ids)} in the port's scene")
+            out[k] = {i: torch.tensor(np.asarray(x), device=device) for i, x in zip(ids, ref)}
+        elif isinstance(v, dict):
+            out[k] = theta_from_numpy(v, compiled, device)
+        else:
+            out[k] = torch.tensor(np.asarray(v), device=device)
+    return out

@@ -7,7 +7,9 @@ intersector sweeps it.
 
 BASELINE config 3: a procedurally displaced ~50k-triangle torus with a
 checkerboard-textured matte material on a matte floor, lit by a point
-light and a quad area light, path integrator with MIS.
+light and a quad area light, path integrator with MIS.  BASELINE config
+5 is the same scene with a 1M-triangle torus (``nu=1000, nv=500``;
+:func:`torus_triangle_data` gives its raw triangles).
 
 The scene texts and meshes are the reference's, so both packages build
 the same scenes.
@@ -204,6 +206,66 @@ def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
                                                 nu, nv, sphere)
     return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort), n_tris
+
+
+def torus_triangle_data(nu=1000, nv=500, **kw):
+    """Raw TriangleData of the displaced torus (2 nu nv triangles);
+    ``nu=1000, nv=500`` is BASELINE config 5's 1M triangles."""
+    from pbrt_tpu_torch.core.transform import Transform
+    from pbrt_tpu_torch.shapes import make_shape
+
+    ps, _ = _torus_mesh_params(nu, nv, **kw)
+    return make_shape("trianglemesh", ps, Transform.identity(), False)
+
+
+# the reference's gradient targets (tests/test_grad.py, test_texture_grad.py)
+GRAD_SPHERE = """
+LookAt 0 0 -3  0 0 0  0 1 0
+Camera "perspective" "float fov" 40
+Sampler "halton" "integer pixelsamples" 4
+Integrator "path" "integer maxdepth" 3
+Film "image" "integer xresolution" [8] "integer yresolution" [8]
+WorldBegin
+LightSource "infinite" "rgb L" [.5 .5 .5]
+{material}
+Shape "sphere" "float radius" 1
+WorldEnd
+"""
+GRAD_MATTE = 'Material "matte" "rgb Kd" [0.4 0.5 0.6]'
+GRAD_NESTED_MIX = """MakeNamedMaterial "ma" "string type" "matte" "rgb Kd" [0.4 0.5 0.6]
+MakeNamedMaterial "mb" "string type" "matte" "rgb Kd" [0.1 0.8 0.3]
+MakeNamedMaterial "mc" "string type" "matte" "rgb Kd" [0.7 0.2 0.1]
+MakeNamedMaterial "inner" "string type" "mix" "string namedmaterial1" "mb"
+  "string namedmaterial2" "mc" "rgb amount" [0.6 0.6 0.6]
+Material "mix" "string namedmaterial1" "ma" "string namedmaterial2" "inner"
+  "rgb amount" [0.3 0.3 0.3]"""
+# an image-textured quad under a distant light, seen by an orthographic
+# camera; ``{path}`` names the texture
+GRAD_TEXTURE = """
+LookAt 0 0 5  0 0 0  0 1 0
+Camera "orthographic" "float screenwindow" [-1 1 -1 1]
+Sampler "halton" "integer pixelsamples" 4
+Integrator "path" "integer maxdepth" 2
+Film "image" "integer xresolution" [12] "integer yresolution" [12]
+WorldBegin
+LightSource "distant" "point from" [0 0 10] "rgb L" [3 3 3]
+Texture "wood" "spectrum" "imagemap" "string filename" "{path}"
+Material "matte" "texture Kd" "wood"
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [ -1 -1 0   1 -1 0   1 1 0   -1 1 0 ]
+    "float st" [0 0  1 0  1 1  0 1]
+WorldEnd
+"""
+
+
+def text_renderer(text, ray_batch=1 << 16, seed=0, device="cuda"):
+    """Scene text -> Renderer on ``device``."""
+    from pbrt_tpu_torch.render import Renderer
+
+    api = PbrtAPI(Options(ray_batch=ray_batch), render_on_world_end=False)
+    api.init()
+    api.parse_string(text)
+    return Renderer(api.scene, api.opt, seed=seed, device=device)
 
 
 def comb_tree(levels):

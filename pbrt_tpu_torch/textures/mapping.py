@@ -12,6 +12,7 @@ class UVMapping2D:
         self.su, self.sv, self.du, self.dv = float(su), float(sv), float(du), float(dv)
         # scale of uv-space ray-differential footprints
         self.width_scale = max(abs(self.su), abs(self.sv))
+        self.width_vec = (self.su, self.sv)
 
     def map(self, si):
         uv = si["uv"]
