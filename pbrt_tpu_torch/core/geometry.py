@@ -1,6 +1,7 @@
 """Geometry: host integer/float 2D bounds (copies of
 ``pbrt_tpu/core/geometry.py``) and batched vector math on ``[..., 3]``
-tensors."""
+tensors, with a square root and an arccos whose derivatives stay finite
+at the ends of their domains."""
 
 from __future__ import annotations
 
@@ -82,3 +83,46 @@ def shading_frame(si, wo):
     ns = vface_forward(si["ns"], wo)
     ss, ts = coordinate_system(ns)
     return ns, ss, ts
+
+
+class _Sqrt0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(torch.clamp(x, min=0.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        pos = y > 0.0
+        return torch.where(pos, g / (2.0 * torch.where(pos, y, 1.0)), 0.0)
+
+
+class _Arccos0(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        x = torch.clamp(x, -1.0, 1.0)
+        ctx.save_for_backward(x)
+        return torch.arccos(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        inner = torch.abs(x) < 1.0
+        return torch.where(inner, -g / torch.sqrt(torch.where(inner, 1.0 - x * x, 1.0)), 0.0)
+
+
+def sqrt0(x):
+    """sqrt(max(x, 0)) whose derivative is 0 where the root is 0 (and
+    below), instead of infinite.  The value is torch's.  Lanes that a
+    select masks out get a zero cotangent, and at a zero root torch's
+    derivative turns it into 0 x inf = NaN; the reference's ``jnp.sqrt(
+    jnp.maximum(0, x))`` does the same, and its gradient leaf is NaN."""
+    return _Sqrt0.apply(x)
+
+
+def arccos0(x):
+    """arccos(clamp(x, -1, 1)) whose derivative is 0 at x = +-1 (and
+    beyond), instead of infinite: as :func:`sqrt0`, for masked lanes."""
+    return _Arccos0.apply(x)

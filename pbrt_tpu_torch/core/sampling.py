@@ -1,10 +1,11 @@
-"""Monte-Carlo warps, the power heuristic and Distribution1D (counterpart
-of ``pbrt_tpu/core/sampling.py``), batched over tensors.
+"""Monte-Carlo warps, the power heuristic, Distribution1D and
+Distribution2D (counterpart of ``pbrt_tpu/core/sampling.py``), batched
+over tensors.
 
 The warps keep the reference's polynomial sin/cos (``fast_sincos``) so
-that sampled directions agree with it to float32 rounding.
-Distribution2D (image-mapped environment lights) waits for ROADMAP Queue 1
-item 8.
+that sampled directions agree with it to float32 rounding.  The
+distributions' tables are built on the host in float64 and live on the
+device as float32, as in the reference.
 """
 
 from __future__ import annotations
@@ -126,3 +127,75 @@ class Distribution1D:
         du = torch.where(c1 > c0, (u - c0) / width, torch.zeros_like(u))
         x = (offset.to(torch.float32) + du) / self.n
         return x, pdf, offset
+
+
+class Distribution2D:
+    """Piecewise-constant 2D distribution over [0, 1]^2 of an [H, W]
+    function: a marginal over rows and a conditional CDF per row (rows of
+    zero sum fall back to a uniform CDF)."""
+
+    def __init__(self, func2d, device):
+        f = np.maximum(np.asarray(func2d, dtype=np.float64), 0.0)
+        h, w = f.shape
+        self.h, self.w = h, w
+        row_int = f.sum(axis=1) / w
+        cond_cdf = np.concatenate([np.zeros((h, 1)), np.cumsum(f, axis=1)], axis=1)
+        row_tot = cond_cdf[:, -1:].copy()
+        cond_cdf = cond_cdf / np.where(row_tot == 0.0, 1.0, row_tot)
+        cond_cdf[row_tot[:, 0] == 0.0] = np.linspace(0.0, 1.0, w + 1)
+        marg = row_int
+        marg_cdf = np.concatenate([[0.0], np.cumsum(marg)])
+        tot = marg_cdf[-1]
+        if tot == 0.0:
+            marg_cdf = np.linspace(0.0, 1.0, h + 1)
+            marg = np.full(h, 1.0 / h)
+            self.func_int = 1e-20
+        else:
+            marg_cdf = marg_cdf / tot
+            self.func_int = tot / h
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a).astype(float_t), device=device)
+
+        self.func = dev(f.reshape(-1))  # row-major [H * W]
+        self.row_int = dev(np.maximum(row_int, 0.0))
+        self.cond_cdf = dev(cond_cdf.reshape(-1))  # row-major [H * (W + 1)]
+        self.marg_cdf = dev(marg_cdf)
+        self.marg_func = dev(marg)
+        # the reference's fixed bisection depth into a row CDF
+        self.n_steps = max(1, int(np.ceil(np.log2(w + 1))) + 1)
+
+    def sample_continuous(self, u):
+        """u [..., 2] -> ((u, v) in [0, 1]^2 [..., 2], pdf [...])."""
+        u0 = u[..., 0]
+        u1 = u[..., 1]
+        row = torch.clamp(
+            torch.searchsorted(self.marg_cdf, u1.contiguous(), right=True) - 1, 0, self.h - 1
+        )
+        mc0 = self.marg_cdf[row]
+        mc1 = self.marg_cdf[row + 1]
+        dv = torch.where(mc1 > mc0, (u1 - mc0) / torch.where(mc1 == mc0, 1.0, mc1 - mc0), 0.0)
+        pdf_v = self.marg_func[row] / max(self.func_int, 1e-20)
+        v = (row.to(torch.float32) + dv) / self.h
+        # per-lane bisection into the lane's row CDF: [N] gathers per
+        # step, never an [N, W] matrix
+        base = row * (self.w + 1)
+        lo = torch.zeros_like(row)
+        hi = torch.full_like(row, self.w)
+        for _ in range(self.n_steps):
+            mid = (lo + hi) // 2
+            below = self.cond_cdf[base + mid] <= u0
+            lo = torch.where(below, mid, lo)
+            hi = torch.where(below, hi, mid)
+        col = torch.clamp(lo, 0, self.w - 1)
+        cc0 = self.cond_cdf[base + col]
+        cc1 = self.cond_cdf[base + col + 1]
+        du = torch.where(cc1 > cc0, (u0 - cc0) / torch.where(cc1 == cc0, 1.0, cc1 - cc0), 0.0)
+        pdf_u = self.func[row * self.w + col] / torch.clamp(self.row_int[row], min=1e-20)
+        uu = (col.to(torch.float32) + du) / self.w
+        return torch.stack([uu, v], dim=-1), pdf_u * pdf_v
+
+    def pdf_at(self, uv):
+        col = torch.clamp((uv[..., 0] * self.w).to(torch.int32), 0, self.w - 1).long()
+        row = torch.clamp((uv[..., 1] * self.h).to(torch.int32), 0, self.h - 1).long()
+        return self.func[row * self.w + col] / max(self.func_int, 1e-20)

@@ -1,7 +1,7 @@
 """Integrators (counterpart of ``pbrt_tpu/integrators/__init__.py``).
 
-Only ``path`` is ported; directlighting, whitted, volpath, ao, sppm, bdpt
-and mlt wait for ROADMAP Queue 1 item 8.
+``path``, ``directlighting``, ``whitted`` and ``ao`` are ported; volpath,
+sppm, bdpt and mlt wait for ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -9,15 +9,24 @@ from __future__ import annotations
 
 def make_integrator(compiled):
     """Integrator factory per pbrt-v3 MakeIntegrator names."""
+    from pbrt_tpu_torch.integrators.direct import DirectLightingIntegrator, WhittedIntegrator
     from pbrt_tpu_torch.integrators.path import PathIntegrator
 
     name = compiled.integrator_name
     params = compiled.integrator_params
-    if name != "path":
-        raise NotImplementedError(
-            f"Integrator '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-            "only 'path' is"
-        )
     max_depth = params.find_one_int("maxdepth", 5)
-    rr_threshold = params.find_one_float("rrthreshold", 1.0)
-    return PathIntegrator(compiled, max_depth, rr_threshold)
+    if name == "path":
+        return PathIntegrator(compiled, max_depth, params.find_one_float("rrthreshold", 1.0))
+    if name == "directlighting":
+        return DirectLightingIntegrator(compiled, max_depth)
+    if name == "whitted":
+        return WhittedIntegrator(compiled, max_depth)
+    if name == "ao":
+        from pbrt_tpu_torch.integrators.ao import AOIntegrator
+
+        params.find_one_bool("cossample", True)
+        return AOIntegrator(compiled, n_samples=params.find_one_int("nsamples", 1))
+    raise NotImplementedError(
+        f"Integrator '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
+        "'path', 'directlighting', 'whitted' and 'ao' are"
+    )

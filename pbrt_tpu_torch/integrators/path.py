@@ -18,10 +18,16 @@ Sorted carry, where the reference takes it (an intersector with a sort
 hint and triangles, i.e. the BVH): at the end of every bounce the whole
 wavefront is co-sorted into the next bounce's traversal order
 (``sort_keys``; the intersector's ``co_sort`` network, 22 columns as in
-the reference, with alive and specular_bounce packed into one flags
-column), the closest-hit sweeps run sort-free, shadow sweeps sort per
-call, and one scatter restores lane order for the film.  The brute-force
-intersector keeps lanes in order throughout.
+the reference, with alive, specular_bounce and gather_only packed into
+one flags column), the closest-hit sweeps run sort-free, shadow sweeps
+sort per call, and one scatter restores lane order for the film.  The
+brute-force intersector keeps lanes in order throughout.
+
+Derived integrators (``integrators/direct.py``) set two class knobs, as
+the reference's do: ``direct_only`` (non-specular continuations trace
+one more segment that only gathers emission, then stop: the BSDF-sampled
+half of EstimateDirect's MIS pair) and ``nee_mis`` (False: the light
+sample takes weight 1), and override ``_bsdf_sample``.
 
 Gradients (path replay): ``li(..., theta=...)`` reads the scene
 parameters from ``theta`` (``CompiledScene.initial_theta``), and
@@ -73,6 +79,9 @@ def _offset_origin(p, ng, w):
 
 
 class PathIntegrator:
+    direct_only = False
+    nee_mis = True
+
     def __init__(self, compiled, max_depth=5, rr_threshold=1.0, remat=False):
         self.c = compiled
         self.max_depth = int(max_depth)
@@ -88,6 +97,10 @@ class PathIntegrator:
         one closest sweep per bounce, one shadow sweep per bounce except
         the last (the final vertex collects emission only)."""
         return self.max_depth, self.max_depth - 1
+
+    def _bsdf_sample(self, params, wo_l, u_lobe, u_b):
+        """The BSDF sample of a bounce (a hook for derived integrators)."""
+        return B.bsdf_sample(params, wo_l, u_lobe, u_b)
 
     def _intersect(self, o, d, t_max, sort):
         with torch.no_grad():
@@ -171,6 +184,7 @@ class PathIntegrator:
             torch.ones((n, 3), dtype=torch.float32, device=dev),  # beta
             torch.ones(n, dtype=torch.bool, device=dev),  # alive
             torch.ones(n, dtype=torch.bool, device=dev),  # specular_bounce
+            torch.zeros(n, dtype=torch.bool, device=dev),  # gather_only (emission only)
             torch.ones(n, dtype=torch.float32, device=dev),  # prev_bsdf_pdf
             o,  # prev_p
             o,
@@ -194,7 +208,7 @@ class PathIntegrator:
 
     def _bounce(self, bounce, sampler, theta, carry):
         c = self.c
-        (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
+        (L, beta, alive, specular_bounce, gather_only, prev_bsdf_pdf, prev_p, o, d,
          pixel_xy, sample_index, lane) = carry
         base = 5 + 7 * bounce
         # dead lanes trace with t_max = 0 (they sort into trailing blocks)
@@ -236,12 +250,17 @@ class PathIntegrator:
             L = L + torch.where(alive[..., None], beta * le_hit * w_le[..., None], 0.0)
 
         if bounce == self.max_depth - 1:
-            return (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
-                    pixel_xy, sample_index, lane)
+            return (L, beta, alive, specular_bounce, gather_only, prev_bsdf_pdf, prev_p, o,
+                    d, pixel_xy, sample_index, lane)
+        if self.direct_only:
+            # emission-only lanes have collected their Le: they stop here
+            alive = alive & ~gather_only
 
         ns, ss, ts = shading_frame(si, wo)
         wo_l = _to_local(ns, ss, ts, wo)
         params = eval_material_params(c.materials, si["mat"], si, theta)
+        # the true side (before face-forwarding), for dielectrics
+        params["outside"] = torch.sum(si["ns"] * wo, dim=-1) > 0.0
         alive = alive & (si["mat"] >= 0) & (params["type"] != B.NONE)
 
         # --- next-event estimation ----------------------------------------
@@ -256,7 +275,10 @@ class PathIntegrator:
             can = alive & (l_pdf > 0.0) & (f.amax(dim=-1) > 0.0)
             shadow_o = _offset_origin(si["p"], si["ng"], wi_w)
             shadow_t = torch.where(can, l_dist - 2 * SHADOW_EPS, 0.0)
-            w_l = torch.where(l_delta, 1.0, power_heuristic(1, l_pdf, 1, b_pdf))
+            if self.nee_mis:
+                w_l = torch.where(l_delta, 1.0, power_heuristic(1, l_pdf, 1, b_pdf))
+            else:  # light sampling is the only direct estimator
+                w_l = torch.ones_like(l_pdf)
             contrib = beta * f * li * (
                 torch.abs(wi_l[..., 2]) * w_l / torch.clamp(l_pdf, min=1e-12)
             )[..., None]
@@ -268,9 +290,17 @@ class PathIntegrator:
         # --- BSDF sampling -------------------------------------------------
         u_lobe = sampler.get(pixel_xy, sample_index, base + 3)
         u_b = sampler.get2(pixel_xy, sample_index, base + 4)
-        wi_l, f, pdf, spec = B.bsdf_sample(params, wo_l, u_lobe, u_b)
+        wi_l, f, pdf, spec = self._bsdf_sample(params, wo_l, u_lobe, u_b)
         wi_w = _to_world(ns, ss, ts, wi_l)
         ok = alive & (pdf > 0.0) & (f.amax(dim=-1) > 0.0)
+        if self.direct_only:
+            # pbrt's DirectLightingIntegrator: a non-specular continuation
+            # only gathers the BSDF-sampled direct light
+            gather_only = ok & ~spec
+            if bounce == self.max_depth - 2:
+                # the deepest vertex: its gather-only ray traces, specular
+                # recursion stops
+                ok = ok & ~spec
         beta = torch.where(
             ok[..., None],
             beta * f * (torch.abs(wi_l[..., 2]) / torch.clamp(pdf, min=1e-12))[..., None],
@@ -295,13 +325,14 @@ class PathIntegrator:
             alive = alive & survive
 
         if not self._sc:
-            return (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
-                    pixel_xy, sample_index, lane)
+            return (L, beta, alive, specular_bounce, gather_only, prev_bsdf_pdf, prev_p, o,
+                    d, pixel_xy, sample_index, lane)
 
         # --- sorted carry: one co-sort into the next traversal order -------
         t_next = torch.where(alive, INF_T, 0.0)
         keys = c.intersector.sort_keys(o, d, t_next)
-        flags = alive.to(torch.int32) | (specular_bounce.to(torch.int32) << 1)
+        flags = (alive.to(torch.int32) | (specular_bounce.to(torch.int32) << 1)
+                 | (gather_only.to(torch.int32) << 2))
         (_, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
          flags) = co_sort(
             (keys, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
@@ -310,5 +341,6 @@ class PathIntegrator:
         )
         alive = (flags & 1) != 0
         specular_bounce = (flags & 2) != 0
-        return (L, beta, alive, specular_bounce, prev_bsdf_pdf, prev_p, o, d,
+        gather_only = (flags & 4) != 0
+        return (L, beta, alive, specular_bounce, gather_only, prev_bsdf_pdf, prev_p, o, d,
                 pixel_xy, sample_index, lane)

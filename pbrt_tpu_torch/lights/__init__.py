@@ -10,25 +10,34 @@ The infinite and area lights take ``l_override``: a [3] tensor that
 replaces their radiance (``theta["env_l"]`` / ``theta["area_l"]`` rows),
 so that gradients reach it.
 
-Point, distant, diffuse-area and constant infinite lights are ported.
-Spot, goniometric and projection lights and the image-mapped infinite
-light wait for ROADMAP Queue 1 item 8 (the last needs Distribution2D).
+Point, distant, diffuse-area and infinite lights (constant, or
+image-mapped and importance-sampled through a Distribution2D) are
+ported.  Spot, goniometric and projection lights wait for ROADMAP Queue
+1 item 8.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import PI, float_t
+from pbrt_tpu_torch import INV_2PI, INV_PI, PI, float_t
+from pbrt_tpu_torch.core.geometry import arccos0
+from pbrt_tpu_torch.core.imageio import read_image
+from pbrt_tpu_torch.core.mipmap import MIPMap
 from pbrt_tpu_torch.core.sampling import (
     Distribution1D,
+    Distribution2D,
     uniform_sample_sphere,
     uniform_sample_triangle,
 )
 from pbrt_tpu_torch.core.spectrum import promote_rgb
 from pbrt_tpu_torch.core.transform import Transform, apply_vector
 from pbrt_tpu_torch.ops.tables import select_rows
+
+log = logging.getLogger("pbrt_tpu_torch")
 
 BIG_DIST = 1e7  # NEE distance to an infinite light
 
@@ -71,34 +80,91 @@ class DistantLight(Light):
 
 
 class InfiniteAreaLight(Light):
-    """Environment light of constant radiance (the reference's
-    ``InfiniteAreaLight`` without ``mapname``): uniform sphere sampling."""
+    """Environment light: a constant tint, or the tint times a lat-long
+    map (``mapname``).  A mapped light samples a Distribution2D over
+    luminance x sin(theta) and ignores ``l_override`` (its ``env_l``
+    theta row gets no gradient), as the reference does."""
 
     is_infinite = True
 
-    def __init__(self, light_to_world: Transform, l_rgb, device="cuda"):
+    def __init__(self, light_to_world: Transform, l_rgb, mapname: str = "", device="cuda"):
         self._l2wm = torch.as_tensor(light_to_world.m.astype(float_t), device=device)
-        self.l_rgb = promote_rgb(np.asarray(l_rgb, dtype=float_t), illuminant=True)
+        self._w2lm = torch.as_tensor(light_to_world.m_inv.astype(float_t), device=device)
+        raw = np.asarray(l_rgb, dtype=float_t)  # the raw RGB tint
+        self.l_rgb = promote_rgb(raw, illuminant=True)
         self._ld = torch.as_tensor(np.asarray(self.l_rgb, dtype=float_t), device=device)
+        self.mipmap = None
+        self.distribution = None
+        if mapname:
+            # as in the reference, a map that cannot be read, or whose
+            # pyramid cannot be built (MIPMap raises ValueError for a
+            # non-square image), leaves a constant light of the tint
+            try:
+                img, (w, h) = read_image(mapname)
+                # (tint x map) promoted once, illuminant basis
+                img = np.asarray(promote_rgb(np.asarray(img, dtype=np.float64) * raw[None, None],
+                                             illuminant=True), dtype=np.float64)
+                self.mipmap = MIPMap(img.astype(float_t))
+                lum = 0.212671 * img[..., 0] + 0.715160 * img[..., 1] + 0.072169 * img[..., 2]
+                sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h)
+                self.distribution = Distribution2D(lum * sin_theta[:, None], device)
+            except (OSError, ValueError) as e:
+                log.error("infinite light: cannot read '%s': %s", mapname, e)
+
+    def power(self):
+        if self.mipmap is None:
+            return PI * self.l_rgb
+        return PI * self.mipmap._flat.numpy().mean(axis=0)
+
+    def _uv(self, d_world):
+        """World direction -> lat-long (phi / 2 pi, theta / pi) [..., 2]
+        and sin(theta)."""
+        w = apply_vector(self._w2lm, d_world)
+        w = w / torch.clamp(torch.linalg.norm(w, dim=-1, keepdim=True), min=1e-12)
+        theta = arccos0(w[..., 2])
+        # atan2(0, 1) = atan2(0, 0), with a finite derivative
+        pole = (w[..., 0] == 0.0) & (w[..., 1] == 0.0)
+        phi = torch.atan2(w[..., 1], torch.where(pole, 1.0, w[..., 0]))
+        phi = torch.where(phi < 0, phi + 2 * PI, phi)
+        return phi * INV_2PI, theta * INV_PI, theta
 
     def _le_dir(self, d_world, l_override=None):
         """Radiance along world direction d (leaving the scene)."""
-        ld = self._ld if l_override is None else l_override
-        return torch.broadcast_to(ld, d_world.shape[:-1] + (3,))
+        if self.mipmap is None:
+            ld = self._ld if l_override is None else l_override
+            return torch.broadcast_to(ld, d_world.shape[:-1] + (3,))
+        s, t, _ = self._uv(d_world)
+        return self.mipmap.lookup(s, t)
 
     def le_escaped(self, d, l_override=None):
         return self._le_dir(d, l_override)
 
     def sample_li(self, p, u2, l_override=None):
         n = p.shape[0]
-        wi = apply_vector(self._l2wm, uniform_sample_sphere(u2))
-        li = torch.broadcast_to(self._ld if l_override is None else l_override, (n, 3))
-        pdf = torch.full((n,), 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
+        if self.distribution is None:
+            wi = apply_vector(self._l2wm, uniform_sample_sphere(u2))
+            li = torch.broadcast_to(self._ld if l_override is None else l_override, (n, 3))
+            pdf = torch.full((n,), 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
+        else:
+            uv, map_pdf = self.distribution.sample_continuous(u2)
+            theta = uv[..., 1] * PI
+            phi = uv[..., 0] * 2 * PI
+            st, ct = torch.sin(theta), torch.cos(theta)
+            d_l = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
+            wi = apply_vector(self._l2wm, d_l)
+            li = self.mipmap.lookup(uv[..., 0], uv[..., 1])
+            pdf = torch.where(st > 1e-7,
+                              map_pdf / (2 * PI * PI * torch.clamp(st, min=1e-7)), 0.0)
         dist = torch.full((n,), BIG_DIST, dtype=p.dtype, device=p.device)
         return wi, li, pdf, dist
 
     def pdf_li(self, p, wi):
-        return torch.full(p.shape[:-1], 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
+        if self.distribution is None:
+            return torch.full(p.shape[:-1], 1.0 / (4 * PI), dtype=p.dtype, device=p.device)
+        s, t, theta = self._uv(wi)
+        st = torch.sin(theta)
+        pdf = self.distribution.pdf_at(torch.stack([s, t], dim=-1))
+        return torch.where(st > 1e-7, pdf / (2 * PI * PI * torch.clamp(st, min=1e-7)), 0.0)
 
 
 class DiffuseAreaLight(Light):
@@ -162,14 +228,10 @@ def make_light(record, device="cuda"):
     if name in ("infinite", "exinfinite"):
         l_rgb = params.find_one_spectrum_raw("L", one)
         scale = params.find_one_spectrum_raw("scale", one)
-        if params.find_one_filename("mapname", ""):
-            raise NotImplementedError(
-                "image-mapped infinite lights ('mapname') are not ported yet (ROADMAP.md "
-                "Queue 1 item 8: they need core/imageio.py, core/mipmap.py and "
-                "Distribution2D)"
-            )
+        mapname = params.find_one_filename("mapname", "")
         params.find_one_int("samples", params.find_one_int("nsamples", 1))
-        return InfiniteAreaLight(l2w, l_rgb * scale, device=device)
+        # the raw tint: a mapped light promotes (tint x map) once
+        return InfiniteAreaLight(l2w, l_rgb * scale, mapname, device=device)
     if name == "point":
         i = promote_rgb(
             params.find_one_spectrum_raw("I", one)

@@ -3,10 +3,14 @@
 
 Scene build produces a list of :class:`MaterialEntry`; at shading time
 :func:`eval_material_params` evaluates each entry's textures across the
-wavefront and mask-selects into SoA parameter tensors.  ``matte``,
-``mirror``, ``mix`` (of ported materials, nested mixes included) and the
-emitter-only ``none`` are ported; every other material raises (ROADMAP
-Queue 1 item 8).
+wavefront and mask-selects into SoA parameter tensors (kd, ks, kr, kt,
+roughness as a GGX alpha, eta, metal_eta, metal_k, sigma).  Ported:
+``matte``, ``mirror``, ``glass``, ``plastic``, ``metal`` (copper by
+default), ``substrate``, ``uber``, ``translucent``, ``disney`` (as the
+reference approximates it, by substrate lobes), ``mix`` (nested mixes
+included) and the emitter-only ``none``; an unknown name renders as
+matte, as in the reference.  ``hair``, ``fourier`` and the subsurface
+materials raise (ROADMAP Queue 1 item 8).
 
 ``theta`` (:func:`material_theta`, ``CompiledScene.initial_theta``) is
 the differentiable override: constant-texture slots read their rows from
@@ -32,11 +36,19 @@ log = logging.getLogger("pbrt_tpu_torch")
 
 _SPECTRUM_SLOTS = ("kd", "ks", "kr", "kt")
 
+# copper (pbrt-v3's metal default) in RGB
+COPPER_ETA = np.array([0.200438, 0.924033, 1.10221], dtype=np.float64)
+COPPER_K = np.array([3.91295, 2.44763, 2.14219], dtype=np.float64)
+
 
 @dataclass
 class MaterialEntry:
     type_id: int
     textures: Dict[str, object] = field(default_factory=dict)  # slot -> Texture
+    remap_roughness: bool = True
+    metal_eta: np.ndarray = None  # metal only, [3] float64
+    metal_k: np.ndarray = None
+    eta_const: float = 1.5
     # mix only (pbrt-v3 MixMaterial): two child entries and the blend texture
     mix_children: Optional[tuple] = None
     mix_amount: object = None
@@ -52,14 +64,73 @@ def build_material(record) -> MaterialEntry:
     def spec_tex(pname, default):
         return tp.get_spectrum_texture(pname, np.full(3, default, dtype=float_t))
 
+    def float_tex(pname, default):
+        return tp.get_float_texture(pname, default)
+
+    def remap():
+        return tp.find_bool("remaproughness", True)
+
     if name in ("", "none"):
         return MaterialEntry(B.NONE)
     if name == "matte":
         return MaterialEntry(
-            B.MATTE, {"kd": spec_tex("Kd", 0.5), "sigma": tp.get_float_texture("sigma", 0.0)}
+            B.MATTE, {"kd": spec_tex("Kd", 0.5), "sigma": float_tex("sigma", 0.0)}
         )
     if name == "mirror":
         return MaterialEntry(B.MIRROR, {"kr": spec_tex("Kr", 0.9)})
+    if name == "glass":
+        return MaterialEntry(
+            B.GLASS,
+            {"kr": spec_tex("Kr", 1.0), "kt": spec_tex("Kt", 1.0),
+             "roughness": float_tex("uroughness", 0.0)},
+            eta_const=tp.find_float("eta", tp.find_float("index", 1.5)),
+        )
+    if name == "plastic":
+        return MaterialEntry(
+            B.PLASTIC,
+            {"kd": spec_tex("Kd", 0.25), "ks": spec_tex("Ks", 0.25),
+             "roughness": float_tex("roughness", 0.1)},
+            remap_roughness=remap(),
+        )
+    if name == "metal":
+        return MaterialEntry(
+            B.METAL,
+            {"roughness": float_tex("roughness", 0.01)},
+            remap_roughness=remap(),
+            metal_eta=np.asarray(tp.find_spectrum("eta", COPPER_ETA.astype(float_t)),
+                                 dtype=np.float64),
+            metal_k=np.asarray(tp.find_spectrum("k", COPPER_K.astype(float_t)),
+                               dtype=np.float64),
+        )
+    if name == "substrate":
+        return MaterialEntry(
+            B.SUBSTRATE,
+            {"kd": spec_tex("Kd", 0.5), "ks": spec_tex("Ks", 0.5),
+             "roughness": float_tex("uroughness", 0.1)},
+            remap_roughness=remap(),
+        )
+    if name == "uber":
+        return MaterialEntry(
+            B.UBER,
+            {"kd": spec_tex("Kd", 0.25), "ks": spec_tex("Ks", 0.25),
+             "kr": spec_tex("Kr", 0.0), "kt": spec_tex("Kt", 0.0),
+             "roughness": float_tex("roughness", 0.1), "opacity": spec_tex("opacity", 1.0)},
+            remap_roughness=remap(),
+            eta_const=tp.find_float("eta", tp.find_float("index", 1.5)),
+        )
+    if name == "translucent":
+        return MaterialEntry(
+            B.TRANSLUCENT,
+            {"kd": spec_tex("Kd", 0.25), "kt": spec_tex("transmit", 0.5),
+             "roughness": float_tex("roughness", 0.1)},
+        )
+    if name == "disney":
+        log.warning("Material 'disney' approximated by substrate lobes")
+        return MaterialEntry(
+            B.SUBSTRATE,
+            {"kd": spec_tex("color", 0.5), "ks": spec_tex("color", 0.5),
+             "roughness": float_tex("roughness", 0.5)},
+        )
     if name == "mix":
         # f = amount f1 + (1 - amount) f2; the children were resolved
         # against the named materials when the record was made
@@ -70,10 +141,12 @@ def build_material(record) -> MaterialEntry:
         kids = [build_material(ch) for ch in children]
         return MaterialEntry(kids[0].type_id, mix_children=(kids[0], kids[1]),
                              mix_amount=spec_tex("amount", 0.5))
-    raise NotImplementedError(
-        f"Material '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "only 'matte', 'mirror' and 'mix' are"
-    )
+    if name in ("hair", "fourier", "subsurface", "kdsubsurface"):
+        raise NotImplementedError(
+            f"Material '{name}' is not ported yet (ROADMAP.md Queue 1 item 8)"
+        )
+    log.warning("Material '%s' unknown; using matte.", name)
+    return MaterialEntry(B.MATTE, {"kd": spec_tex("Kd", 0.5)})
 
 
 def iter_entries_deep(entries):
@@ -123,7 +196,8 @@ def _material_theta_flat(entries, device="cpu"):
 
 def eval_material_params(entries, mat_id, si, theta=None):
     """Evaluate all material entries over the wavefront -> SoA params
-    (type, kd, ks, kr, kt, sigma and the static type set ``_active``).
+    (type, kd, ks, kr, kt, roughness, eta, metal_eta, metal_k, sigma and
+    the static type set ``_active``).
 
     mat_id: [N] int32 indices into ``entries`` (-1 = background/none).
     theta: optional override from :func:`material_theta` (plus
@@ -172,11 +246,16 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
     """One entry list over the wavefront -> SoA params."""
     n = mat_id.shape[0]
     dev = mat_id.device
+    zeros1 = torch.zeros((n,), dtype=torch.float32, device=dev)
     params = {
         "type": torch.full((n,), B.NONE, dtype=torch.int32, device=dev),
         **{slot: torch.zeros((n, 3), dtype=torch.float32, device=dev)
            for slot in _SPECTRUM_SLOTS},
-        "sigma": torch.zeros((n,), dtype=torch.float32, device=dev),
+        "roughness": zeros1 + 1e-3,
+        "eta": zeros1 + 1.5,
+        "metal_eta": torch.as_tensor(COPPER_ETA.astype(float_t), device=dev).expand(n, 3),
+        "metal_k": torch.as_tensor(COPPER_K.astype(float_t), device=dev).expand(n, 3),
+        "sigma": zeros1,
         # static set of present material types: lobe code for absent
         # types is skipped
         "_active": frozenset(e.type_id for e in entries),
@@ -203,6 +282,20 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
                 if v.dim() == 1:
                     v = v[..., None] * torch.ones((1, 3), dtype=v.dtype, device=dev)
             put(slot, mask, v)
+        rtex = e.textures.get("roughness")
+        if rtex is not None:
+            if theta is not None and isinstance(rtex, ConstantTexture):
+                r = theta["roughness"][safe_id]
+            else:
+                r = rtex.eval(si)
+                if r.dim() > 1:
+                    r = r.mean(dim=-1)
+            raw = r
+            if e.remap_roughness:
+                r = B.roughness_to_alpha(r)
+            # zero roughness means perfectly smooth (specular glass) and
+            # survives the remap
+            put("roughness", mask, torch.where(raw <= 1e-5, 1e-4, torch.clamp(r, min=1e-3)))
         stex = e.textures.get("sigma")
         if stex is not None:
             if theta is not None and isinstance(stex, ConstantTexture):
@@ -212,4 +305,8 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
                 if s.dim() > 1:
                     s = s.mean(dim=-1)
             put("sigma", mask, s)
+        put("eta", mask, torch.tensor(e.eta_const, dtype=torch.float32, device=dev))
+        if e.metal_eta is not None:
+            put("metal_eta", mask, torch.as_tensor(e.metal_eta.astype(float_t), device=dev))
+            put("metal_k", mask, torch.as_tensor(e.metal_k.astype(float_t), device=dev))
     return params

@@ -27,6 +27,7 @@ import torch
 from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.cameras import make_camera
 from pbrt_tpu_torch.core.film import Film
+from pbrt_tpu_torch.core.geometry import arccos0
 from pbrt_tpu_torch.core.filters import make_filter
 from pbrt_tpu_torch.core.spectrum import promote_rgb
 from pbrt_tpu_torch.lights import DiffuseAreaLight, Light, make_light
@@ -526,7 +527,9 @@ def compute_interaction(tables, hit, o, d, ray_diff=None):
             zmin = srows[:, 13]
             zmax = srows[:, 14]
             r_safe = torch.clamp(r, min=1e-12)
-            theta = torch.arccos(torch.clamp(p_obj[..., 2] / r_safe, -1, 1))
+            # arccos0: other lanes' uv is discarded, and a floor point under
+            # a sphere resting on the floor has p_obj.z / r = -1
+            theta = arccos0(p_obj[..., 2] / r_safe)
             theta_min = torch.arccos(torch.clamp(zmax / r_safe, -1, 1))
             theta_max = torch.arccos(torch.clamp(zmin / r_safe, -1, 1))
             v_s = (theta - theta_min) / torch.clamp(theta_max - theta_min, min=1e-9)

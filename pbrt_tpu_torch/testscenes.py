@@ -11,8 +11,17 @@ light and a quad area light, path integrator with MIS.  BASELINE config
 5 is the same scene with a 1M-triangle torus (``nu=1000, nv=500``;
 :func:`torus_triangle_data` gives its raw triangles).
 
-The scene texts and meshes are the reference's, so both packages build
-the same scenes.
+BASELINE config 4 (:func:`config4_renderer`): config 3's camera, floor
+and torus, the torus glossy plastic over an image texture, the floor
+rough copper, a smooth glass sphere and a substrate sphere, lit only by
+an image-mapped environment light (:func:`write_env_map`: a sky, a small
+bright sun and seeded low-frequency noise).  BASELINE config 1's scene
+file is not in the repo; :data:`CHECK_SPHERE` stands in for it: one
+checkered matte sphere under a point light, box filter, 64x64.
+
+The scene texts and meshes are the reference's (config 4 and the
+config-1 stand-in are texts of reference features), so both packages
+build the same scenes.
 """
 
 from __future__ import annotations
@@ -206,6 +215,150 @@ def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
                                                 nu, nv, sphere)
     return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort), n_tris
+
+
+CONFIG4_HEAD = """
+LookAt 2.8 2.2 2.8  0 0 0  0 0 1
+Camera "perspective" "float fov" 45
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator "path" "integer maxdepth" {maxdepth}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+Accelerator "bvh"
+WorldBegin
+LightSource "infinite" "string mapname" "{env}"
+Texture "albedo" "spectrum" "imagemap" "string filename" "{tex}"
+Material "plastic" "texture Kd" "albedo" "rgb Ks" [0.4 0.4 0.4] "float roughness" 0.2
+"""
+
+CONFIG4_TAIL = """
+Material "metal" "float roughness" 0.05
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-8 -8 -0.7  8 -8 -0.7  8 8 -0.7  -8 8 -0.7]
+AttributeBegin
+  Material "glass" "float eta" 1.5
+  Translate 1.2 0.6 1.0
+  Shape "sphere" "float radius" 0.5
+AttributeEnd
+AttributeBegin
+  Material "substrate" "float uroughness" 0.1
+  Translate 0.3 -1.9 -0.3
+  Shape "sphere" "float radius" 0.4
+AttributeEnd
+"""
+
+
+def write_env_map(path, w=1024, h=1024, seed=0):
+    """Write a seeded lat-long environment map (PFM, [h, w] RGB; row 0 is
+    the zenith, +z): a sky gradient over a dim ground, a small bright sun
+    disc and low-frequency noise, so that its Distribution2D is far from
+    uniform.  Keep it square: both packages' MIPMap raises for other
+    shapes, and the light then falls back to a constant one."""
+    from pbrt_tpu_torch.core.geometry import Bounds2i
+    from pbrt_tpu_torch.core.imageio import write_image
+
+    rng = np.random.default_rng(seed)
+    theta = np.pi * (np.arange(h) + 0.5) / h
+    phi = 2 * np.pi * (np.arange(w) + 0.5) / w
+    th, ph = np.meshgrid(theta, phi, indexing="ij")
+    up = np.clip(np.cos(th), 0.0, 1.0)[..., None]
+    sky = (1 - up) * np.array([0.9, 0.9, 1.0]) + up * np.array([0.25, 0.45, 1.0])
+    img = np.where((th < np.pi / 2)[..., None], sky, np.array([0.15, 0.12, 0.1]))
+    noise = np.zeros_like(th)
+    for _ in range(6):
+        ku, kv = rng.integers(1, 5, 2)
+        noise += rng.uniform(0.02, 0.06) * np.sin(ku * ph + rng.uniform(0, 2 * np.pi)) * np.cos(
+            kv * th + rng.uniform(0, 2 * np.pi))
+    img = img * (1.0 + noise)[..., None]
+    # the sun: 3 degrees across, 35 degrees from the zenith
+    sun = np.array([np.sin(0.61) * np.cos(0.7), np.sin(0.61) * np.sin(0.7), np.cos(0.61)])
+    d = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], axis=-1)
+    img = np.where((d @ sun > np.cos(np.radians(1.5)))[..., None], np.array([400.0, 380.0, 330.0]),
+                   img)
+    write_image(str(path), img.astype(np.float32), Bounds2i((0, 0), (w, h)))
+
+
+def write_texture_map(path, size=256, seed=0):
+    """Write a seeded [size, size] RGB texture (PFM), values in [0.1, 0.9]."""
+    from pbrt_tpu_torch.core.geometry import Bounds2i
+    from pbrt_tpu_torch.core.imageio import write_image
+
+    img = np.random.default_rng(seed).uniform(0.1, 0.9, (size, size, 3))
+    write_image(str(path), img.astype(np.float32), Bounds2i((0, 0), (size, size)))
+
+
+def config4_text(env_path, tex_path, xres=256, yres=256, spp=8, maxdepth=5):
+    """Config 4's scene text (head, tail): the torus mesh goes between
+    them, under the head's plastic."""
+    head = CONFIG4_HEAD.format(spp=spp, maxdepth=maxdepth, xres=xres, yres=yres,
+                               env=env_path, tex=tex_path)
+    return head, CONFIG4_TAIL
+
+
+def config4_renderer(env_path, tex_path, xres=256, yres=256, spp=8, maxdepth=5,
+                     ray_batch=1 << 18, nu=224, nv=112, seed=0, device="cuda", walk="bvh8",
+                     sort="stable"):
+    """BASELINE config 4 on ``device`` (the maps at ``env_path`` and
+    ``tex_path``: :func:`write_env_map`, :func:`write_texture_map`) ->
+    (Renderer, n_torus_tris)."""
+    from pbrt_tpu_torch.render import Renderer
+
+    head, tail = config4_text(env_path, tex_path, xres, yres, spp, maxdepth)
+    api = PbrtAPI(Options(ray_batch=ray_batch), render_on_world_end=False)
+    api.init()
+    api.parse_string(head)
+    ps, n_tris = _torus_mesh_params(nu, nv)
+    api.shape("trianglemesh", ps)
+    api.parse_string(tail)
+    api.scene.film_params.add_int("xresolution", [xres])
+    api.scene.film_params.add_int("yresolution", [yres])
+    return Renderer(api.scene, api.opt, seed=seed, device=device, walk=walk,
+                    sort=sort), n_tris
+
+
+# a stand-in for BASELINE config 1's scenes/check-sphere.pbrt;
+# ``{integrator}`` names the integrator and its parameters
+CHECK_SPHERE = """
+LookAt 0 0 4  0 0 0  0 1 0
+Camera "perspective" "float fov" 35
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator {integrator}
+PixelFilter "box"
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+WorldBegin
+LightSource "point" "rgb I" [40 40 40] "point from" [3 3 4]
+Texture "checks" "spectrum" "checkerboard" "float uscale" [8] "float vscale" [8]
+    "rgb tex1" [.15 .15 .15] "rgb tex2" [.85 .8 .7]
+Material "matte" "texture Kd" "checks"
+Shape "sphere" "float radius" 1
+WorldEnd
+"""
+
+# tests/test_direct.py's closed diffuse box under a ceiling area light
+DIRECT_BOX = """
+LookAt 0 1 4  0 1 0  0 1 0
+Camera "perspective" "float fov" 60
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator {integrator}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [8 8 8]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [ -0.5 2.49 -0.5   0.5 2.49 -0.5   0.5 2.49 0.5   -0.5 2.49 0.5 ]
+AttributeEnd
+Material "matte" "rgb Kd" [0.9 0.9 0.9]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ -2.5 0 -2.5   2.5 0 -2.5   2.5 0 2.5   -2.5 0 2.5 ]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ -2.5 2.5 -2.5   2.5 2.5 -2.5   2.5 2.5 2.5   -2.5 2.5 2.5 ]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ -2.5 0 -2.5   2.5 0 -2.5   2.5 2.5 -2.5   -2.5 2.5 -2.5 ]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ -2.5 0 -2.5   -2.5 0 2.5   -2.5 2.5 2.5   -2.5 2.5 -2.5 ]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ 2.5 0 -2.5   2.5 0 2.5   2.5 2.5 2.5   2.5 2.5 -2.5 ]
+WorldEnd
+"""
 
 
 def torus_triangle_data(nu=1000, nv=500, **kw):
