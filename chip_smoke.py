@@ -5,8 +5,9 @@ Run from the repository root:
 
     python3 chip_smoke.py            # the whole check
     python3 chip_smoke.py --profile  # plus torch.profiler over one config-3, one
-                                     # Cornell, one config-5 and one config-4
-                                     # frame (launches, device busy share)
+                                     # Cornell, one config-5, one config-4 and
+                                     # one scene-file frame (launches, device
+                                     # busy share)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -140,12 +141,36 @@ Phases (any failure raises and the script exits non-zero):
    under ``directlighting``, ``whitted`` and ``ao``, and
    tests/test_direct.py's box under ``directlighting`` and ``ao``: each
    image on the card against the CPU's, to phase 5's tolerance, the
-   query counters exact, no kernel launched (the brute-force sweep).
+   query counters exact, no kernel launched (the brute-force sweep);
+13. scene files through the front door (written under
+   ``build/chip_smoke/``): (a) config 3 as a scene file whose torus is a
+   binary little-endian PLY (``testscenes.config3_scenefile``), through
+   ``python3 -m pbrt_tpu_torch`` as a subprocess (exit 0, the PFM written,
+   the wall seconds with the process start and the build) and through
+   ``cli.main`` in-process with the counters zeroed before (K2 x 14,
+   nothing else), each PFM equal to phase 4's default image to phase 5's
+   tolerance; (b) the scene vocabulary (``testscenes.scenefile_text``:
+   the PLY torus as an object placed 4 times, a 256x256-sample
+   heightfield, a Loop-subdivided icosahedron at 4 levels, the five
+   quadrics with the disk as the area light, a NURBS patch, a point light,
+   every procedural texture under every mapping; 354,250 triangles) at
+   256x256, ``Sampler "sobol"``, 16 spp, maxdepth 5, 4 chunks: scene build
+   seconds and the triangle count, a first frame through ``cli.main``
+   (K2 x 36, nothing else; the image finite and not black), then
+   ``k2_frame`` (the 36 sweeps against the plain walk on the card, K2's
+   time per sweep beside its bound, frame seconds, Mray/s) and the card's
+   image against the CPU's at 32x32, 2 spp, maxdepth 3 under each of the
+   six samplers (one build per device, the samplers swapped in); (c)
+   that scene at 64x64 with ``checkpoint_every=1`` in 4 chunks, stopped
+   after 2 and resumed in a fresh ``Renderer``, against the uninterrupted
+   render (bit-equality reported, phase 5's tolerance required), and a
+   checkpoint whose meta differs ignored.
 
 The lines before the last are JSON objects: ``{"cornell": ...}``,
 ``{"config5": ...}``, ``{"gradients": ...}``, ``{"config4": ...}``,
-``{"integrators": ...}`` and one with an entry per kernel; the last line
-is ``{"ok": true, "device": {...}}``.
+``{"integrators": ...}``, ``{"scenefile": ...}`` and one with an entry
+per kernel (K2's holds phase 13's sweeps and launches under
+``"scenefile"``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -201,7 +226,14 @@ PATH_OF = {"stream_walk8": "default", "wide_walk8": "small", "stream_walk2": "bi
            "bitonic_merge": "bitonic", "gather_rows": "bitonic"}
 
 
+T0 = time.time()
+
+
 def log(*a):
+    """Print a line; a phase's header (``== ...``) with the seconds since
+    the script started."""
+    if a and str(a[0]).startswith("=="):
+        a = (f"{a[0]} [{time.time() - T0:.1f} s]",) + a[1:]
     print(*a, flush=True)
 
 
@@ -854,7 +886,8 @@ def phase_main_path(rs):
             raise AssertionError(f"{name}: image differs from the default path's")
     log(f"  triangles: config 3 {rs['default'].compiled.tri_data.count} (streaming), "
         f"small {rs['small'].compiled.tri_data.count} (whole tree)")
-    return {k: launches[v].get(k, 0) for k, v in PATH_OF.items()}, first_s
+    return ({k: launches[v].get(k, 0) for k, v in PATH_OF.items()}, first_s,
+            images["default"])
 
 
 def phase_frames(rs):
@@ -979,8 +1012,9 @@ def phase_cornell(card):
                    mray_s=queries / median / 1e6, queries=queries, card=card)
 
 
-def compare_images(label, got, want):
-    """Phase 5's tolerance; raises where the images disagree."""
+def compare_images(label, got, want, sides=("cpu", "cuda")):
+    """Phase 5's tolerance; raises where the images disagree.  ``sides``
+    names ``want`` and ``got`` in the log."""
     import numpy as np
 
     rel_mean = abs(got.mean() - want.mean()) / want.mean()
@@ -988,9 +1022,10 @@ def compare_images(label, got, want):
     err = np.abs(got - want).max(axis=-1)
     worst = np.unravel_index(np.argmax(err), err.shape)
     log(f"  {label}: mean rel diff {rel_mean:.3e}; {close:.4f} of pixels close; worst "
-        f"pixel {tuple(int(i) for i in worst)}: cpu {want[worst]} cuda {got[worst]}")
+        f"pixel {tuple(int(i) for i in worst)}: {sides[0]} {want[worst]} {sides[1]} "
+        f"{got[worst]}")
     if not (np.isfinite(got).all() and got.max() > 0 and rel_mean <= 1e-3 and close >= 0.99):
-        raise AssertionError(f"{label}: cuda and cpu images disagree")
+        raise AssertionError(f"{label}: {sides[1]} and {sides[0]} images disagree")
     return dict(mean_rel_diff=float(rel_mean), close=float(close))
 
 
@@ -1588,6 +1623,218 @@ def phase_integrators():
     return res
 
 
+CONFIG3_FILE = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
+SCENEFILE = dict(xres=256, yres=256, spp=16, maxdepth=5, ray_batch=1 << 18)
+SCENEFILE_DIR = "build/chip_smoke"
+SAMPLERS = ("random", "stratified", "halton", "sobol", "02sequence", "maxmindist")
+CHECKPOINT = dict(xres=64, yres=64, ray_batch=1 << 14)  # 4 chunks of (b)'s 16 spp
+
+
+def cli_render(argv, device=None):
+    """``cli.main(argv)`` on ``device`` (``DEVICE`` unless given) with the
+    launch counters zeroed before; returns (what ``render_scene``
+    returned, scene build seconds, the launches)."""
+    import torch
+
+    from pbrt_tpu_torch import cli, render
+
+    device = device or DEVICE
+
+    kept, build_s = [], []
+    render_scene, build_scene = render.render_scene, render.build_scene
+
+    def keep(*a, **kw):
+        kept.append(render_scene(*a, **kw))
+        return kept[-1]
+
+    def timed_build(*a, **kw):
+        t0 = time.time()
+        out = build_scene(*a, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        build_s.append(time.time() - t0)
+        return out
+
+    render.render_scene, render.build_scene = keep, timed_build
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        reset_counts()
+        rc = cli.main(argv, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items() if v}
+    finally:
+        render.render_scene, render.build_scene = render_scene, build_scene
+    if rc != 0 or len(kept) != 1:
+        raise AssertionError(f"cli.main({argv}) returned {rc} after {len(kept)} render(s)")
+    return kept[0], build_s[0], launches
+
+
+def phase_scenefile(card, config3_image, profile=False):
+    """Phase 13: scene files through the front door.  (a) config 3 as a
+    scene file with a binary PLY torus, through ``python3 -m
+    pbrt_tpu_torch`` (a subprocess) and through ``cli.main``, against
+    phase 4's image; (b) the scene vocabulary at full width (K2's sweeps
+    against its plain walk, frame seconds, card against CPU under all six
+    samplers); (c) checkpoint and resume on the card."""
+    import os
+
+    import numpy as np
+
+    from pbrt_tpu_torch import Options
+    from pbrt_tpu_torch.core.api import PbrtAPI
+    from pbrt_tpu_torch.core.imageio import read_image
+    from pbrt_tpu_torch.core.paramset import ParamSet
+    from pbrt_tpu_torch.render import Renderer
+    from pbrt_tpu_torch.samplers import make_sampler
+    from pbrt_tpu_torch.testscenes import config3_scenefile, scenefile_text, write_torus_ply
+
+    res = {}
+    os.makedirs(SCENEFILE_DIR, exist_ok=True)
+    d = os.path.abspath(SCENEFILE_DIR)
+    ply = f"{d}/torus.ply"
+    n_torus = write_torus_ply(ply)
+    batch = str(SCENEFILE["ray_batch"])
+
+    log("== phase 13 (a): config 3 as a scene file (a binary PLY torus) through the "
+        f"front door, {CONFIG3_FILE}")
+    config3_scenefile(f"{d}/config3.pbrt", ply, **CONFIG3_FILE)
+    t0 = time.time()
+    out = subprocess.run([sys.executable, "-m", "pbrt_tpu_torch", f"{d}/config3.pbrt",
+                          "--ray-batch", batch, "-o", f"{d}/config3.pfm", "-q"],
+                         capture_output=True, text=True, timeout=900)
+    sub_s = time.time() - t0
+    if out.returncode != 0 or not os.path.exists(f"{d}/config3.pfm"):
+        raise AssertionError(f"python3 -m pbrt_tpu_torch exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    log(f"  python3 -m pbrt_tpu_torch config3.pbrt: exit 0 in {sub_s:.2f} s (process start, "
+        f"import, build and render)")
+    res["config3"] = dict(subprocess_s=sub_s, parity_subprocess=compare_images(
+        "subprocess PFM against phase 4's config-3 image", read_image(f"{d}/config3.pfm")[0],
+        config3_image, ("phase 4", "scene file")))
+    got, build_s, launches = cli_render([f"{d}/config3.pbrt", "--ray-batch", batch, "-o",
+                                         f"{d}/config3_main.pfm", "-q"])
+    log(f"  cli.main: build {build_s:.2f} s, {got['renderer'].compiled.tri_data.count} "
+        f"triangles ({n_torus} in the PLY), launches {launches}")
+    if launches != {"stream_walk8": 14}:
+        raise AssertionError(f"config 3 through cli.main launched {launches}, want "
+                             "stream_walk8 x 14")
+    res["config3"].update(build_s=build_s, launches=launches, parity_main=compare_images(
+        "cli.main PFM against phase 4's config-3 image", read_image(f"{d}/config3_main.pfm")[0],
+        config3_image, ("phase 4", "scene file")))
+    del got
+
+    full = dict(SCENEFILE)
+    full.pop("ray_batch")
+    log(f"== phase 13 (b): the scene vocabulary at {full['xres']}x{full['yres']}, "
+        f"{full['spp']} spp, maxdepth {full['maxdepth']}, Sampler \"sobol\", ray_batch {batch}")
+    with open(f"{d}/scenefile.pbrt", "w") as f:
+        f.write(scenefile_text(ply, **full, filename=f"{d}/scenefile.pfm"))
+    t0 = time.time()
+    got, build_s, launches = cli_render([f"{d}/scenefile.pbrt", "--ray-batch", batch, "-q"])
+    first_s = time.time() - t0
+    r = got["renderer"]
+    walk = r.compiled.intersector.walk
+    n_tri = r.compiled.tri_data.count
+    img = read_image(f"{d}/scenefile.pfm")[0]
+    log(f"  cli.main: {first_s:.2f} s, scene build {build_s:.2f} s: {n_tri} triangles, "
+        f"{type(walk).__name__} nodes {tuple(walk.nodes.shape)}, tris "
+        f"{tuple(walk.tris.shape)}, depth {walk.depth}; launches {launches}; image mean "
+        f"{img.mean():.6f} max {img.max():.4f}")
+    if launches != {"stream_walk8": 36}:
+        raise AssertionError(f"the scene file launched {launches}, want stream_walk8 x 36")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("the scene file's image is not finite or all black")
+    frame, k2 = k2_frame("the scene file", r, 36, card)
+    if profile:
+        frame["profile"] = phase_profile("scene-file", r, frame["frame_s"])
+    del got, r, walk
+    # one build per device; each sampler takes the renderer's place in turn
+    with open(f"{d}/parity.pbrt", "w") as f:
+        f.write(scenefile_text(ply, xres=32, yres=32, spp=2, maxdepth=3))
+    rs = {}
+    for dev in (DEVICE, "cpu"):
+        api = PbrtAPI(Options(ray_batch=SCENEFILE["ray_batch"]), render_on_world_end=False,
+                      device=dev)
+        api.init()
+        api.parse_file(f"{d}/parity.pbrt")
+        rs[dev] = Renderer(api.scene, api.opt, device=dev)
+    pixelsamples = ParamSet()
+    pixelsamples.add_int("pixelsamples", [2])
+    parity = {}
+    for name in SAMPLERS:
+        imgs = {}
+        for dev, rr in rs.items():
+            rr.sampler = make_sampler(name, pixelsamples)
+            imgs[dev] = rr.image(rr.render(progress=False))
+        parity[name] = compare_images(f"{name} at 32x32, 2 spp, maxdepth 3", imgs[DEVICE],
+                                      imgs["cpu"])
+    del rs
+    res["scenefile"] = dict(triangles=n_tri, build_s=build_s, cli_first_frame_s=first_s,
+                            launches=launches, parity=parity, **frame)
+
+    log(f"== phase 13 (c): checkpoint and resume on the card: the scene file at "
+        f"{CHECKPOINT['xres']}x{CHECKPOINT['yres']}, ray_batch {CHECKPOINT['ray_batch']}, "
+        "checkpoint_every=1, stopped after 2 chunks")
+    with open(f"{d}/ckpt.pbrt", "w") as f:
+        f.write(scenefile_text(ply, **dict(full, xres=CHECKPOINT["xres"],
+                                           yres=CHECKPOINT["yres"])))
+
+    def renderer(ckpt_dir):
+        api = PbrtAPI(Options(ray_batch=CHECKPOINT["ray_batch"], checkpoint_dir=ckpt_dir,
+                              checkpoint_every=1), render_on_world_end=False, device=DEVICE)
+        api.init()
+        api.parse_file(f"{d}/ckpt.pbrt")
+        return Renderer(api.scene, api.opt, device=DEVICE)
+
+    import shutil
+
+    for sub in ("ckpt_ref", "ckpt_ref2", "ckpt_kill"):
+        shutil.rmtree(f"{d}/{sub}", ignore_errors=True)
+    r_ref = renderer(f"{d}/ckpt_ref")
+    want = r_ref.image(r_ref.render(progress=False))
+    r_ref2 = renderer(f"{d}/ckpt_ref2")
+    again = r_ref2.image(r_ref2.render(progress=False))
+    r1 = renderer(f"{d}/ckpt_kill")
+    calls = {"n": 0}
+    radiance = r1._radiance
+
+    def dying(*a, **kw):
+        if calls["n"] >= 2:
+            raise KeyboardInterrupt("simulated preemption")
+        calls["n"] += 1
+        return radiance(*a, **kw)
+
+    r1._radiance = dying
+    try:
+        r1.render(progress=False)
+        raise AssertionError("the interrupted render did not stop")
+    except KeyboardInterrupt:
+        pass
+    r2 = renderer(f"{d}/ckpt_kill")
+    got = r2.image(r2.render(progress=False))
+    chunks = r_ref.counters["chunks"]
+    if chunks != 4 or r2.counters["chunks"] != chunks - 2:
+        raise AssertionError(f"chunks: uninterrupted {chunks}, resumed {r2.counters['chunks']}")
+    bit_equal = bool(np.array_equal(got, want))
+    repeat_equal = bool(np.array_equal(again, want))
+    log(f"  resumed after 2 of {chunks} chunks: bit-equal to the uninterrupted render: "
+        f"{bit_equal}; two uninterrupted renders bit-equal: {repeat_equal}")
+    ckpt = dict(chunks=chunks, resumed_chunks=r2.counters["chunks"], bit_equal=bit_equal,
+                repeat_bit_equal=repeat_equal,
+                parity=compare_images("resumed against uninterrupted", got, want,
+                                      ("uninterrupted", "resumed")))
+    r3 = renderer(f"{d}/ckpt_kill")
+    r3.render(spp=8, progress=False)  # another spp: the meta differs
+    if r3.counters["chunks"] != 2:
+        raise AssertionError(f"a mismatched checkpoint was resumed ({r3.counters})")
+    log("  a checkpoint whose meta differs (8 spp against 16) was ignored: 2 of 2 chunks "
+        "rendered")
+    res["checkpoint"] = ckpt
+    return res, k2
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1616,7 +1863,7 @@ def main(argv=None):
 
     rs = renderers()
     kern = phase_kernels(rs)
-    launches, first_s = phase_main_path(rs)
+    launches, first_s, config3_image = phase_main_path(rs)
     phase_parity()
     frames = phase_frames(rs)
     if args.profile:
@@ -1658,6 +1905,11 @@ def main(argv=None):
         grad_launches_backward=config4["gradient_step"]["k2_launches_backward"])
     print(json.dumps({"config4": config4}))
     print(json.dumps({"integrators": phase_integrators()}))
+    scenefile, kern["stream_walk8"]["scenefile"] = phase_scenefile(card, config3_image,
+                                                                   args.profile)
+    kern["stream_walk8"]["scenefile"].update(
+        config3_cli_launches=scenefile["config3"]["launches"]["stream_walk8"])
+    print(json.dumps({"scenefile": scenefile}))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

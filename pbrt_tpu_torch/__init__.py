@@ -46,11 +46,32 @@ MACHINE_EPSILON = EPSILON * 0.5
 
 @dataclasses.dataclass
 class Options:
-    """Renderer options (the fields of ``pbrt_tpu.Options`` that the ported
-    path reads; the CLI, mesh, checkpoint and spectral fields wait for the
-    ports of those paths)."""
+    """Renderer options, mostly fed from the CLI's flags (the fields of
+    ``pbrt_tpu.Options`` but the device mesh and the spectral mode, which
+    wait for ROADMAP Queue 1 items 9 and 8)."""
 
+    quick_render: bool = False  # quarter resolution (scene build) and quarter spp (render)
+    verbose: bool = False
+    image_file: str = ""  # overrides the film's filename when set
     ray_batch: int = 1 << 16  # lanes per wavefront chunk
+    # when set, Renderer.render saves the film state and the sweep cursor to
+    # <checkpoint_dir>/film.ckpt.npz every ``checkpoint_every`` chunks and
+    # resumes from it
+    checkpoint_dir: str | None = None
+    checkpoint_every: int = 8
+
+
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; raises where it names a CUDA card and
+    ``torch.cuda.is_available()`` is false (the port never falls back to
+    the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "pbrt_tpu_torch runs on a CUDA card by default, and torch.cuda.is_available() "
+            "is false here; pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device
 
 
 def gamma_correct(value):
@@ -87,4 +108,5 @@ __all__ = [
     "INFINITY",
     "gamma_correct",
     "inverse_gamma_correct",
+    "require_device",
 ]

@@ -9,8 +9,10 @@ active-bits masking (api.rs:157-198), option-block accumulation in
 (api.rs:226-249), world-block ``GraphicsState`` with attribute/transform
 stacks (api.rs:481-522) and named coordinate systems (api.rs:734-747).
 
-Rendering from ``world_end`` (``render_on_world_end=True``, the CLI path)
-is not ported yet: callers build ``render.Renderer`` from ``api.scene``.
+``world_end`` hands the accumulated :class:`SceneDescription` to
+``render.render_scene`` on the API's ``device`` (``render_on_world_end``,
+the CLI path) and keeps the result in ``last_render``; with it off,
+callers build ``render.Renderer`` from ``api.scene``.
 
 State-guard behavior mirrors the verify macros (api.rs:291-332): errors are
 logged and the call is ignored; ``strict=True`` raises instead (the
@@ -213,8 +215,9 @@ class PbrtAPI:
     """Concrete API state machine (api.rs:355-841, completed)."""
 
     def __init__(self, options: Optional[Options] = None, strict: bool = False,
-                 render_on_world_end: bool = True):
+                 render_on_world_end: bool = True, device="cuda"):
         self.opt = options or Options()
+        self.device = device
         self.strict = strict
         self.render_on_world_end = render_on_world_end
         self.current_api_state = UNINITIALIZED
@@ -626,11 +629,13 @@ class PbrtAPI:
             self.pushed_active_transform_bits.pop()
 
         if self.render_on_world_end:
-            raise NotImplementedError(
-                "rendering from WorldEnd (render_scene, image output, the "
-                "CLI) is not ported yet: ROADMAP.md Queue 1 item 9; build "
-                "render.Renderer(api.scene, ...) instead"
-            )
+            from pbrt_tpu_torch.render import render_scene
+
+            self.last_render = render_scene(self.scene, self.opt, device=self.device)
+            if self.opt.verbose:
+                from pbrt_tpu_torch.utils import stats
+
+                log.info("%s", stats.report())
 
         self.graphics_state = _GraphicsState()
         self.current_api_state = OPTIONS_BLOCK

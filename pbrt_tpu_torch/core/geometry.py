@@ -1,7 +1,7 @@
 """Geometry: host integer/float 2D bounds (copies of
 ``pbrt_tpu/core/geometry.py``) and batched vector math on ``[..., 3]``
 tensors, with a square root and an arccos whose derivatives stay finite
-at the ends of their domains."""
+at the ends of their domains, and a single-rounding multiply-add."""
 
 from __future__ import annotations
 
@@ -52,6 +52,12 @@ class Bounds2f:
             (min(p0[0], p1[0]), min(p0[1], p1[1])),
             (max(p0[0], p1[0]), max(p0[1], p1[1])),
         )
+
+
+def fma(x, y, z):
+    """float32 x * y + z with one rounding (float64 holds the float32
+    product exactly), where the reference's compiled CPU code fuses it."""
+    return (x.double() * y.double() + z.double()).float()
 
 
 def vdot(a, b):

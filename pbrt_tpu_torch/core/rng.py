@@ -1,5 +1,10 @@
-"""Counter-based integer hashes for stateless per-lane sampling
-(counterparts of ``pbrt_tpu/core/rng.py:189-238``).
+"""PCG32 pseudo-random numbers and counter-based integer hashes
+(counterpart of ``pbrt_tpu/core/rng.py``).
+
+* :class:`Rng`: the stateful host PCG32 on numpy uint64, bit-exact with
+  the reference's (and pbrt-v3's golden vectors, ``tests/test_rng.py``);
+  it draws the Sobol' generator's free parameters.
+* The hashes the samplers and the noise textures draw from.
 
 PyTorch has no usable uint32 arithmetic (add, multiply, shift, compare
 and remainder are missing on the CPU), so every uint32 quantity is
@@ -12,6 +17,7 @@ reference's uint32 arithmetic.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pbrt_tpu_torch import ONE_MINUS_EPSILON
@@ -25,6 +31,47 @@ def mul32(a, b):
     b_lo = b & 0xFFFF
     b_hi = (b >> 16) & 0xFFFF
     return (a * b_lo + (((a * b_hi) & 0xFFFF) << 16)) & MASK32
+
+
+PCG32_DEFAULT_STATE = np.uint64(0x853C49E6748FEA9B)
+PCG32_DEFAULT_STREAM = np.uint64(0xDA3E39CB94B95BDB)
+PCG32_MULT = np.uint64(0x5851F42D4C957F2D)
+
+
+class Rng:
+    """Stateful host PCG32 generator (the reference's ``Rng``)."""
+
+    def __init__(self, sequence_index: int | None = None):
+        self.state = PCG32_DEFAULT_STATE
+        self.inc = PCG32_DEFAULT_STREAM
+        if sequence_index is not None:
+            self.set_sequence(sequence_index)
+
+    def set_sequence(self, sequence_index: int) -> None:
+        """Reset the state for stream ``sequence_index``."""
+        with np.errstate(over="ignore"):
+            self.state = np.uint64(0)
+            self.inc = np.uint64(((int(sequence_index) << 1) | 1) & 0xFFFFFFFFFFFFFFFF)
+            self.uniform_u32()
+            self.state = np.uint64(self.state + PCG32_DEFAULT_STATE)
+            self.uniform_u32()
+
+    def uniform_u32(self) -> int:
+        """Next uint32, uniform over [0, 2^32)."""
+        with np.errstate(over="ignore"):
+            old = self.state
+            self.state = np.uint64(old * PCG32_MULT + self.inc)
+            xorshifted = int(np.uint32(((old >> np.uint64(18)) ^ old) >> np.uint64(27)))
+            rot = int(old >> np.uint64(59))
+            return ((xorshifted >> rot) | (xorshifted << ((32 - rot) & 31))) & MASK32
+
+    def uniform_u32_threshold(self, b: int) -> int:
+        """Debiased bounded sample over [0, b)."""
+        threshold = ((~b + 1) & MASK32) % b
+        while True:
+            r = self.uniform_u32()
+            if r >= threshold:
+                return r % b
 
 
 def u32_to_float(bits):

@@ -164,7 +164,7 @@ def _split(entries, half):
     return [e.mix_children[half] if e.mix_children is not None else e for e in entries]
 
 
-def material_theta(entries, device="cpu"):
+def material_theta(entries, device):
     """The differentiable constant-parameter dict of ``entries``: [M, 3]
     kd/ks/kr/kt and [M] roughness/sigma rows on ``device``; rows of
     slots without a constant texture hold defaults and are not read.  A
@@ -176,7 +176,7 @@ def material_theta(entries, device="cpu"):
     return _material_theta_flat(entries, device)
 
 
-def _material_theta_flat(entries, device="cpu"):
+def _material_theta_flat(entries, device):
     m = len(entries)
     out = {slot: np.zeros((m, 3), dtype=float_t) for slot in _SPECTRUM_SLOTS}
     out["roughness"] = np.full((m,), 0.1, dtype=float_t)

@@ -46,16 +46,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pbrt_tpu_torch.core.geometry import fma
 from pbrt_tpu_torch.ops.intersect import KIND_NONE, KIND_SPHERE, KIND_TRI, RAY_EPS
 
 UNROLL_MAX = 96  # the reference's trace-constant threshold
 BLOCK = 64  # primitives per [N, P] broadcast
 TWO_PI = 2 * np.pi
-
-
-def fma(x, y, z):
-    """float32 x * y + z with one rounding."""
-    return (x.double() * y.double() + z.double()).float()
 
 
 def _dot3(x0, x1, x2, y0, y1, y2, swap=None):

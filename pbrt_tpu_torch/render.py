@@ -7,19 +7,27 @@ with the BVH walk and ``co_sort`` network named by ``walk`` and ``sort``
 ``options.ray_batch``: camera rays -> path integrator -> film.  Two film
 paths, chosen as the reference chooses them:
 
-* dense (box filter of radius <= 0.5, no crop margin): chunks aligned to
-  whole pixels, each chunk adding its per-pixel sums to a contiguous run
-  of the row-major film (the reference's ``_frame_dense``);
-* scatter (any other filter radius, or a crop window): lanes over the
-  sample bounds, each chunk's samples added to the film through the
-  filter table (``Film.add_samples``; the reference's ``_step_impl``).
+* dense (box filter of radius <= 0.5, no crop margin, no checkpoint):
+  chunks aligned to whole pixels, each chunk adding its per-pixel sums to
+  a contiguous run of the row-major film (the reference's
+  ``_frame_dense``);
+* scatter (any other filter radius, a crop window, or a checkpointed
+  render): lanes over the sample bounds, each chunk's samples added to
+  the film through the filter table (``Film.add_samples``; the
+  reference's ``_step_impl``).  With ``options.checkpoint_dir`` the film
+  state and the chunk cursor are saved every ``checkpoint_every`` chunks
+  and a matching checkpoint is resumed (``utils/checkpoint.py``).
 
-Splats and checkpoint/resume wait for ROADMAP Queue 1 items 8 and 9.
+``render_scene`` is the scene file's path from ``WorldEnd``: build,
+render, write the image.  Splats wait for ROADMAP Queue 1 item 8, the
+spectral render mode for item 8 too.
 """
 
 from __future__ import annotations
 
 import logging
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -27,6 +35,8 @@ import torch
 from pbrt_tpu_torch import Options
 from pbrt_tpu_torch.integrators import make_integrator
 from pbrt_tpu_torch.scene.builder import build_scene
+from pbrt_tpu_torch.utils import stats
+from pbrt_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -38,7 +48,8 @@ class Renderer:
                  device="cuda", walk: str = "bvh8", sort: str = "stable"):
         self.options = options or Options()
         self.device = torch.device(device)
-        self.compiled = build_scene(desc, seed, device=self.device, walk=walk, sort=sort)
+        self.compiled = build_scene(desc, self.options, seed, device=self.device, walk=walk,
+                                    sort=sort)
         self.integrator = make_integrator(self.compiled)
         self.compiled.integrator_params.report_unused()
         self.film = self.compiled.film
@@ -79,32 +90,57 @@ class Renderer:
         flat["fx"][pix_start:pix_start + pix_per_chunk] += pix_xyz
         flat["fw"][pix_start:pix_start + pix_per_chunk] += pix_w
 
-    def render(self):
-        """Sweep all (pixel, sample) lanes; returns the film state."""
+    def render(self, spp: int | None = None, state=None, progress: bool = True):
+        """Sweep all (pixel, sample) lanes, ``spp`` samples per pixel (the
+        sampler's unless given; a quarter under ``quick_render``), onto
+        ``state`` (a fresh film unless given); returns the film state."""
         film = self.film
         sample_bounds = film.get_sample_bounds()
         n_pix = sample_bounds.area()
-        spp = self.sampler.samples_per_pixel
+        spp = spp if spp is not None else self.sampler.samples_per_pixel
+        if self.options.quick_render:
+            spp = max(1, spp // 4)
         n_lanes = n_pix * spp
         batch = min(self.options.ray_batch, max(1, n_lanes))
         batch = max(spp, (batch // spp) * spp)  # chunks align to whole pixels
         n_chunks = -(-n_lanes // batch)
+
+        ckpt = None
+        cursor = 0
+        if self.options.checkpoint_dir:
+            ckpt = (Path(self.options.checkpoint_dir) / "film.ckpt.npz",
+                    {"res": list(film.full_resolution), "spp": int(spp),
+                     "n_chunks": int(n_chunks)})
+            loaded = load_checkpoint(ckpt[0], self.device)
+            if loaded is not None and state is None:
+                ck_state, ck_cursor, meta = loaded
+                if meta == ckpt[1] and 0 < ck_cursor <= n_chunks:
+                    state, cursor = ck_state, ck_cursor
+                    log.info("Resuming from %s at chunk %d/%d", ckpt[0], cursor, n_chunks)
+                else:
+                    log.warning("Checkpoint %s does not match this render (have %s, want "
+                                "%s); ignoring", ckpt[0], meta, ckpt[1])
+        if state is None:
+            state = film.initial_state()
         rx, ry = film.filter.radius
         b = film.cropped_pixel_bounds
         dense = (rx <= 0.5 and ry <= 0.5 and sample_bounds.p_min == b.p_min
-                 and sample_bounds.p_max == b.p_max)
-        state = film.initial_state()
+                 and sample_bounds.p_max == b.p_max and ckpt is None)
+        if progress:
+            log.info("rendering %d chunk(s) x %d lanes (%s film)", n_chunks, batch,
+                     "dense" if dense else "scatter")
         with torch.no_grad():
             if dense:
                 state = self._render_dense(state, n_pix, n_chunks, batch // spp, spp)
             else:
-                state = self._render_scatter(state, sample_bounds, n_lanes, n_chunks,
-                                             batch, spp)
+                state = self._render_scatter(state, sample_bounds, n_lanes, n_chunks, batch,
+                                             spp, cursor, ckpt)
         closest, shadow = self.integrator.queries_per_sample()
-        self.counters["camera_samples"] += n_pix * spp
-        self.counters["closest_queries"] += n_pix * spp * closest
-        self.counters["shadow_queries"] += n_pix * spp * shadow
-        self.counters["chunks"] += n_chunks
+        done = {"camera_samples": n_pix * spp, "closest_queries": n_pix * spp * closest,
+                "shadow_queries": n_pix * spp * shadow, "chunks": n_chunks - cursor}
+        for key, n in done.items():
+            self.counters[key] += n
+            stats.count(f"render/{key}", n)
         return state
 
     def _render_dense(self, state, n_pix, n_chunks, pix_per_chunk, spp):
@@ -122,13 +158,17 @@ class Renderer:
             "weight": state["weight"] + flat["fw"][: h * w].reshape(h, w),
         }
 
-    def _render_scatter(self, state, sample_bounds, n_lanes, n_chunks, batch, spp):
+    def _render_scatter(self, state, sample_bounds, n_lanes, n_chunks, batch, spp,
+                        cursor=0, ckpt=None):
         """Lanes pixel-major over the sample bounds (``spp`` consecutive
-        samples per pixel); the last chunk's padding lanes repeat the last
-        pixel with sample 0 and are masked out of the film."""
+        samples per pixel), chunks ``cursor`` onwards; the last chunk's
+        padding lanes repeat the last pixel with sample 0 and are masked
+        out of the film.  ``ckpt`` = (path, meta) saves the state after
+        every ``checkpoint_every`` chunks and after the last."""
         w = sample_bounds.width
         x0, y0 = sample_bounds.p_min
-        for ci in range(n_chunks):
+        every = max(1, self.options.checkpoint_every)
+        for ci in range(cursor, n_chunks):
             lane = ci * batch + torch.arange(batch, device=self.device)
             lane_mask = lane < n_lanes
             pix = torch.clamp(lane, max=n_lanes - 1) // spp
@@ -136,8 +176,35 @@ class Renderer:
             sample_index = torch.where(lane_mask, lane % spp, 0)
             p_film, L = self._radiance(pixel_xy, sample_index, spp)
             state = self.film.add_samples(state, p_film, L, mask=lane_mask)
+            if ckpt is not None and ((ci + 1) % every == 0 or ci == n_chunks - 1):
+                save_checkpoint(ckpt[0], state, ci + 1, ckpt[1])
         return state
 
     def image(self, state) -> np.ndarray:
         """Film state -> [H, W, 3] float32 RGB on the host."""
         return self.film.to_rgb(state).cpu().numpy()
+
+
+def render_scene(desc, options: Options | None = None, seed: int = 0, write: bool = True,
+                 device="cuda"):
+    """A parsed scene -> its image, written to the film's filename when
+    ``write``; returns {image, state, film, renderer, seconds}."""
+    r = Renderer(desc, options, seed, device=device)
+    t0 = time.time()
+    state = r.render()
+    img = r.image(state)  # waits for the card
+    dt = time.time() - t0
+    stats.count("render/rays_traced", r.counters["camera_samples"])
+    stats.timed_add("render/wall_seconds", dt)
+    log.info("Rendered %dx%d @ %d spp in %.2fs", r.film.full_resolution[0],
+             r.film.full_resolution[1], r.sampler.samples_per_pixel, dt)
+    if write and r.film.filename:
+        r.film.write_image(state)
+        log.info("Wrote %s", r.film.filename)
+    return {"image": img, "state": state, "film": r.film, "renderer": r, "seconds": dt}
+
+
+def render_scene_spectral(desc, options: Options | None = None, seed: int = 0,
+                          write: bool = True, device="cuda"):
+    raise NotImplementedError("the sampled-spectrum render mode is not ported yet "
+                              "(ROADMAP.md Queue 1 item 8)")

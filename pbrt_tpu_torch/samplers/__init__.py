@@ -2,20 +2,32 @@
 ``pbrt_tpu/samplers/__init__.py``).
 
 Every value is a pure function of (pixel, sample index, dimension), so a
-port and the reference draw bit-equal samples for the same lanes.  The
-Halton sampler is ported (every bench scene uses it); random,
-stratified, Sobol', (0,2) and maxmindist wait for ROADMAP Queue 1
-item 3.
+port and the reference draw bit-equal samples for the same lanes:
+``random`` (counter hashes), ``stratified`` (jittered strata, a hashed
+permutation per dimension past the film's two), ``halton``
+(Cranley-Patterson rotated radical inverses), ``sobol`` /
+``lowdiscrepancy`` (Owen-scrambled Sobol'), ``02sequence`` (Sobol'
+dimensions 0 and 1 reused per 2D pair) and ``maxmindist`` (the (0,2)
+sampler, as in the reference).
 """
 
 from __future__ import annotations
 
 import copy
+import logging
 
 import torch
 
-from pbrt_tpu_torch.core.lowdiscrepancy import scrambled_radical_inverse
+from pbrt_tpu_torch.core.lowdiscrepancy import (
+    owen_scramble_u32,
+    scrambled_radical_inverse,
+    sobol_matrices,
+    sobol_sample_u32,
+    u32_to_unit_float,
+)
 from pbrt_tpu_torch.core.rng import MASK32, hash_combine, hash_u32, mul32, pcg3d, u32_to_float
+
+log = logging.getLogger("pbrt_tpu_torch")
 
 
 def _pixel_code(pixel_xy):
@@ -25,12 +37,9 @@ def _pixel_code(pixel_xy):
     return hash_u32(mul32(x, 0x9E3779B1) ^ ((y + 0x85EBCA77) & MASK32))
 
 
-class HaltonSampler:
-    """Randomized-QMC Halton: dimension d uses the d-th prime base with a
-    per-(pixel, dim) Cranley-Patterson rotation; dimensions past
-    ``QMC_DIM_LIMIT`` use counter hashes (see the reference's notes)."""
+class Sampler:
+    """get(pixel_xy [N, 2] int, sample_index [N] int, dim) -> [N] float32."""
 
-    QMC_DIM_LIMIT = 20
     # static promise that every sample index passed in is < index_bound
     index_bound: int | None = None
 
@@ -45,16 +54,14 @@ class HaltonSampler:
         s.index_bound = int(index_bound)
         return s
 
+    def _hash_u(self, pixel_xy, idx, dim: int):
+        """Uniform [0, 1) from the pcg3d hash of (pixel, sample, dim)."""
+        a, _, _ = pcg3d(_pixel_code(pixel_xy) ^ (self.seed & MASK32), idx,
+                        torch.full_like(idx, dim))
+        return u32_to_float(a)
+
     def get(self, pixel_xy, sample_index, dim: int):
-        """pixel_xy [N, 2] int; sample_index [N] int64 -> [N] float32."""
-        pc = _pixel_code(pixel_xy)
-        idx = sample_index.to(torch.int64) & MASK32
-        if dim >= self.QMC_DIM_LIMIT:
-            a, _, _ = pcg3d(pc ^ (self.seed & MASK32), idx, torch.full_like(idx, dim))
-            return u32_to_float(a)
-        d = dim % 1024
-        rot = u32_to_float(hash_combine(pc, d, self.seed & MASK32))
-        return scrambled_radical_inverse(d, idx, rot, self.index_bound)
+        raise NotImplementedError
 
     def get2(self, pixel_xy, sample_index, dim: int):
         return torch.stack(
@@ -63,11 +70,111 @@ class HaltonSampler:
         )
 
 
-def make_sampler(name: str, params, seed: int = 0):
+class RandomSampler(Sampler):
+    """Counter-based uniform randoms (pcg3d of pixel, sample and dim)."""
+
+    def get(self, pixel_xy, sample_index, dim: int):
+        return self._hash_u(pixel_xy, sample_index.to(torch.int64) & MASK32, dim)
+
+
+class StratifiedSampler(Sampler):
+    """Jittered strata: an xsamples x ysamples grid over the film's two
+    dimensions, 1D strata under a hashed per-(pixel, dim) permutation of
+    the sample index past them."""
+
+    def __init__(self, xsamples=4, ysamples=4, jitter=True, seed: int = 0):
+        super().__init__(xsamples * ysamples, seed)
+        self.nx, self.ny = int(xsamples), int(ysamples)
+        self.jitter = bool(jitter)
+
+    def _permuted_index(self, pixel_xy, idx, dim):
+        """Odd multiplier plus offset modulo n (a bijection for n a power
+        of two), else an offset rotation."""
+        n = self.samples_per_pixel
+        h = hash_combine(_pixel_code(pixel_xy), dim + 0x51, self.seed & MASK32)
+        if n & (n - 1) == 0 and n > 0:
+            mult = ((h | 1) & (n - 1)) | 1
+            return ((mul32(idx, mult) + (h >> 8)) & MASK32) % n
+        return ((idx + h) & MASK32) % max(n, 1)
+
+    def get(self, pixel_xy, sample_index, dim: int):
+        idx = sample_index.to(torch.int64) & MASK32
+        u = self._hash_u(pixel_xy, idx, dim) if self.jitter else 0.5
+        if dim in (0, 1):
+            if dim == 0:
+                return torch.clamp(((idx % self.nx).to(torch.float32) + u) / self.nx,
+                                   max=0.99999994)
+            sy = ((idx // self.nx) % self.ny).to(torch.float32)
+            return torch.clamp((sy + u) / self.ny, max=0.99999994)
+        s = self._permuted_index(pixel_xy, idx, dim).to(torch.float32)
+        return torch.clamp((s + u) / self.samples_per_pixel, max=0.99999994)
+
+
+class HaltonSampler(Sampler):
+    """Randomized-QMC Halton: dimension d uses the d-th prime base with a
+    per-(pixel, dim) Cranley-Patterson rotation; dimensions past
+    ``QMC_DIM_LIMIT`` use counter hashes (see the reference's notes)."""
+
+    QMC_DIM_LIMIT = 20
+
+    def get(self, pixel_xy, sample_index, dim: int):
+        idx = sample_index.to(torch.int64) & MASK32
+        if dim >= self.QMC_DIM_LIMIT:
+            return self._hash_u(pixel_xy, idx, dim)
+        d = dim % 1024
+        rot = u32_to_float(hash_combine(_pixel_code(pixel_xy), d, self.seed & MASK32))
+        return scrambled_radical_inverse(d, idx, rot, self.index_bound)
+
+
+class SobolSampler(Sampler):
+    """Owen-scrambled Sobol' with a per-(pixel, dim) scramble seed."""
+
+    def __init__(self, samples_per_pixel: int, seed: int = 0):
+        super().__init__(samples_per_pixel, seed)
+        self._v = sobol_matrices()
+
+    def _scrambled(self, pixel_xy, sample_index, row: int, key: int):
+        idx = sample_index.to(torch.int64) & MASK32
+        bits = sobol_sample_u32(idx, self._v[row])
+        seed = hash_combine(_pixel_code(pixel_xy), key, self.seed & MASK32)
+        return u32_to_unit_float(owen_scramble_u32(bits, seed))
+
+    def get(self, pixel_xy, sample_index, dim: int):
+        d = dim % self._v.shape[0]
+        return self._scrambled(pixel_xy, sample_index, d, d + 1)
+
+
+class ZeroTwoSequenceSampler(SobolSampler):
+    """(0,2)-sequence: Sobol' dimensions 0 and 1 reused for every 2D pair,
+    each pair under scrambles of its own."""
+
+    def get(self, pixel_xy, sample_index, dim: int):
+        pair_dim, pair_id = dim % 2, dim // 2
+        return self._scrambled(pixel_xy, sample_index, pair_dim, pair_id * 2 + pair_dim + 7)
+
+
+class MaxMinDistSampler(ZeroTwoSequenceSampler):
+    """pbrt's maxmindist matrices are chosen (0,2) variants; as in the
+    reference, this is the Owen-scrambled (0,2) sampler."""
+
+
+def make_sampler(name: str, params, seed: int = 0) -> Sampler:
+    """Factory per pbrt-v3 MakeSampler names; unknown names take Halton,
+    as the reference does."""
     spp = params.find_one_int("pixelsamples", 16)
+    if name == "random":
+        return RandomSampler(spp, seed)
+    if name == "stratified":
+        return StratifiedSampler(params.find_one_int("xsamples", 4),
+                                 params.find_one_int("ysamples", 4),
+                                 params.find_one_bool("jitter", True), seed)
     if name == "halton":
         return HaltonSampler(spp, seed)
-    raise NotImplementedError(
-        f"Sampler '{name}' is not ported yet (ROADMAP.md Queue 1 item 3); "
-        "only 'halton' is"
-    )
+    if name in ("sobol", "lowdiscrepancy"):
+        return SobolSampler(spp, seed)
+    if name == "02sequence":
+        return ZeroTwoSequenceSampler(spp, seed)
+    if name == "maxmindist":
+        return MaxMinDistSampler(spp, seed)
+    log.warning("Sampler '%s' unknown; using halton.", name)
+    return HaltonSampler(spp, seed)

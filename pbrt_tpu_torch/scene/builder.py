@@ -6,13 +6,15 @@ analytic spheres with their transforms, per-primitive material/light ids,
 the material entries and the lights, every table on the ``device``
 handed to :func:`build_scene`.
 
-Ported: film, camera, sampler, materials, lights, the triangle and
-sphere tables (emitting spheres become triangle meshes, as in the
-reference), the ``_flags`` that prune interaction work, and the
-reference's intersector choice: the BVH for ``bvh``/``kdtree`` scenes of
-at least ``minprims`` triangles, the brute-force sweep otherwise.  Media,
-instancing, subsurface materials and motion blur raise (ROADMAP Queue 1
-item 8).
+Ported: film (with the options' quick render and image file), camera,
+sampler, materials, lights, object instances (expanded into plain shape
+records after the scene's own shapes, as in the reference), the triangle
+and sphere tables (emitting spheres become triangle meshes, as in the
+reference), the ``_flags`` that prune interaction work, the ``scene/*``
+stats counters, and the reference's intersector choice: the BVH for
+``bvh``/``kdtree`` scenes of at least ``minprims`` triangles, the
+brute-force sweep otherwise.  Media, subsurface materials and motion blur
+raise (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
+from pbrt_tpu_torch import float_t, require_device
 from pbrt_tpu_torch.cameras import make_camera
 from pbrt_tpu_torch.core.film import Film
 from pbrt_tpu_torch.core.geometry import arccos0
@@ -43,6 +45,7 @@ from pbrt_tpu_torch.shapes import (
     concat_triangle_data,
     make_shape,
 )
+from pbrt_tpu_torch.utils import stats
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -147,29 +150,31 @@ def _tessellate_emitting_sphere(sph: SphereData, sub=24):
     return concat_triangle_data(parts)
 
 
-def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
+def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "bvh8",
                 sort: str = "stable") -> CompiledScene:
     """SceneDescription (core/api.py) -> CompiledScene on ``device`` (a
     CUDA card unless the caller asks for the CPU; without one this
-    raises).  ``walk`` and ``sort`` pick the BVH walk and the ``co_sort``
-    network (``accel/bvh.py``)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "pbrt_tpu_torch runs on a CUDA card by default, and torch.cuda.is_available() "
-            "is false here; pass device='cpu' to run the plain versions on the CPU"
-        )
+    raises).  ``options.quick_render`` quarters the resolution and
+    ``options.image_file`` overrides the film's filename.  ``walk`` and
+    ``sort`` pick the BVH walk and the ``co_sort`` network
+    (``accel/bvh.py``)."""
+    device = require_device(device)
     filt = make_filter(desc.filter_name, desc.filter_params)
     desc.filter_params.report_unused()
     fp = desc.film_params
     xres = fp.find_one_int("xresolution", 1280)
     yres = fp.find_one_int("yresolution", 720)
+    if options is not None and options.quick_render:
+        xres = max(1, xres // 4)
+        yres = max(1, yres // 4)
     crop = fp.find_float("cropwindow")
     if crop is not None and len(crop) == 4:
         crop_window = ((float(crop[0]), float(crop[2])), (float(crop[1]), float(crop[3])))
     else:
         crop_window = ((0.0, 0.0), (1.0, 1.0))
     filename = fp.find_one_string("filename", "pbrt.png")
+    if options is not None and options.image_file:
+        filename = options.image_file
     film = Film(
         (xres, yres), crop_window, filt,
         fp.find_one_float("diagonal", 35.0), filename,
@@ -185,8 +190,18 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
     desc.camera_params.report_unused()
     sampler = make_sampler(desc.sampler_name, desc.sampler_params, seed)
     desc.sampler_params.report_unused()
-    if desc.named_media or desc.instance_uses:
-        raise _not_ported("participating media and object instancing", 8)
+    if desc.named_media:
+        raise _not_ported("participating media", 8)
+
+    # object instances become plain shape records after the scene's own,
+    # in the order of their uses (the reference's expansion)
+    shape_records = list(desc.shapes)
+    for inst_name, xform in desc.instance_uses:
+        for rec in desc.instances.get(inst_name, []):
+            o2w = xform * rec.object_to_world
+            shape_records.append(dataclasses.replace(
+                rec, object_to_world=o2w, world_to_object=o2w.inverse(),
+                object_instance=None, object_to_world_end=None))
 
     materials: List[MaterialEntry] = []
     mat_cache = {}
@@ -205,7 +220,7 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
     sph_parts: List[SphereData] = []
     sph_mat: List[int] = []
     area_lights: List[DiffuseAreaLight] = []
-    for rec in desc.shapes:
+    for rec in shape_records:
         if rec.object_to_world_end is not None:
             raise _not_ported("motion blur", 8)
         if rec.inside_medium or rec.outside_medium:
@@ -246,6 +261,12 @@ def build_scene(desc, seed: int = 0, device="cuda", walk: str = "bvh8",
     sph_data = concat_sphere_data(sph_parts)
     lights: List[Light] = [make_light(lr, device=device) for lr in desc.lights]
     lights.extend(area_lights)
+    stats.count("scene/lights", len(lights))
+    stats.count("scene/materials", len(materials))
+    if tri_data is not None:
+        stats.count("scene/triangles", int(tri_data.count))
+    if sph_parts:
+        stats.count("scene/spheres", int(sum(sp.count for sp in sph_parts)))
     if not lights:
         log.warning("No light sources defined in scene; rendering will be black.")
 

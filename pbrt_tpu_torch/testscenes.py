@@ -459,3 +459,150 @@ def comb_tree(levels):
     mins[spine] = np.minimum.accumulate(t_min[::-1])[::-1][0:-1:2]
     maxs[spine] = np.maximum.accumulate(t_max[::-1])[::-1][0:-1:2]
     return mins, maxs, skips, firsts, counts, p0, p1, p2
+
+
+# --- scene files: the front door (python -m pbrt_tpu_torch scene.pbrt) -----
+
+
+def write_torus_ply(path, nu=224, nv=112):
+    """Write config 3's displaced torus (``_torus_mesh_params``) as a
+    binary little-endian PLY: vertices (x, y, z, u, v) as float32, faces
+    as (uchar 3, int32 x 3)."""
+    ps, n_tris = _torus_mesh_params(nu, nv)
+    pts = np.asarray(ps.find_point3f("P"), dtype="<f4").reshape(-1, 3)
+    uvs = np.asarray(ps.find_point2f("uv"), dtype="<f4").reshape(-1, 2)
+    idx = np.asarray(ps.find_int("indices"), dtype="<i4").reshape(-1, 3)
+    faces = np.zeros(len(idx), dtype=[("n", "u1"), ("idx", "<i4", (3,))])
+    faces["n"], faces["idx"] = 3, idx
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(pts)}\n"
+              + "".join(f"property float {c}\n" for c in "xyzuv")
+              + f"element face {len(idx)}\nproperty list uchar int vertex_indices\n"
+              + "end_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(np.concatenate([pts, uvs], axis=1).astype("<f4").tobytes())
+        f.write(faces.tobytes())
+    return n_tris
+
+
+def config3_scenefile(path, ply_path, xres=256, yres=256, spp=8, maxdepth=4):
+    """Config 3 as a scene file: :data:`MESH_SCENE`, the torus as a
+    ``plymesh`` (written by :func:`write_torus_ply`) and :data:`FLOOR`, in
+    ``mesh_scene_description``'s shape order."""
+    text = (MESH_SCENE.format(spp=spp, maxdepth=maxdepth, xres=xres, yres=yres)
+            + f'Shape "plymesh" "string filename" "{ply_path}"\n' + FLOOR + "WorldEnd\n")
+    with open(path, "w") as f:
+        f.write(text)
+
+
+QUADRICS = {  # name -> (transform, material, shape parameters)
+    "cylinder": ("Translate 3 -1.5 -0.7", 'Material "matte" "texture Kd" "uvcyl"',
+                 '"float radius" 0.4 "float zmin" 0 "float zmax" 1.2'),
+    "cone": ("Translate -1.5 3 -0.7", 'Material "plastic" "texture Kd" "dotsph" '
+             '"rgb Ks" [0.3 0.3 0.3] "float roughness" 0.1', '"float radius" 0.6 "float height" 1.5'),
+    "paraboloid": ("Translate 3 3 -0.7", 'Material "matte" "texture Kd" "bilerp"',
+                   '"float radius" 0.6 "float zmin" 0 "float zmax" 1.2'),
+    "hyperboloid": ("Translate -3 1.5 -0.7", 'Material "matte" "texture Kd" "scaled"',
+                    '"point p1" [0.5 0 0] "point p2" [0.3 0.4 1.4]'),
+}
+
+SCENEFILE_HEAD = """
+LookAt 6 5 4.5  0 0 0  0 0 1
+Camera "perspective" "float fov" 50
+Sampler "{sampler}" "integer pixelsamples" {spp}
+Integrator "path" "integer maxdepth" {maxdepth}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+    "string filename" "{filename}"
+Accelerator "bvh"
+WorldBegin
+LightSource "point" "rgb I" [30 28 25] "point from" [3 -3 6]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [8 8 9]
+  Translate 0 0 5
+  Rotate 180 1 0 0
+  Shape "disk" "float radius" 1.5
+AttributeEnd
+Texture "marble" "spectrum" "marble" "float scale" 2.5 "float variation" 0.4
+Texture "checks3" "spectrum" "checkerboard" "integer dimension" 3
+    "rgb tex1" [0.7 0.7 0.65] "rgb tex2" [0.25 0.3 0.35]
+Texture "dotsplanar" "spectrum" "dots" "string mapping" "planar" "float udelta" 0.25
+    "vector v1" [4 0 0] "vector v2" [0 4 0] "rgb inside" [0.8 0.2 0.15] "rgb outside" [0.5 0.5 0.45]
+Texture "wrinkled" "float" "wrinkled" "integer octaves" 5
+Texture "ground" "spectrum" "mix" "texture tex1" "checks3" "texture tex2" "dotsplanar"
+    "texture amount" "wrinkled"
+Texture "uvcyl" "spectrum" "uv" "string mapping" "cylindrical"
+Texture "dotsph" "spectrum" "dots" "string mapping" "spherical"
+    "rgb inside" [0.1 0.5 0.8] "rgb outside" [0.6 0.6 0.55]
+Texture "bilerp" "spectrum" "bilerp" "string mapping" "planar"
+    "rgb v00" [0.9 0.2 0.2] "rgb v01" [0.2 0.9 0.2] "rgb v10" [0.2 0.2 0.9] "rgb v11" [0.8 0.8 0.2]
+Texture "windy" "float" "windy"
+Texture "scaled" "spectrum" "scale" "texture tex1" "checks3" "texture tex2" "windy"
+Texture "fbm" "spectrum" "fbm" "integer octaves" 6
+Texture "uvtex" "spectrum" "uv" "float uscale" 3 "float vscale" 2
+ObjectBegin "torus"
+  Material "matte" "texture Kd" "marble"
+  Shape "plymesh" "string filename" "{ply}"
+ObjectEnd
+"""
+
+# the torus instances' placements, in the order they are used
+INSTANCES = ("Translate 0 0 -0.2  Scale 0.7 0.7 0.7", "Translate 2.4 0.3 -0.4  Rotate 60 0 0 1",
+             "Translate 0.2 2.5 -0.3  Rotate 90 1 0 0  Scale 0.6 0.6 0.6",
+             "Translate -2.5 -2.2 -0.1  Rotate 30 0 1 0")
+
+NURBS = """AttributeBegin
+  Material "matte" "texture Kd" "uvtex"
+  Translate -3 -3 0.2
+  Shape "nurbs" "integer nu" 4 "integer nv" 3 "integer uorder" 3 "integer vorder" 2
+    "float uknots" [0 0 0 0.5 1 1 1] "float vknots" [0 0 0.5 1 1]
+    "point P" [0 0 0  0.6 0 0.5  1.2 0 0  1.8 0 0.4
+               0 0.8 0.3  0.6 0.8 0.9  1.2 0.8 0.3  1.8 0.8 0.6
+               0 1.6 0  0.6 1.6 0.4  1.2 1.6 0  1.8 1.6 0.3]
+AttributeEnd
+"""
+
+
+def _icosahedron():
+    t = (1.0 + 5.0 ** 0.5) / 2.0
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0], [0, -1, t], [0, 1, t],
+                  [0, -1, -t], [0, 1, -t], [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]])
+    f = [0, 11, 5, 0, 5, 1, 0, 1, 7, 0, 7, 10, 0, 10, 11, 1, 5, 9, 5, 11, 4, 11, 10, 2,
+         10, 7, 6, 7, 1, 8, 3, 9, 4, 3, 4, 2, 3, 2, 6, 3, 6, 8, 3, 8, 9, 4, 9, 5, 2, 4, 11,
+         6, 2, 10, 8, 6, 7, 9, 8, 1]
+    return v / np.linalg.norm(v[0]), f
+
+
+def scenefile_text(ply_path, xres=256, yres=256, spp=16, maxdepth=5, sampler="sobol",
+                   filename="scenefile.pfm", instances=4, heightfield=256, loop_levels=4,
+                   quadrics=tuple(QUADRICS), nurbs=True):
+    """The scene vocabulary in one file: the PLY torus as an object placed
+    ``instances`` times, a ``heightfield`` x ``heightfield``-sample floor,
+    a Loop-subdivided icosahedron, the disk area light and the other
+    ``quadrics``, a ``nurbs`` patch and a point light, under every
+    procedural texture and mapping (uv, spherical, cylindrical, planar and
+    3D)."""
+    out = [SCENEFILE_HEAD.format(sampler=sampler, spp=spp, maxdepth=maxdepth, xres=xres,
+                                 yres=yres, filename=filename, ply=ply_path)]
+    for place in INSTANCES[:instances]:
+        out.append(f'AttributeBegin\n  {place}\n  ObjectInstance "torus"\nAttributeEnd\n')
+    n = heightfield
+    u, v = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n), indexing="xy")
+    pz = 0.5 + 0.25 * np.sin(6 * u) * np.cos(5 * v) + 0.1 * np.sin(17 * u + 11 * v)
+    out.append('AttributeBegin\n  Material "matte" "texture Kd" "ground"\n'
+               '  Translate -6 -6 -1.1\n  Scale 12 12 0.5\n'
+               f'  Shape "heightfield" "integer nu" {n} "integer nv" {n} "float Pz" ['
+               + " ".join(f"{x:.5f}" for x in pz.ravel()) + "]\nAttributeEnd\n")
+    verts, faces = _icosahedron()
+    out.append('AttributeBegin\n  Material "matte" "texture Kd" "fbm"\n'
+               '  Translate 1.8 -2.6 0.1\n  Scale 0.8 0.8 0.8\n'
+               f'  Shape "loopsubdiv" "integer nlevels" {loop_levels} "integer indices" ['
+               + " ".join(map(str, faces)) + '] "point P" ['
+               + " ".join(f"{x:.9f}" for x in verts.ravel()) + "]\nAttributeEnd\n")
+    for name in quadrics:
+        place, material, params = QUADRICS[name]
+        out.append(f'AttributeBegin\n  {material}\n  {place}\n  Shape "{name}" {params}\n'
+                   "AttributeEnd\n")
+    if nurbs:
+        out.append(NURBS)
+    out.append("WorldEnd\n")
+    return "".join(out)

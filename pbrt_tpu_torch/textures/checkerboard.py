@@ -1,5 +1,6 @@
-"""2D checkerboard texture with pbrt's closed-form box filter
-(counterpart of ``pbrt_tpu/textures/checkerboard.py``)."""
+"""Checkerboard textures (counterpart of
+``pbrt_tpu/textures/checkerboard.py``): the 2D one with pbrt's
+closed-form box filter, and the 3D one over a texture-space point."""
 
 from __future__ import annotations
 
@@ -47,3 +48,24 @@ class CheckerboardTexture:
         if v1.dim() > use_filtered.dim():
             use_filtered = use_filtered[..., None]
         return torch.where(use_filtered, filtered, point)
+
+
+class Checkerboard3DTexture:
+    """tex1 where floor(x) + floor(y) + floor(z) of the texture-space
+    point is even, else tex2 (point-sampled)."""
+
+    def __init__(self, mapping3d, tex1, tex2):
+        self.mapping = mapping3d
+        self.tex1 = tex1
+        self.tex2 = tex2
+
+    def eval(self, si):
+        p = self.mapping.map(si)
+        parity = (torch.floor(p[..., 0]) + torch.floor(p[..., 1])
+                  + torch.floor(p[..., 2])).to(torch.int32) % 2
+        v1 = self.tex1.eval(si)
+        v2 = self.tex2.eval(si)
+        mask = parity == 0
+        if v1.dim() > mask.dim():
+            mask = mask[..., None]
+        return torch.where(mask, v1, v2)
