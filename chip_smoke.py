@@ -164,13 +164,35 @@ Phases (any failure raises and the script exits non-zero):
    that scene at 64x64 with ``checkpoint_every=1`` in 4 chunks, stopped
    after 2 and resumed in a fresh ``Renderer``, against the uninterrupted
    render (bit-equality reported, phase 5's tolerance required), and a
-   checkpoint whose meta differs ignored.
+   checkpoint whose meta differs ignored;
+14. participating media (written under ``build/chip_smoke/``): (a) the
+   fog-and-smoke scene file (``testscenes.volume_text``: config 3's
+   camera, lights and floor in a homogeneous fog, the 50,176-triangle PLY
+   torus under ``Material "subsurface"``, a null-material box of
+   heterogeneous smoke with a 64^3 inline density grid, a spot light;
+   ``Integrator "volpath"``) at 256x256, 8 spp, maxdepth 5, 2 chunks,
+   through ``cli.main``: the file's parse seconds alone (262,144 inline
+   density values) and the scene build seconds, a first frame (K2 x 62: 2
+   chunks x (5 x 3 march sweeps + 4 x 4 shadow segments), nothing else;
+   the image finite and not black), then ``k2_frame`` (the 62 sweeps
+   against the plain walk on the card, K2's time per sweep beside its
+   bound, the plain walk's time over every 8th sweep, frame seconds,
+   Mray/s from volpath's ``queries_per_sample``); ``--profile`` adds a
+   profiled frame, whose ~960,000 launches take the profiler minutes to
+   sum; (b) the same scene at 32x32, 2 spp, maxdepth
+   3, with a 16^3 grid, on the card against the CPU, to phase 5's
+   tolerance; (c) delta and ratio tracking through the smoke
+   (``testscenes.volume_rays``: 262,144 seeded lanes) on the card against
+   the CPU: scattered masks equal on all but 1e-4 of the lanes, distances
+   (where both scattered) within rtol 1e-5, transmittance within rtol 1e-5 /
+   atol 1e-5.
 
 The lines before the last are JSON objects: ``{"cornell": ...}``,
 ``{"config5": ...}``, ``{"gradients": ...}``, ``{"config4": ...}``,
-``{"integrators": ...}``, ``{"scenefile": ...}`` and one with an entry
-per kernel (K2's holds phase 13's sweeps and launches under
-``"scenefile"``); the last line is ``{"ok": true, "device": {...}}``.
+``{"integrators": ...}``, ``{"scenefile": ...}``, ``{"volume": ...}``
+and one with an entry per kernel (K2's holds phase 13's sweeps and
+launches under ``"scenefile"`` and phase 14's under ``"volume"``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -524,16 +546,18 @@ def soup_tables(leaf, twin=False):
     return (m, x, s, f, cc) + tuple(p[perm] for p in soup)
 
 
-def time_walks(name, calls, stats):
+def time_walks(name, calls, stats, plain_stride=1):
     """Kernel and plain-version (on the card) ms per sweep over ``calls``
-    (kernel: mean of 20 launches after one; plain: one run), and for the
-    split walks the kernels' device ms per sweep, with a line per sweep."""
+    (kernel: mean of 20 launches after one; plain: one run, on every
+    ``plain_stride``-th sweep), and for the split walks the kernels'
+    device ms per sweep, with a line per sweep."""
     import numpy as np
 
     ms, plain_ms = [], []
-    for fn, args, kw, plain_fn in calls:
+    for i, (fn, args, kw, plain_fn) in enumerate(calls):
         ms.append(cuda_ms(lambda: fn(*args, **kw), 20))
-        plain_ms.append(cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False))
+        if i % plain_stride == 0:
+            plain_ms.append(cuda_ms(lambda: plain_fn(*args, **kw), 1, warmup=False))
     dev = walk_device_ms(name, calls)
     log(f"  {name}: kernel {[round(t, 4) for t in ms]} ms, plain "
         f"{[round(t, 1) for t in plain_ms]} ms")
@@ -1087,28 +1111,33 @@ def timed(fn, reps=3):
     return sorted(times)[len(times) // 2], times
 
 
-def k2_frame(label, r, sweeps, card):
+def k2_frame(label, r, sweeps, card, first=None, plain_stride=1):
     """A streaming-walk scene's frame on the card: one frame with the
     launch counters zeroed before and read after (K2 ``stream_walk8``
-    launched ``sweeps`` times, nothing else); the image finite and not
-    black; every sweep of a recorded frame through K2 against its plain
-    version on the card (phase 3's rules); K2's time per sweep beside its
-    bound; frame seconds (median of three) and Mray/s.  Returns (the
-    frame's numbers, K2's)."""
+    launched ``sweeps`` times, nothing else; ``first`` = (seconds,
+    launches, image) of such a frame the caller has just rendered takes its
+    place); the image finite and not black; every sweep of a recorded
+    frame through K2 against its plain version on the card (phase 3's
+    rules); K2's time per sweep beside its bound (the plain version's time
+    over every ``plain_stride``-th sweep); frame seconds (median of three)
+    and Mray/s.  Returns (the frame's numbers, K2's)."""
     import numpy as np
     import torch
 
     walk = r.compiled.intersector.walk
     closest, shadow = r.integrator.queries_per_sample()
     chunks = frame_chunks(r)
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.time()
-    state = r.render()
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    launches = {k: v for k, v in read_counts().items() if v}
-    img = r.image(state)
+    if first is None:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        state = r.render()
+        torch.cuda.synchronize()
+        first_s = time.time() - t0
+        launches = {k: v for k, v in read_counts().items() if v}
+        img = r.image(state)
+    else:
+        first_s, launches, img = first
     log(f"  first frame {first_s:.3f} s, {chunks} chunk(s), launches {launches}; image "
         f"mean {img.mean():.6f} max {img.max():.4f}")
     if launches != {"stream_walk8": (closest + shadow) * chunks} or (
@@ -1129,7 +1158,7 @@ def k2_frame(label, r, sweeps, card):
         works.append(work)
         stats.append(st)
     del calls
-    ms, plain_ms, _ = time_walks("stream_walk8", timed_calls, stats)
+    ms, plain_ms, _ = time_walks("stream_walk8", timed_calls, stats, plain_stride)
     del timed_calls
     sweep_bounds = [bound(*w) for w in works]
     b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
@@ -1145,7 +1174,7 @@ def k2_frame(label, r, sweeps, card):
     k2 = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=plain_ms, bound_ms=b_ms,
               bound_by=b_by, sweep_ms=ms, sweep_bound_ms=[x[0] for x in sweep_bounds],
               sweep_live=[st[0] for st in stats], sweep_segments=[st[3] for st in stats],
-              launches_per_frame=launches["stream_walk8"])
+              launches_per_frame=launches["stream_walk8"], plain_stride=plain_stride)
     return dict(first_frame_s=first_s, frame_s=median, frames_s=times,
                 mray_s=queries / median / 1e6, queries=queries, card=card), k2
 
@@ -1835,6 +1864,132 @@ def phase_scenefile(card, config3_image, profile=False):
     return res, k2
 
 
+VOLUME = dict(xres=256, yres=256, spp=8, maxdepth=5, grid=64, ray_batch=1 << 18)
+VOLUME_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3, grid=16)
+TRACK_LANES = 262144
+TRACK_MASK_SHARE = 1e-4  # scattered masks may differ on this share of lanes
+TRACK_RTOL = 1e-5
+
+
+def compare_tracking(label, medium, n, seed=0):
+    """Delta (``sample``) and ratio (``tr``) tracking of ``medium`` (a
+    GridDensityMedium on the card) on n seeded lanes through the smoke box,
+    against its twin built on the CPU: the share of lanes whose scattered
+    masks differ (at most TRACK_MASK_SHARE), distances where both scattered
+    within TRACK_RTOL, transmittance within TRACK_RTOL / TRACK_RTOL."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.media import GridDensityMedium, make_track_rng
+    from pbrt_tpu_torch.testscenes import volume_rays
+
+    host = volume_rays(n, seed)
+    cpu_twin = GridDensityMedium(medium.sigma_a, medium.sigma_s, medium.g,
+                                 medium.density.cpu().numpy(), medium.w2m.cpu().numpy(),
+                                 device="cpu")
+    out = {}
+    for dev, m in ((DEVICE, medium), ("cpu", cpu_twin)):
+        o, d, t_max, pix, si = (torch.as_tensor(x, device=dev) for x in host)
+        u = make_track_rng(pix, si, 5)(0)
+        t, scat, _ = m.sample(o, d, u, t_max, make_track_rng(pix, si, 2048))
+        tr = m.tr(o, d, t_max, make_track_rng(pix, si, 1024))
+        out[dev] = [x.cpu().numpy() for x in (t, scat, tr)]
+    (t_g, s_g, tr_g), (t_w, s_w, tr_w) = out[DEVICE], out["cpu"]
+    differ = float(np.mean(s_g != s_w))
+    both = s_g & s_w
+    t_err = float(np.max(np.abs(t_g[both] - t_w[both]) / np.abs(t_w[both]))) if both.any() else 0.0
+    tr_err = float(np.max(np.abs(tr_g - tr_w)))
+    log(f"  {label}: {n} lanes, {s_w.mean():.4f} scattered; masks differ on {differ:.2e} of "
+        f"them; distance max rel diff {t_err:.3e}; transmittance mean {tr_w.mean():.4f}, max "
+        f"abs diff {tr_err:.3e}")
+    if differ > TRACK_MASK_SHARE or t_err > TRACK_RTOL or not np.allclose(
+            tr_g, tr_w, rtol=TRACK_RTOL, atol=TRACK_RTOL):
+        raise AssertionError(f"{label}: the card's tracking disagrees with the CPU's")
+    return dict(lanes=n, scattered=float(s_w.mean()), masks_differ=differ,
+                t_max_rel_diff=t_err, tr_max_abs_diff=tr_err)
+
+
+def phase_volume(card, profile=False):
+    """Phase 14: participating media.  (a) the fog-and-smoke scene file at
+    full width through ``cli.main`` (K2's 62 sweeps against its plain walk,
+    frame seconds); (b) at 32x32 on the card against the CPU; (c) the
+    smoke's delta and ratio tracking on 262,144 lanes, card against CPU."""
+    import os
+
+    import numpy as np
+
+    from pbrt_tpu_torch import Options
+    from pbrt_tpu_torch.core.api import PbrtAPI
+    from pbrt_tpu_torch.core.imageio import read_image
+    from pbrt_tpu_torch.media import GridDensityMedium
+    from pbrt_tpu_torch.testscenes import write_volume_scene
+
+    os.makedirs(SCENEFILE_DIR, exist_ok=True)
+    d = os.path.abspath(SCENEFILE_DIR)
+    full = dict(VOLUME)
+    batch = str(full.pop("ray_batch"))
+    log(f"== phase 14 (a): the fog-and-smoke scene file at {full['xres']}x{full['yres']}, "
+        f"{full['spp']} spp, maxdepth {full['maxdepth']}, a {full['grid']}^3 smoke grid, "
+        f"ray_batch {batch}")
+    n_torus = write_volume_scene(f"{d}/volume.pbrt", f"{d}/volume_torus.ply", **full,
+                                 filename=f"{d}/volume.pfm")
+    t0 = time.time()
+    api = PbrtAPI(Options(), render_on_world_end=False, device=DEVICE)
+    api.init()
+    api.parse_file(f"{d}/volume.pbrt")
+    parse_s = time.time() - t0
+    del api
+    t0 = time.time()
+    got, build_s, launches = cli_render([f"{d}/volume.pbrt", "--ray-batch", batch, "-q"])
+    first_s = time.time() - t0
+    r = got["renderer"]
+    c = r.compiled
+    img = read_image(f"{d}/volume.pfm")[0]
+    closest, shadow = r.integrator.queries_per_sample()
+    n_tri = c.tri_data.count
+    log(f"  parsing the file alone: {parse_s:.2f} s (the {full['grid']}^3 density values "
+        f"included); cli.main: {first_s:.2f} s, scene build {build_s:.2f} s: {n_tri} "
+        f"triangles ({n_torus} in the PLY), media {[type(m).__name__ for m in c.media]}, "
+        f"camera medium {c.camera_medium}; {type(r.integrator).__name__} "
+        f"({closest}, {shadow}) sweeps per lane; launches {launches}; image mean "
+        f"{img.mean():.6f} max {img.max():.4f}")
+    sweeps = frame_chunks(r) * (closest + shadow)
+    if (closest, shadow) != (15, 16) or sweeps != 62 or launches != {"stream_walk8": 62}:
+        raise AssertionError(f"the volume scene launched {launches}, want stream_walk8 x 62")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("the volume scene's image is not finite or all black")
+    # cli.main's frame counted the launches; the plain walk is timed on
+    # every 8th sweep (its check runs on all 62)
+    frame, k2 = k2_frame("the volume scene", r, 62, card,
+                         first=(got["seconds"], launches, img), plain_stride=8)
+    if profile:
+        frame["profile"] = phase_profile("volume", r, frame["frame_s"])
+    smoke = c.media[c.media_names["smoke"]]
+    if not isinstance(smoke, GridDensityMedium):
+        raise AssertionError("the smoke must be a grid medium")
+    del got, r, c
+
+    small = dict(VOLUME_PARITY)
+    log(f"== phase 14 (b): the volume scene at {small['xres']}x{small['yres']}, "
+        f"{small['spp']} spp, maxdepth {small['maxdepth']}, a {small['grid']}^3 grid, "
+        "card against CPU")
+    write_volume_scene(f"{d}/volume_small.pbrt", f"{d}/volume_torus.ply", **small,
+                       filename=f"{d}/volume_small.pfm")
+    imgs = {}
+    for dev in (DEVICE, "cpu"):
+        rendered, _, _ = cli_render([f"{d}/volume_small.pbrt", "--ray-batch", batch, "-q"],
+                                    device=dev)
+        imgs[dev] = rendered["image"]
+    parity = compare_images("the volume scene at 32x32", imgs[DEVICE], imgs["cpu"])
+
+    log(f"== phase 14 (c): delta and ratio tracking through the {VOLUME['grid']}^3 smoke, "
+        "card against CPU")
+    tracking = compare_tracking("the smoke", smoke, TRACK_LANES)
+    return dict(triangles=n_tri, parse_s=parse_s, build_s=build_s,
+                cli_first_frame_s=first_s, launches=launches, parity=parity,
+                tracking=tracking, **frame), k2
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1910,6 +2065,8 @@ def main(argv=None):
     kern["stream_walk8"]["scenefile"].update(
         config3_cli_launches=scenefile["config3"]["launches"]["stream_walk8"])
     print(json.dumps({"scenefile": scenefile}))
+    volume, kern["stream_walk8"]["volume"] = phase_volume(card, args.profile)
+    print(json.dumps({"volume": volume}))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

@@ -39,8 +39,9 @@ inputs): the walks are discrete lookups.  ``remat=True`` wraps each
 bounce in ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``): the backward pass replays the bounce from its
 inputs, walks included, instead of keeping its wavefront state, so the
-memory kept per bounce is the carry alone.  Media and the merged
-shadow+carry sort are not ported (ROADMAP Queue 1 item 8).
+memory kept per bounce is the carry alone.  Media take the volumetric
+path integrator (``volpath.py``); the merged shadow+carry sort is not
+ported (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -10,10 +10,13 @@ The infinite and area lights take ``l_override``: a [3] tensor that
 replaces their radiance (``theta["env_l"]`` / ``theta["area_l"]`` rows),
 so that gradients reach it.
 
-Point, distant, diffuse-area and infinite lights (constant, or
-image-mapped and importance-sampled through a Distribution2D) are
-ported.  Spot, goniometric and projection lights wait for ROADMAP Queue
-1 item 8.
+Every light of the reference is ported: point, spot, goniometric
+(an intensity map over the sphere of directions) and projection (an image
+projected through a perspective frustum), all delta lights; distant;
+diffuse area; infinite (constant, or image-mapped and importance-sampled
+through a Distribution2D).  A goniometric or projection map that cannot
+be read is logged as an error and the light keeps its plain intensity,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from pbrt_tpu_torch.core.sampling import (
     uniform_sample_triangle,
 )
 from pbrt_tpu_torch.core.spectrum import promote_rgb
-from pbrt_tpu_torch.core.transform import Transform, apply_vector
+from pbrt_tpu_torch.core.transform import Transform, apply_point, apply_vector
 from pbrt_tpu_torch.ops.tables import select_rows
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -48,19 +51,141 @@ class Light:
 
 
 class PointLight(Light):
+    """An isotropic point light; the delta lights below scale its
+    intensity by ``_scale(wi)``."""
+
     is_delta = True
 
     def __init__(self, light_to_world: Transform, intensity, device="cuda"):
+        self.intensity = np.asarray(intensity, dtype=float_t)
         self._pd = torch.as_tensor(light_to_world.apply_p(np.zeros(3)), device=device)
-        self._id = torch.as_tensor(np.asarray(intensity, dtype=float_t), device=device)
+        self._id = torch.as_tensor(self.intensity, device=device)
+        self._w2l = torch.as_tensor(light_to_world.m_inv.astype(float_t), device=device)
+
+    def power(self):
+        return 4 * PI * self.intensity
+
+    def _light_dir(self, wi):
+        """The unit direction from the light toward the shaded points, in
+        the light's space."""
+        wl = apply_vector(self._w2l, -wi)
+        return wl / torch.clamp(torch.linalg.norm(wl, dim=-1, keepdim=True), min=1e-12)
 
     def sample_li(self, p, u2):
         to_l = self._pd - p
         d2 = torch.sum(to_l * to_l, dim=-1)
         dist = torch.sqrt(d2)
         wi = to_l / torch.clamp(dist[..., None], min=1e-12)
-        li = self._id / torch.clamp(d2, min=1e-12)[..., None]
+        scale = self._scale(wi)
+        if scale is None:
+            li = self._id / torch.clamp(d2, min=1e-12)[..., None]
+        else:
+            li = self._id * (scale / torch.clamp(d2, min=1e-12))[..., None]
         return wi, li, torch.ones_like(dist), dist
+
+    def _scale(self, wi):
+        """The intensity's scale toward the points at wi ([N]; None: 1)."""
+        return None
+
+
+class SpotLight(PointLight):
+    """A point light inside a cone about the light's +z, with a smooth
+    (fourth-power) falloff from ``cone_angle - cone_delta`` to
+    ``cone_angle`` degrees."""
+
+    def __init__(self, light_to_world: Transform, intensity, cone_angle_deg, cone_delta_deg,
+                 device="cuda"):
+        super().__init__(light_to_world, intensity, device)
+        self.cos_total = float(np.cos(np.deg2rad(cone_angle_deg)))
+        self.cos_falloff = float(np.cos(np.deg2rad(cone_angle_deg - cone_delta_deg)))
+
+    def power(self):
+        return self.intensity * 2 * PI * (1 - 0.5 * (self.cos_falloff + self.cos_total))
+
+    def _scale(self, wi):
+        ct = self._light_dir(wi)[..., 2]
+        # the reference's compiled code divides by the constant as a product
+        # with its float32 reciprocal
+        inv = float(np.float32(1.0) / np.float32(max(self.cos_falloff - self.cos_total, 1e-8)))
+        d = torch.clamp((ct - self.cos_total) * inv, 0.0, 1.0)
+        return torch.where(ct < self.cos_total, 0.0,
+                           torch.where(ct > self.cos_falloff, 1.0, (d * d) * (d * d)))
+
+
+def _read_map(kind, mapname, raw):
+    """(MIPMap of the tint x the image, promoted once; (width, height)), or
+    None where the file cannot be read (logged, as in the reference)."""
+    try:
+        img, size = read_image(mapname)
+        return MIPMap(promote_rgb(np.asarray(img) * raw, illuminant=True)), size
+    except (OSError, ValueError) as e:
+        log.error("%s: cannot read '%s': %s", kind, mapname, e)
+        return None
+
+
+class GonioPhotometricLight(PointLight):
+    """A point light whose intensity is scaled by a lat-long map (phi
+    along s, theta from the light's +z along t), averaged over RGB."""
+
+    def __init__(self, light_to_world: Transform, intensity, mapname: str, device="cuda"):
+        raw = np.asarray(intensity, dtype=float_t)
+        super().__init__(light_to_world, promote_rgb(raw, illuminant=True), device)
+        self.mipmap = None
+        got = _read_map("goniometric", mapname, raw) if mapname else None
+        if got is not None:
+            # the map carries the tint: the intensity becomes 1
+            self.mipmap = got[0]
+            self._id = torch.ones(3, dtype=torch.float32, device=device)
+
+    def _scale(self, wi):
+        if self.mipmap is None:
+            return torch.ones_like(wi[..., 0])
+        wl = self._light_dir(wi)
+        theta = torch.arccos(torch.clamp(wl[..., 2], -1, 1))
+        phi = torch.atan2(wl[..., 1], wl[..., 0])
+        phi = torch.where(phi < 0, phi + 2 * PI, phi)
+        return self.mipmap.lookup(phi * INV_2PI, theta * INV_PI).mean(dim=-1)
+
+
+class ProjectionLight(PointLight):
+    """A point light projecting an image through a ``fov``-degree
+    perspective frustum along the light's +z; black outside the image's
+    screen window."""
+
+    def __init__(self, light_to_world: Transform, intensity, mapname: str, fov_deg=45.0,
+                 device="cuda"):
+        raw = np.asarray(intensity, dtype=float_t)
+        super().__init__(light_to_world, promote_rgb(raw, illuminant=True), device)
+        self.mipmap = None
+        aspect = 1.0
+        got = _read_map("projection", mapname, raw) if mapname else None
+        if got is not None:
+            self.mipmap, (w, h) = got
+            self._id = torch.ones(3, dtype=torch.float32, device=device)
+            aspect = w / h
+        if aspect > 1:
+            self.screen = (-aspect, aspect, -1.0, 1.0)
+        else:
+            self.screen = (-1.0, 1.0, -1 / aspect, 1 / aspect)
+        proj = Transform.perspective(fov_deg, 1e-2, 1000.0)
+        self._projm = torch.as_tensor(proj.m.astype(float_t), device=device)
+        self.cos_total = float(
+            np.cos(np.arctan(np.tan(np.deg2rad(fov_deg) / 2) * np.hypot(1, aspect))))
+
+    def power(self):
+        return 2 * PI * (1 - self.cos_total) * self.intensity
+
+    def _scale(self, wi):
+        wl = apply_vector(self._w2l, -wi)
+        ps = apply_point(self._projm, wl)
+        x0, x1, y0, y1 = self.screen
+        inside = ((ps[..., 0] >= x0) & (ps[..., 0] <= x1) & (ps[..., 1] >= y0)
+                  & (ps[..., 1] <= y1) & ~(wl[..., 2] < 1e-3))
+        if self.mipmap is None:
+            return inside.to(wi.dtype)
+        s = torch.clamp((ps[..., 0] - x0) / (x1 - x0), 0, 1)
+        t = torch.clamp((ps[..., 1] - y0) / (y1 - y0), 0, 1)
+        return torch.where(inside, self.mipmap.lookup(s, t).mean(dim=-1), 0.0)
 
 
 class DistantLight(Light):
@@ -240,6 +365,29 @@ def make_light(record, device="cuda"):
         )
         from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
         return PointLight(l2w * Transform.translate(from_p), i, device=device)
+    if name == "spot":
+        i = promote_rgb(
+            params.find_one_spectrum_raw("I", one)
+            * params.find_one_spectrum_raw("scale", one),
+            illuminant=True,
+        )
+        cone = params.find_one_float("coneangle", 30.0)
+        delta = params.find_one_float("conedeltaangle", 5.0)
+        from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
+        to_p = params.find_one_point3f("to", np.array([0, 0, 1], dtype=float_t))
+        dir_ = to_p - from_p
+        nrm = np.linalg.norm(dir_)
+        if nrm > 1e-9:
+            # the light's frame: z along the cone, x from (0, 1, 0.001) x z
+            z = dir_ / nrm
+            x = np.cross(np.array([0.0, 1.0, 0.001]), z)
+            x /= np.linalg.norm(x)
+            m = np.eye(4)
+            m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, np.cross(z, x), z, from_p
+            l2w = l2w * Transform(m)
+        else:
+            l2w = l2w * Transform.translate(from_p)
+        return SpotLight(l2w, i, cone, delta, device=device)
     if name == "distant":
         l_rgb = promote_rgb(
             params.find_one_spectrum_raw("L", one)
@@ -249,7 +397,15 @@ def make_light(record, device="cuda"):
         from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
         to_p = params.find_one_point3f("to", np.array([0, 0, 1], dtype=float_t))
         return DistantLight(l2w, l_rgb, from_p, to_p, device=device)
-    raise NotImplementedError(
-        f"Light '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "only 'point', 'distant', 'infinite' and diffuse area lights are"
-    )
+    if name == "goniometric":
+        i = params.find_one_spectrum_raw("I", one) * params.find_one_spectrum_raw("scale", one)
+        return GonioPhotometricLight(l2w, i, params.find_one_filename("mapname", ""),
+                                     device=device)
+    if name == "projection":
+        i = params.find_one_spectrum_raw("I", one) * params.find_one_spectrum_raw("scale", one)
+        fov = params.find_one_float("fov", 45.0)
+        return ProjectionLight(l2w, i, params.find_one_filename("mapname", ""), fov,
+                               device=device)
+    log.warning("Light '%s' unknown.", name)
+    params.report_unused()
+    return None

@@ -9,8 +9,10 @@ roughness as a GGX alpha, eta, metal_eta, metal_k, sigma).  Ported:
 default), ``substrate``, ``uber``, ``translucent``, ``disney`` (as the
 reference approximates it, by substrate lobes), ``mix`` (nested mixes
 included) and the emitter-only ``none``; an unknown name renders as
-matte, as in the reference.  ``hair``, ``fourier`` and the subsurface
-materials raise (ROADMAP Queue 1 item 8).
+matte, as in the reference.  ``subsurface`` and ``kdsubsurface`` are a
+dielectric interface whose interior medium the scene builder attaches
+(``media/scattering.py``).  ``hair`` and ``fourier`` raise (ROADMAP
+Queue 1 item 8).
 
 ``theta`` (:func:`material_theta`, ``CompiledScene.initial_theta``) is
 the differentiable override: constant-texture slots read their rows from
@@ -141,7 +143,18 @@ def build_material(record) -> MaterialEntry:
         kids = [build_material(ch) for ch in children]
         return MaterialEntry(kids[0].type_id, mix_children=(kids[0], kids[1]),
                              mix_amount=spec_tex("amount", 0.5))
-    if name in ("hair", "fourier", "subsurface", "kdsubsurface"):
+    if name in ("subsurface", "kdsubsurface"):
+        # a dielectric interface (pbrt-v3 SubsurfaceMaterial's specular or
+        # microfacet dielectric); the builder gives the shape the interior
+        # medium (media/scattering.py) that volpath traces
+        return MaterialEntry(
+            B.GLASS,
+            {"kr": spec_tex("Kr", 1.0), "kt": spec_tex("Kt", 1.0),
+             "roughness": float_tex("uroughness", 0.0)},
+            remap_roughness=remap(),
+            eta_const=tp.find_float("eta", 1.33),
+        )
+    if name in ("hair", "fourier"):
         raise NotImplementedError(
             f"Material '{name}' is not ported yet (ROADMAP.md Queue 1 item 8)"
         )

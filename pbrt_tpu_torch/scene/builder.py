@@ -8,13 +8,18 @@ handed to :func:`build_scene`.
 
 Ported: film (with the options' quick render and image file), camera,
 sampler, materials, lights, object instances (expanded into plain shape
-records after the scene's own shapes, as in the reference), the triangle
-and sphere tables (emitting spheres become triangle meshes, as in the
-reference), the ``_flags`` that prune interaction work, the ``scene/*``
-stats counters, and the reference's intersector choice: the BVH for
+records after the scene's own shapes, as in the reference), the named
+media and the camera's medium, the triangle and sphere tables (spheres
+that emit, bound a medium or carry a subsurface material become triangle
+meshes, as in the reference), the per-triangle medium interface columns
+(``med_in``/``med_out``: a subsurface material's interior medium, one per
+material record, appended after the named media in the order first
+used), the ``_flags`` that prune interaction work, the ``scene/*`` stats
+counters, and the reference's intersector choice: the BVH for
 ``bvh``/``kdtree`` scenes of at least ``minprims`` triangles, the
-brute-force sweep otherwise.  Media, subsurface materials and motion blur
-raise (ROADMAP Queue 1 item 8).
+brute-force sweep otherwise.  As in the reference, a surface without a
+MediumInterface sends a ray that crosses it to vacuum (-1).  Motion blur
+raises (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from pbrt_tpu_torch.core.filters import make_filter
 from pbrt_tpu_torch.core.spectrum import promote_rgb
 from pbrt_tpu_torch.lights import DiffuseAreaLight, Light, make_light
 from pbrt_tpu_torch.materials import MaterialEntry, build_material
+from pbrt_tpu_torch.media import make_medium
+from pbrt_tpu_torch.media.scattering import make_subsurface_medium
 from pbrt_tpu_torch.ops.intersect import KIND_SPHERE, KIND_TRI
 from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
 from pbrt_tpu_torch.ops.tables import select_rows
@@ -70,6 +77,9 @@ class CompiledScene:
     sph_data: Optional[SphereData]
     world_bounds: tuple
     device: torch.device
+    media: list = dataclasses.field(default_factory=list)
+    media_names: dict = dataclasses.field(default_factory=dict)
+    camera_medium: int = -1  # the medium id camera rays start in (-1: vacuum)
 
     def initial_theta(self):
         """The differentiable scene parameters, a dict of tensors on the
@@ -190,8 +200,25 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
     desc.camera_params.report_unused()
     sampler = make_sampler(desc.sampler_name, desc.sampler_params, seed)
     desc.sampler_params.report_unused()
-    if desc.named_media:
-        raise _not_ported("participating media", 8)
+
+    media = []
+    media_names = {}
+    for m_name, m_params in desc.named_media.items():
+        media.append(make_medium(m_params.find_one_string("type", "homogeneous"), m_params,
+                                 device=device))
+        m_params.report_unused()
+        media_names[m_name] = len(media) - 1
+
+    def med_id(name: str) -> int:
+        if not name:
+            return -1
+        idx = media_names.get(name)
+        if idx is None:
+            log.error("Named medium '%s' undefined.", name)
+            return -1
+        return idx
+
+    camera_medium = med_id(desc.camera_medium)
 
     # object instances become plain shape records after the scene's own,
     # in the order of their uses (the reference's expansion)
@@ -217,27 +244,34 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
     tri_parts: List[TriangleData] = []
     tri_mat: List[np.ndarray] = []
     tri_light: List[np.ndarray] = []
+    tri_med_in: List[np.ndarray] = []
+    tri_med_out: List[np.ndarray] = []
     sph_parts: List[SphereData] = []
     sph_mat: List[int] = []
     area_lights: List[DiffuseAreaLight] = []
+    sss_media = {}  # id(material record) -> its interior medium
+
+    def sss_medium_index(record) -> int:
+        if id(record) not in sss_media:
+            media.append(make_subsurface_medium(record, device=device))
+            sss_media[id(record)] = len(media) - 1
+        return sss_media[id(record)]
+
     for rec in shape_records:
         if rec.object_to_world_end is not None:
             raise _not_ported("motion blur", 8)
-        if rec.inside_medium or rec.outside_medium:
-            raise _not_ported("participating media", 8)
-        if rec.material.name in ("subsurface", "kdsubsurface"):
-            raise _not_ported("subsurface materials (their interior media)", 8)
         shape = make_shape(rec.name, rec.params, rec.object_to_world, rec.reverse_orientation)
         if shape is None:
             continue
         rec.params.report_unused()
         m_idx = mat_index(rec.material)
+        is_sss = rec.material.name in ("subsurface", "kdsubsurface")
         if isinstance(shape, SphereData):
-            if not rec.area_light_name:
+            if not (rec.area_light_name or is_sss or rec.inside_medium or rec.outside_medium):
                 sph_parts.append(shape)
                 sph_mat.extend([m_idx] * shape.count)
                 continue
-            # area sampling lives on the triangle tables
+            # area sampling and medium interfaces live on the triangle tables
             shape = _tessellate_emitting_sphere(shape)
         light_idx = -1
         if rec.area_light_name:
@@ -256,10 +290,14 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         tri_parts.append(shape)
         tri_mat.append(np.full(shape.count, m_idx, dtype=np.int32))
         tri_light.append(np.full(shape.count, light_idx, dtype=np.int32))
+        m_in = sss_medium_index(rec.material) if is_sss else med_id(rec.inside_medium)
+        tri_med_in.append(np.full(shape.count, m_in, dtype=np.int32))
+        tri_med_out.append(np.full(shape.count, med_id(rec.outside_medium), dtype=np.int32))
 
     tri_data = concat_triangle_data(tri_parts)
     sph_data = concat_sphere_data(sph_parts)
-    lights: List[Light] = [make_light(lr, device=device) for lr in desc.lights]
+    lights: List[Light] = [lt for lt in (make_light(lr, device=device) for lr in desc.lights)
+                           if lt is not None]
     lights.extend(area_lights)
     stats.count("scene/lights", len(lights))
     stats.count("scene/materials", len(materials))
@@ -272,12 +310,11 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
 
     tables: Dict[str, object] = {}
     if tri_data is not None:
-        n_tri = tri_data.count
         host = {k: getattr(tri_data, k) for k in TRI_KEYS[:9]}
         host["mat"] = np.concatenate(tri_mat)
         host["light"] = np.concatenate(tri_light)
-        host["med_in"] = np.full(n_tri, -1, dtype=np.int32)
-        host["med_out"] = np.full(n_tri, -1, dtype=np.int32)
+        host["med_in"] = np.concatenate(tri_med_in)
+        host["med_out"] = np.concatenate(tri_med_out)
         for k in TRI_KEYS[:9]:
             if not np.isfinite(host[k]).all():
                 raise ValueError(f"Non-finite values in scene table 'tri.{k}'")
@@ -343,6 +380,7 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         materials=materials, lights=lights, area_lights=area_lights,
         tables=tables, intersector=intersector, tri_data=tri_data, sph_data=sph_data,
         world_bounds=_world_bounds(tri_data, sph_data), device=device,
+        media=media, media_names=media_names, camera_medium=camera_medium,
     )
 
 

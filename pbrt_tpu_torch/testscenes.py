@@ -485,6 +485,123 @@ def write_torus_ply(path, nu=224, nv=112):
     return n_tris
 
 
+VOLUME_BOX = ((-2.3, -2.8, -0.66), (-1.1, -1.6, 0.54))  # the smoke box: p0, p1
+VOLUME_HEAD = """
+MakeNamedMedium "fog" "string type" "homogeneous"
+    "rgb sigma_a" [0.01 0.01 0.01] "rgb sigma_s" [0.05 0.05 0.05] "float g" 0.3
+MakeNamedMedium "smoke" "string type" "heterogeneous"
+    "rgb sigma_a" [0.5 0.5 0.5] "rgb sigma_s" [2 2 2] "float g" 0.2
+    "integer nx" {grid} "integer ny" {grid} "integer nz" {grid}
+    "point p0" [{p0}] "point p1" [{p1}]
+    "float density" [{density}]
+MediumInterface "" "fog"
+LookAt 2.8 2.2 2.8  0 0 0  0 0 1
+Camera "perspective" "float fov" 45
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator "volpath" "integer maxdepth" {maxdepth}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+    "string filename" "{filename}"
+Accelerator "bvh"
+WorldBegin
+LightSource "point" "rgb I" [30 28 25] "point from" [3 -3 4]
+LightSource "spot" "rgb I" [60 60 55] "point from" [0.4 0.6 3.2] "point to" [0 0 0]
+    "float coneangle" 30 "float conedeltaangle" 5
+AttributeBegin
+  MediumInterface "fog" "fog"
+  AreaLightSource "diffuse" "rgb L" [6 6 7]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-1 -1 3.5  1 -1 3.5  1 1 3.5  -1 1 3.5]
+AttributeEnd
+AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "subsurface" "string name" "marble"
+  Shape "plymesh" "string filename" "{ply}"
+AttributeEnd
+AttributeBegin
+  MediumInterface "fog" "fog"
+  Material "matte" "rgb Kd" [0.4 0.4 0.42]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-8 -8 -0.7  8 -8 -0.7  8 8 -0.7  -8 8 -0.7]
+AttributeEnd
+AttributeBegin
+  Material ""
+  MediumInterface "smoke" "fog"
+  Shape "trianglemesh" "integer indices" [{box_indices}]
+    "point P" [{box_points}]
+AttributeEnd
+WorldEnd
+"""
+
+
+def smoke_density(grid=64, seed=0, blobs=6):
+    """The smoke's [grid]^3 density ([z, y, x]): a sum of seeded gaussian
+    blobs over the unit cube, clipped to [0, 1]."""
+    rng = np.random.default_rng(seed)
+    c = (np.arange(grid) + 0.5) / grid
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    dens = np.zeros((grid, grid, grid))
+    for _ in range(blobs):
+        mx, my, mz = rng.uniform(0.25, 0.75, size=3)
+        sigma = rng.uniform(0.1, 0.22)
+        amp = rng.uniform(0.5, 1.0)
+        dens += amp * np.exp(-((x - mx) ** 2 + (y - my) ** 2 + (z - mz) ** 2) / (2 * sigma ** 2))
+    return np.clip(dens, 0.0, 1.0).astype(np.float32)
+
+
+def volume_text(ply_path, xres=256, yres=256, spp=8, maxdepth=5, grid=64, seed=0,
+                filename="volume.pfm"):
+    """A fog-and-smoke scene file composed from config 3: the camera in a
+    homogeneous fog that is every shape's outside, config 3's camera,
+    point light, area quad and floor, the PLY torus (``write_torus_ply``)
+    under ``Material "subsurface"`` (marble), a 12-triangle null-material
+    box of heterogeneous smoke (a ``grid``^3 density of seeded blobs,
+    inline) 0.04 above the floor behind the torus, seen above it, and a spot light
+    above the torus; ``Integrator "volpath"``, halton.  Every shape
+    declares its MediumInterface (a surface without one sends rays that
+    cross it to vacuum), and no surface lies inside the box or on its
+    faces: a floor inside it would take lanes out of the smoke."""
+    p0, p1 = (np.asarray(p, dtype=np.float64) for p in VOLUME_BOX)
+    # the box's corners, x fastest; its faces wound outward
+    corners = np.array([[p1[0] if i & 1 else p0[0], p1[1] if i & 2 else p0[1],
+                         p1[2] if i & 4 else p0[2]] for i in range(8)])
+    faces = [0, 2, 3, 0, 3, 1, 4, 5, 7, 4, 7, 6, 0, 1, 5, 0, 5, 4,
+             2, 6, 7, 2, 7, 3, 0, 4, 6, 0, 6, 2, 1, 3, 7, 1, 7, 5]
+    dens = smoke_density(grid, seed)
+    return VOLUME_HEAD.format(
+        grid=grid, p0=" ".join(f"{v:g}" for v in p0), p1=" ".join(f"{v:g}" for v in p1),
+        density=" ".join(f"{v:.4g}" for v in dens.ravel()), spp=spp, maxdepth=maxdepth,
+        xres=xres, yres=yres, filename=filename, ply=ply_path,
+        box_indices=" ".join(map(str, faces)),
+        box_points=" ".join(f"{v:g}" for v in corners.ravel()))
+
+
+def volume_rays(n, seed=0):
+    """n seeded rays from around the smoke box (:data:`VOLUME_BOX`) toward
+    points inside it, as host arrays: o, d [n, 3] (unit), t_max [n] (the
+    far side of the box or short of it), pixel_xy [n, 2] and sample
+    indices [n], for the tracking loops."""
+    rng = np.random.default_rng(seed)
+    p0, p1 = (np.asarray(p) for p in VOLUME_BOX)
+    c, half = (p0 + p1) / 2, (p1 - p0) / 2
+    o = c + rng.uniform(-1.6, 1.6, (n, 3)) * half
+    d = c + rng.uniform(-0.8, 0.8, (n, 3)) * half - o
+    dist = np.linalg.norm(d, axis=-1)
+    d = d / dist[:, None]
+    t_max = dist * rng.uniform(0.5, 2.0, n)
+    pix = np.stack([rng.integers(0, 256, n), rng.integers(0, 256, n)], axis=-1)
+    return (o.astype(np.float32), d.astype(np.float32), t_max.astype(np.float32), pix,
+            rng.integers(0, 8, n))
+
+
+def write_volume_scene(path, ply_path, nu=224, nv=112, **kw):
+    """Write the torus PLY (``nu`` x ``nv``) and the :func:`volume_text`
+    scene file that reads it; returns the torus's triangle count."""
+    n_tris = write_torus_ply(ply_path, nu, nv)
+    with open(path, "w") as f:
+        f.write(volume_text(str(ply_path), **kw))
+    return n_tris
+
+
 def config3_scenefile(path, ply_path, xres=256, yres=256, spp=8, maxdepth=4):
     """Config 3 as a scene file: :data:`MESH_SCENE`, the torus as a
     ``plymesh`` (written by :func:`write_torus_ply`) and :data:`FLOOR`, in
