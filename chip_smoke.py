@@ -176,7 +176,8 @@ Phases (any failure raises and the script exits non-zero):
    chunks x (5 x 3 march sweeps + 4 x 4 shadow segments), nothing else;
    the image finite and not black), then ``k2_frame`` (the 62 sweeps
    against the plain walk on the card, K2's time per sweep beside its
-   bound, the plain walk's time over every 8th sweep, frame seconds,
+   bound, the plain walk's time over every 8th sweep beside K2's mean
+   over those same sweeps, frame seconds,
    Mray/s from volpath's ``queries_per_sample``); ``--profile`` adds a
    profiled frame, whose ~960,000 launches take the profiler minutes to
    sum; (b) the same scene at 32x32, 2 spp, maxdepth
@@ -1162,8 +1163,13 @@ def k2_frame(label, r, sweeps, card, first=None, plain_stride=1):
     del timed_calls
     sweep_bounds = [bound(*w) for w in works]
     b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
-    log(f"  stream_walk8 on {label}'s sweeps: mean {np.mean(ms):.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}), {b_ms / np.mean(ms):.2%} of it; per sweep bound "
+    # the kernel's mean over the sweeps the plain walk was timed on, for a
+    # like-for-like ratio where the plain walk skips sweeps
+    ms_strided = float(np.mean(ms[::plain_stride]))
+    log(f"  stream_walk8 on {label}'s sweeps: mean {np.mean(ms):.4f} ms"
+        + (f" ({ms_strided:.4f} over every {plain_stride}th sweep, the plain walk's)"
+           if plain_stride > 1 else "")
+        + f", bound {b_ms:.5f} ms ({b_by}), {b_ms / np.mean(ms):.2%} of it; per sweep bound "
         f"{[round(x[0], 5) for x in sweep_bounds]} ms")
 
     median, times = timed(lambda: r.image(r.render()))
@@ -1174,7 +1180,8 @@ def k2_frame(label, r, sweeps, card, first=None, plain_stride=1):
     k2 = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=plain_ms, bound_ms=b_ms,
               bound_by=b_by, sweep_ms=ms, sweep_bound_ms=[x[0] for x in sweep_bounds],
               sweep_live=[st[0] for st in stats], sweep_segments=[st[3] for st in stats],
-              launches_per_frame=launches["stream_walk8"], plain_stride=plain_stride)
+              launches_per_frame=launches["stream_walk8"], plain_stride=plain_stride,
+              ms_at_plain_sweeps=ms_strided)
     return dict(first_frame_s=first_s, frame_s=median, frames_s=times,
                 mray_s=queries / median / 1e6, queries=queries, card=card), k2
 

@@ -12,10 +12,10 @@ whose shape declared a MediumInterface switches the lane's medium
 
 Null-material boundaries (shaped volumes: smoke in a ``Material ""``
 box): when the scene has null-material surfaces, each bounce marches up
-to ``passthrough_steps`` boundary crossings (medium sampling per segment,
+to ``PASSTHROUGH_STEPS`` boundary crossings (medium sampling per segment,
 a medium switch at each crossing, no depth consumed; area lights on the
 null surfaces crossed are collected with their MIS weight), and shadow
-rays multiply the transmittance of up to ``shadow_segments`` segments
+rays multiply the transmittance of up to ``SHADOW_SEGMENTS`` segments
 through the boundaries with closest-hit sweeps (pbrt-v3
 VisibilityTester::Tr).  A lane that spends the march's budget settles on
 the null hit, whose NONE material ends it; a shadow ray that spends its
@@ -23,9 +23,9 @@ segments counts as occluded.  Without null materials the march is one
 segment and the shadow ray one any-hit sweep.
 
 Grid media track with the stateless stream of ``media.make_track_rng``:
-salts 2048 + bounce * passthrough_steps + step for the march (its first
+salts 2048 + bounce * PASSTHROUGH_STEPS + step for the march (its first
 segment's first flight takes the sampler's dimension base + 7, the later
-segments' slot 100003 of their stream), 1024 + bounce * shadow_segments
+segments' slot 100003 of their stream), 1024 + bounce * SHADOW_SEGMENTS
 + segment for the shadow rays (1024 + bounce on the one-sweep path).
 
 Dimensions per bounce b, base = 5 + 10 b: the path integrator's seven
@@ -55,11 +55,13 @@ from pbrt_tpu_torch.media import hg_phase, hg_sample, make_track_rng
 from pbrt_tpu_torch.scene.builder import compute_interaction
 
 N_DIMS_PER_BOUNCE = 10
+# the reference's budgets; they also number the tracking streams' salts
+PASSTHROUGH_STEPS = 3
+SHADOW_SEGMENTS = 4
 
 
 class VolPathIntegrator(PathIntegrator):
-    def __init__(self, compiled, max_depth=5, rr_threshold=1.0, passthrough_steps=3,
-                 shadow_segments=4):
+    def __init__(self, compiled, max_depth=5, rr_threshold=1.0):
         super().__init__(compiled, max_depth, rr_threshold)
         self.media = compiled.media
         self._mat_types = np.asarray([e.type_id for e in compiled.materials], dtype=np.int32)
@@ -67,8 +69,8 @@ class VolPathIntegrator(PathIntegrator):
         # null-material surfaces need the segmented march, media or not: a
         # null shape must not occlude shadow rays
         has_null = bool((self._mat_types == B.NONE).any())
-        self.passthrough_steps = int(passthrough_steps) if has_null else 1
-        self.shadow_segments = int(shadow_segments) if has_null else 1
+        self.passthrough_steps = PASSTHROUGH_STEPS if has_null else 1
+        self.shadow_segments = SHADOW_SEGMENTS if has_null else 1
 
     def queries_per_sample(self):
         """(closest, shadow) sweeps per pixel-sample lane: every bounce

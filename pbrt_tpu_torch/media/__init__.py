@@ -35,6 +35,9 @@ from pbrt_tpu_torch.core.transform import Transform, apply_point
 log = logging.getLogger("pbrt_tpu_torch")
 
 _PCG_M, _PCG_A = 1664525, 1013904223
+# the grid's tracking trips, as the reference's; they also fix the slots
+# each trip draws (delta tracking: 0 .. 2 MAX_STEPS - 2, ratio: 0 .. MAX_STEPS - 1)
+MAX_STEPS = 64
 
 
 def make_track_rng(pixel_xy, sample_index, salt: int):
@@ -108,12 +111,13 @@ class GridDensityMedium(HomogeneousMedium):
     space (``world_to_medium``, a host 4x4)."""
 
     def __init__(self, sigma_a, sigma_s, g, density, world_to_medium, scale=1.0,
-                 max_steps=64, device="cuda"):
+                 device="cuda"):
         super().__init__(sigma_a, sigma_s, g, scale, device)
         density = np.asarray(density, dtype=float_t)
         self.density = torch.as_tensor(density, device=device)
+        # the far corners' values, gathered straight into the fused lerps
+        self._flat64 = self.density.reshape(-1).double()
         self.w2m = torch.as_tensor(np.asarray(world_to_medium).astype(float_t), device=device)
-        self.max_steps = int(max_steps)
         self.max_density = max(float(np.max(density)), 1e-9)
         # delta tracking needs a gray majorant: pbrt-v3 builds the grid
         # medium with a scalar sigma_t; warn and take the channel mean
@@ -141,39 +145,40 @@ class GridDensityMedium(HomogeneousMedium):
         fz = torch.clamp(gz - z0, 0, 1)
         flat = self.density.reshape(-1)
 
-        def at(z, y, x):
-            return flat[(z * ny + y) * nx + x]
-
         # the reference's compiled code fuses one product of each lerp into
-        # its add: the far corner's along x, the near one's along y and z
-        def lerp_x(a, b):
-            return fma(b, fx, a * (1 - fx))
+        # its add: the far corner's along x, the near one's along y and z.
+        # One rounding as core.geometry.fma gives it (float64 holds the
+        # float32 product exactly), with each factor cast once
+        omfx, fx64 = 1 - fx, fx.double()
 
-        def lerp_yz(a, b, f):
-            return fma(a, 1 - f, b * f)
+        def lerp_x(z, y):
+            row = (z * ny + y) * nx
+            return torch.addcmul((flat[row + x0] * omfx).double(), self._flat64[row + x1],
+                                 fx64).float()
 
-        c00 = lerp_x(at(z0, y0, x0), at(z0, y0, x1))
-        c01 = lerp_x(at(z0, y1, x0), at(z0, y1, x1))
-        c10 = lerp_x(at(z1, y0, x0), at(z1, y0, x1))
-        c11 = lerp_x(at(z1, y1, x0), at(z1, y1, x1))
-        c0 = lerp_yz(c00, c01, fy)
-        c1 = lerp_yz(c10, c11, fy)
-        return torch.where(inside, lerp_yz(c0, c1, fz), 0.0)
+        def lerp_yz(a, b, f, omf64):
+            return torch.addcmul((b * f).double(), a.double(), omf64).float()
+
+        omfy64 = (1 - fy).double()
+        c0 = lerp_yz(lerp_x(z0, y0), lerp_x(z0, y1), fy, omfy64)
+        c1 = lerp_yz(lerp_x(z1, y0), lerp_x(z1, y1), fy, omfy64)
+        return torch.where(inside, lerp_yz(c0, c1, fz, (1 - fz).double()), 0.0)
 
     @staticmethod
     def _flight(u, t, sig_bar):
         """t plus an exponential step of rate sig_bar.  The reference's
         compiled code divides by the constant as a product with its float32
-        reciprocal, fused into the add."""
+        reciprocal, fused into the add (one rounding, as in lerps)."""
         lg = torch.log(torch.clamp(1.0 - u, min=1e-10))
-        return fma(lg, torch.full_like(lg, -float(np.float32(1.0) / np.float32(sig_bar))), t)
+        return torch.add(t.double(), lg.double(),
+                         alpha=-float(np.float32(1.0) / np.float32(sig_bar))).float()
 
     def sample(self, o, d, u, t_hit, rng):
         """Delta tracking: exponential flights under the gray majorant
         sigma_t * max_density, each collision real with probability
-        density / max_density; ``max_steps`` trips over every lane (lanes
+        density / max_density; ``MAX_STEPS`` trips over every lane (lanes
         still tracking at the cap pass through).  u drives the first
-        flight, ``rng`` slots 0 .. 2 max_steps - 2 the rest.  Directions
+        flight, ``rng`` slots 0 .. 2 MAX_STEPS - 2 the rest.  Directions
         are unit length."""
         sig_bar = self.sigma_t_gray * self.max_density
         inv_max_d = 1.0 / self.max_density
@@ -183,7 +188,7 @@ class GridDensityMedium(HomogeneousMedium):
         scattered = ~esc & real
         active = ~esc & ~real
         t_scat = torch.where(scattered, t, t_hit)
-        for step in range(self.max_steps - 1):
+        for step in range(MAX_STEPS - 1):
             t_new = self._flight(rng(2 * step + 1), t, sig_bar)
             esc = t_new >= t_hit
             real = self.density_at(o + d * t_new[..., None]) * inv_max_d > rng(2 * step + 2)
@@ -198,13 +203,13 @@ class GridDensityMedium(HomogeneousMedium):
 
     def tr(self, o, d, t_max, rng):
         """Ratio tracking: each tentative collision scales Tr by
-        1 - density / max_density (gray); ``rng`` slots 0 .. max_steps - 1."""
+        1 - density / max_density (gray); ``rng`` slots 0 .. MAX_STEPS - 1."""
         sig_bar = self.sigma_t_gray * self.max_density
         inv_max_d = 1.0 / self.max_density
         t = torch.zeros_like(t_max)
         tr = torch.ones_like(t_max)
         active = torch.ones(t_max.shape, dtype=torch.bool, device=t_max.device)
-        for step in range(self.max_steps):
+        for step in range(MAX_STEPS):
             t_new = self._flight(rng(step), t, sig_bar)
             esc = t_new >= t_max
             dens = self.density_at(o + d * t_new[..., None])

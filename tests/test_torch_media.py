@@ -285,11 +285,38 @@ WorldEnd
 """
 
 
+SMOKE_ROOM = """
+MakeNamedMedium "smoke" "string type" "heterogeneous"
+    "rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.2 0.2 0.2] "float g" 0.3
+    "integer nx" 2 "integer ny" 2 "integer nz" 2 "point p0" [-5 -1 -7] "point p1" [5 6 5]
+    "float density" [0.2 1 0.5 0.1 0.8 0.3 1 0.6]
+MediumInterface "" "smoke"
+LookAt 0 3 -6  0 0 0  0 1 0
+Camera "perspective" "float fov" 45
+Sampler "halton" "integer pixelsamples" 8
+Integrator "volpath" "integer maxdepth" 3
+Film "image" "integer xresolution" [24] "integer yresolution" [24]
+WorldBegin
+LightSource "point" "rgb I" [60 60 60] "point from" [0 5 0]
+MediumInterface "smoke" "smoke"
+Material "matte" "rgb Kd" [0.7 0.7 0.7]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-4 0 -4  4 0 -4  4 0 4  -4 0 4]
+AttributeBegin
+  Translate 0 2.5 0
+  Shape "sphere" "float radius" 1
+AttributeEnd
+WorldEnd
+"""
+
+
 def test_null_sphere_in_vacuum_against_reference():
     """tests/test_media.py's null-material sphere over a lit floor with no
     medium: under volpath it casts no shadow (the segmented shadow march);
     under path, which a scene without media keeps, it shadows and stops
-    camera rays, as in the reference."""
+    camera rays, as in the reference.  Then the same room filled with a
+    grid medium and the sphere matte: no null material, so each shadow ray
+    is one any-hit sweep whose ratio tracking draws on salt 1024 + bounce."""
     from pbrt_tpu_torch.integrators.path import PathIntegrator
     from pbrt_tpu_torch.integrators.volpath import VolPathIntegrator
 
@@ -304,3 +331,10 @@ def test_null_sphere_in_vacuum_against_reference():
             assert got["image"][center].mean() > 0.1
         else:
             assert got["image"][center].mean() < 0.02
+
+    got = _port_render(SMOKE_ROOM)
+    vp = got["renderer"].integrator
+    assert type(vp) is VolPathIntegrator and len(got["renderer"].compiled.media) == 1
+    assert (vp.passthrough_steps, vp.shadow_segments) == (1, 1)
+    assert vp.queries_per_sample() == (3, 2)
+    _same_image(got["image"], _ref_render(SMOKE_ROOM)["image"])
