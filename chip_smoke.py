@@ -7,7 +7,9 @@ Run from the repository root:
     python3 chip_smoke.py --profile  # plus torch.profiler over one config-3, one
                                      # Cornell, one config-5, one config-4, one
                                      # scene-file, one volume and one bdpt
-                                     # frame (launches, device busy share)
+                                     # frame (launches, device busy share;
+                                     # phase 16 profiles its motion frame
+                                     # always)
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -155,14 +157,15 @@ Phases (any failure raises and the script exits non-zero):
    heightfield, a Loop-subdivided icosahedron at 4 levels, the five
    quadrics with the disk as the area light, a NURBS patch, a point light,
    every procedural texture under every mapping; 354,250 triangles) at
-   256x256, ``Sampler "sobol"``, 16 spp, maxdepth 5, 4 chunks: scene build
-   seconds and the triangle count, a first frame through ``cli.main``
-   (K2 x 36, nothing else; the image finite and not black), then
-   ``k2_frame`` (every 4th of the 36 sweeps against the plain walk on the
+   256x256, ``Sampler "sobol"``, 16 spp, maxdepth 3 (cut from 5 for phase 16), 4
+   chunks: scene build seconds and the triangle count, a first frame
+   through ``cli.main`` (K2 x 20, nothing else; the image finite and not
+   black), then ``k2_frame`` (every 4th of the 20 sweeps against the
+   plain walk on the
    card, K2's time per sweep, its mean over the checked sweeps beside
    their bound and the plain walk's time on them, frame seconds, Mray/s)
    and the card's
-   image against the CPU's at 32x32, 2 spp, maxdepth 3 under each of the
+   image against the CPU's at 32x32, 2 spp, maxdepth 2 (cut from 3 for phase 16) under each of the
    six samplers (one build per device, the samplers swapped in); (c)
    that scene at 64x64 with ``checkpoint_every=1`` in 4 chunks, stopped
    after 2 and resumed in a fresh ``Renderer``, against the uninterrupted
@@ -173,12 +176,13 @@ Phases (any failure raises and the script exits non-zero):
    camera, lights and floor in a homogeneous fog, the 50,176-triangle PLY
    torus under ``Material "subsurface"``, a null-material box of
    heterogeneous smoke with a 64^3 inline density grid, a spot light;
-   ``Integrator "volpath"``) at 256x256, 8 spp, maxdepth 5, 2 chunks,
-   through ``cli.main``: the file's parse seconds alone (262,144 inline
-   density values) and the scene build seconds, a first frame (K2 x 62: 2
-   chunks x (5 x 3 march sweeps + 4 x 4 shadow segments), nothing else;
-   the image finite and not black), then ``k2_frame`` (every 8th of the
-   62 sweeps against the plain walk on the card, K2's time per sweep, its
+   ``Integrator "volpath"``) at 256x256, 4 spp (cut from 8 for phase 16),
+   maxdepth 5, one chunk, through ``cli.main``: the file's parse seconds
+   alone (262,144 inline density values) and the scene build seconds, a
+   first frame (K2 x 31: 5 x 3 march sweeps + 4 x 4 shadow segments,
+   nothing else; the image finite and not black), then
+   ``k2_frame`` (every 8th of the 31 sweeps against the plain walk on the
+   card, K2's time per sweep, its
    mean over the checked sweeps beside their bound and the plain walk's
    time on them, frame seconds,
    Mray/s from volpath's ``queries_per_sample``); ``--profile`` adds a
@@ -200,28 +204,68 @@ Phases (any failure raises and the script exits non-zero):
    plain walk on the card, K2's time per sweep and its bound, frame
    seconds, Mray/s from BDPT's ``queries_per_sample``), and the film and
    the splat channel on the card against the CPU at 32x32, 2 spp,
-   maxdepth 3, each to phase 5's tolerance; (b) the same scene under
+   maxdepth 2 (cut from 3 for phase 16), each to phase 5's tolerance; (b) the same scene under
    ``Integrator "mlt" "integer mutationsperpixel" 8`` (65,536 chains, 11
    evaluations: K2 x 352, nothing else): seconds, acceptance and b; the
    image finite, not black, its mean within rtol 0.15 of (a)'s and b
    within rtol 0.1 of (a)'s mean luminance; at 32x32, one evaluation of a
    seeded 1,024-lane primary-sample table on the card against the CPU to
    phase 5's tolerance and the bootstrap b within rtol 1e-4; (c) phase
-   14's scene (64^3 grid) at 1 spp: one ``make_loss_fn`` step over all
+   14's scene (64^3 grid, maxdepth 5) at 1 spp: one ``make_loss_fn`` step over all
    65,536 pixels with ``remat=True`` (forward and forward+backward
    seconds, K2's launches in the forward and in the replay, which must
    launch it, peak memory, every leaf finite), a 4,096-pixel step with and
    without remat (gradients equal, both peaks), and every leaf on the card
-   against the CPU's at 16x16 (a 16^3 grid), to phase 10 (b)'s tolerance.
+   against the CPU's at 16x16 (a 16^3 grid, maxdepth 2), to phase 10 (b)'s tolerance;
+16. motion blur, SPPM and the environment and realistic cameras through
+   the pbrt command (written under ``build/chip_smoke/``): (a) config 3 as
+   a scene file whose PLY torus turns 30 degrees about its axis across
+   ``shutteropen 0 shutterclose 1`` (4 keyframes) while the camera moves
+   0.25 along x (``testscenes.config3_scenefile`` with ``rotate`` and
+   ``shift``), ``path`` at
+   256x256, 8 spp, maxdepth 4, 2 chunks, through ``cli.main``: scene
+   build seconds, a first frame (K7 ``anim_walk`` x 14: 2 chunks x (4
+   closest + 3 any-hit), nothing else; the image finite and not black),
+   every 4th of a recorded frame's sweeps through K7 against
+   ``anim_walk_plain`` run on the card (hit masks equal, t within rtol
+   1e-6, prims equal except on exact t ties, b0 and b1 within 2e-5), K7's
+   time per sweep beside its bound (rays in and out once, distinct node
+   and keyframe rows once, 25 ops a box test and 59 + 27 a blended
+   triangle test: the blend reads only the two keys of non-zero weight,
+   9 products and 9 fused multiply-adds), frame seconds (median of three after the first), the
+   launches and the card's busy share of a profiled frame, and the scene
+   at 32x32, 2 spp, maxdepth 3 on the card against the CPU to phase 5's
+   tolerance; (b) tests/test_motion_integrators.py's moving quad under
+   ``volpath``, ``bdpt`` and ``sppm`` and a moving (tessellated) sphere
+   under ``path``, 16x16, card against CPU (the quad's two triangles take
+   the brute-force sweep, the sphere K7), and the quad under ``mlt`` (4
+   mutations per pixel) through the pbrt command on both, held as phase 15 (b)
+   holds MLT: one evaluation of a seeded 1,024-lane table (the shutter
+   time from its dimension 4) to phase 5's tolerance, b within rtol 1e-4,
+   the acceptance within 0.05 and the image's mean within rtol 0.15; (c) config 3 under ``sppm``,
+   256x256, maxdepth 4, 16 iterations, photons and radius by default
+   (65,536 and 1% of the scene's diagonal): build seconds, the first
+   render (K2 x 192: 16 x (4 camera + 4 light-sample + 4 photon sweeps),
+   nothing else; the image finite and not black), every 4th recorded
+   sweep against the plain walk on the card (the phase rotating by one
+   each iteration, so that each of an iteration's 12 sweeps is checked
+   every 4th iteration), K2's time per sweep and its
+   bound, render seconds (median of two after the first), eager ops an
+   iteration outside the walks (a CPU count on a 24x24 torus), peak
+   memory, and 32x32 with 2 iterations card against CPU; (d) config 3
+   under ``Camera "environment"`` and under ``Camera "realistic" "string
+   lensfile" "biconvex-50mm-f8"``: a first frame each (K2 x 14), frame
+   seconds, and 32x32 card against CPU.
 
 The lines before the last are JSON objects: ``{"cornell": ...}``,
 ``{"config5": ...}``, ``{"gradients": ...}``, ``{"config4": ...}``,
 ``{"integrators": ...}``, ``{"scenefile": ...}``, ``{"volume": ...}``,
-``{"bdpt": ...}`` and one with an entry per kernel (K2's holds phase
-13's sweeps and launches under ``"scenefile"``, phase 14's under
-``"volume"`` with phase 15 (c)'s gradient launches, and phase 15's under
-``"bdpt"`` and ``"mlt"``); the last line is ``{"ok": true, "device":
-{...}}``.
+``{"bdpt": ...}``, ``{"motion": ...}`` and one with an entry per kernel
+(K2's holds phase 13's sweeps and launches under ``"scenefile"``, phase
+14's under ``"volume"`` with phase 15 (c)'s gradient launches, phase
+15's under ``"bdpt"`` and ``"mlt"`` and phase 16 (c)'s under ``"sppm"``;
+K7's launches are phase 16 (a)'s frame's); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -257,6 +301,9 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     "bitonic_merge": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:151"),
     # the payload columns the reference moves through every stage of K5
     "gather_rows": ("bitonic.cu", "pbrt_tpu/ops/sortnet.py:94"),
+    # motion blur's walk, which the reference runs as XLA code
+    "anim_walk": ("anim_walk.cu", "pbrt_tpu/ops/animated_intersect.py:176 _bvh_walk "
+                  "(jax.lax.while_loop; no Pallas kernel)"),
 }
 # the walks that cut a ray's walk into segments on sparse sweeps (K2 aside)
 SPLIT_WALKS = ("ordered_walk2", "skip_walk")
@@ -354,16 +401,17 @@ def per_sort(kname, n):
 
 
 def reset_counts():
-    from pbrt_tpu_torch.kernels import bitonic, bvh2_walk, bvh8_walk
+    from pbrt_tpu_torch.kernels import anim_walk, bitonic, bvh2_walk, bvh8_walk
 
-    for mod in (bvh8_walk, bvh2_walk, bitonic):
+    for mod in (bvh8_walk, bvh2_walk, bitonic, anim_walk):
         mod.reset_launch_counts()
 
 
 def read_counts():
-    from pbrt_tpu_torch.kernels import bitonic, bvh2_walk, bvh8_walk
+    from pbrt_tpu_torch.kernels import anim_walk, bitonic, bvh2_walk, bvh8_walk
 
-    return {**bvh8_walk.LAUNCHES, **bvh2_walk.LAUNCHES, **bitonic.LAUNCHES}
+    return {**bvh8_walk.LAUNCHES, **bvh2_walk.LAUNCHES, **bitonic.LAUNCHES,
+            **anim_walk.LAUNCHES}
 
 
 def record_walks(renderer):
@@ -1707,9 +1755,13 @@ def phase_integrators():
 
 
 CONFIG3_FILE = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
-SCENEFILE = dict(xres=256, yres=256, spp=16, maxdepth=5, ray_batch=1 << 18)
+# maxdepth 3, cut from 5 to make room for phase 16
+SCENEFILE = dict(xres=256, yres=256, spp=16, maxdepth=3, ray_batch=1 << 18)
+SCENEFILE_SWEEPS = 4 * (3 + 2)  # 4 chunks x (3 closest + 2 shadow)
 SCENEFILE_DIR = "build/chip_smoke"
 SAMPLERS = ("random", "stratified", "halton", "sobol", "02sequence", "maxmindist")
+# maxdepth 2, cut from 3 to make room for phase 16
+SAMPLER_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=2)
 CHECKPOINT = dict(xres=64, yres=64, ray_batch=1 << 14)  # 4 chunks of (b)'s 16 spp
 
 
@@ -1825,18 +1877,19 @@ def phase_scenefile(card, config3_image, profile=False):
         f"{type(walk).__name__} nodes {tuple(walk.nodes.shape)}, tris "
         f"{tuple(walk.tris.shape)}, depth {walk.depth}; launches {launches}; image mean "
         f"{img.mean():.6f} max {img.max():.4f}")
-    if launches != {"stream_walk8": 36}:
-        raise AssertionError(f"the scene file launched {launches}, want stream_walk8 x 36")
+    if launches != {"stream_walk8": SCENEFILE_SWEEPS}:
+        raise AssertionError(f"the scene file launched {launches}, want stream_walk8 x "
+                             f"{SCENEFILE_SWEEPS}")
     if not (np.isfinite(img).all() and img.max() > 0):
         raise AssertionError("the scene file's image is not finite or all black")
     # every 4th sweep checked against the plain walk and timed with it
-    frame, k2 = k2_frame("the scene file", r, 36, card, plain_stride=4)
+    frame, k2 = k2_frame("the scene file", r, SCENEFILE_SWEEPS, card, plain_stride=4)
     if profile:
         frame["profile"] = phase_profile("scene-file", r, frame["frame_s"])
     del got, r, walk
     # one build per device; each sampler takes the renderer's place in turn
     with open(f"{d}/parity.pbrt", "w") as f:
-        f.write(scenefile_text(ply, xres=32, yres=32, spp=2, maxdepth=3))
+        f.write(scenefile_text(ply, **SAMPLER_PARITY))
     rs = {}
     for dev in (DEVICE, "cpu"):
         api = PbrtAPI(Options(ray_batch=SCENEFILE["ray_batch"]), render_on_world_end=False,
@@ -1852,7 +1905,7 @@ def phase_scenefile(card, config3_image, profile=False):
         for dev, rr in rs.items():
             rr.sampler = make_sampler(name, pixelsamples)
             imgs[dev] = rr.image(rr.render(progress=False))
-        parity[name] = compare_images(f"{name} at 32x32, 2 spp, maxdepth 3", imgs[DEVICE],
+        parity[name] = compare_images(f"{name} at {SAMPLER_PARITY}", imgs[DEVICE],
                                       imgs["cpu"])
     del rs
     res["scenefile"] = dict(triangles=n_tri, build_s=build_s, cli_first_frame_s=first_s,
@@ -1919,7 +1972,10 @@ def phase_scenefile(card, config3_image, profile=False):
     return res, k2
 
 
-VOLUME = dict(xres=256, yres=256, spp=8, maxdepth=5, grid=64, ray_batch=1 << 18)
+# 4 spp, cut from 8 (2 chunks) to make room for phase 16; maxdepth 5 keeps
+# volpath's Russian roulette (bounces past 3) on the card
+VOLUME = dict(xres=256, yres=256, spp=4, maxdepth=5, grid=64, ray_batch=1 << 18)
+VOLUME_SWEEPS = 5 * 3 + 4 * 4  # one chunk: 5 x 3 march + 4 x 4 shadow-segment sweeps
 VOLUME_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3, grid=16)
 TRACK_LANES = 262144
 TRACK_MASK_SHARE = 1e-4  # scattered masks may differ on this share of lanes
@@ -1966,7 +2022,7 @@ def compare_tracking(label, medium, n, seed=0):
 
 def phase_volume(card, profile=False):
     """Phase 14: participating media.  (a) the fog-and-smoke scene file at
-    full width through ``cli.main`` (K2's 62 sweeps against its plain walk,
+    full width through ``cli.main`` (K2's 31 sweeps against its plain walk,
     frame seconds); (b) at 32x32 on the card against the CPU; (c) the
     smoke's delta and ratio tracking on 262,144 lanes, card against CPU."""
     import os
@@ -2009,13 +2065,15 @@ def phase_volume(card, profile=False):
         f"({closest}, {shadow}) sweeps per lane; launches {launches}; image mean "
         f"{img.mean():.6f} max {img.max():.4f}")
     sweeps = frame_chunks(r) * (closest + shadow)
-    if (closest, shadow) != (15, 16) or sweeps != 62 or launches != {"stream_walk8": 62}:
-        raise AssertionError(f"the volume scene launched {launches}, want stream_walk8 x 62")
+    if (closest, shadow) != (15, 16) or sweeps != VOLUME_SWEEPS or launches != {
+            "stream_walk8": VOLUME_SWEEPS}:
+        raise AssertionError(f"the volume scene launched {launches}, want stream_walk8 x "
+                             f"{VOLUME_SWEEPS}")
     if not (np.isfinite(img).all() and img.max() > 0):
         raise AssertionError("the volume scene's image is not finite or all black")
     # cli.main's frame counted the launches; every 8th sweep is checked
     # against the plain walk and timed with it
-    frame, k2 = k2_frame("the volume scene", r, 62, card,
+    frame, k2 = k2_frame("the volume scene", r, VOLUME_SWEEPS, card,
                          first=(got["seconds"], launches, img), plain_stride=8)
     if profile:
         frame["profile"] = phase_profile("volume", r, frame["frame_s"])
@@ -2049,13 +2107,13 @@ BDPT = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
 BDPT_BATCH = 1 << 18  # 2 chunks
 BDPT_STRIDE = 4  # every 4th sweep checked against the plain walk
 BDPT_SWEEPS = 2 * (9 + 23)  # 2 chunks x (9 closest + 23 any-hit) at maxdepth 4
-BDPT_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3)
+BDPT_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=2)  # cut from 3 for phase 16
 MLT_MUTATIONS = 8  # the scene's mutationsperpixel (tests/test_mlt.py pins it)
 MLT_EVALUATIONS = 11  # 65,536 chains: 2 bootstrap rounds, the seeding, 8 iterations
 MLT_TABLE = 1024  # lanes of the seeded primary-sample table, card against CPU
 VOLGRAD = dict(xres=256, yres=256, spp=1, maxdepth=5, grid=64)  # phase 14's scene
 VOLGRAD_REMAT_PIXELS = 4096
-VOLGRAD_PARITY = dict(xres=16, yres=16, spp=2, maxdepth=3, grid=16)
+VOLGRAD_PARITY = dict(xres=16, yres=16, spp=2, maxdepth=2, grid=16)  # depth 3 before phase 16
 
 
 def phase_bdpt(card, profile=False):
@@ -2310,6 +2368,387 @@ def phase_volpath_grad(card, d):
     return out, dict(grad_launches_forward=k2_fwd, grad_launches_backward=k2_bwd)
 
 
+MOTION = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3, moving
+MOTION_BATCH = 1 << 18  # 2 chunks
+MOTION_ROTATE, MOTION_SHIFT = 30.0, 0.25  # the torus's turn (degrees), the camera's move
+MOTION_KEYS = 4  # the torus's 30-degree turn: 4 keyframes (core/animated.n_keys)
+MOTION_SWEEPS = 2 * (4 + 3)  # K7: 2 chunks x (4 closest + 3 any-hit) at maxdepth 4
+MOTION_STRIDE = 4  # every 4th sweep checked against the plain walk
+MOTION_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3)
+
+
+def blend_ops(n_keys):
+    """Float ops of one triangle's blend in K7: at most two hat weights
+    are non-zero, and only those keys' rows are read: 9 products, then 9
+    fused multiply-adds (2 ops each) when a second key counts: 27 ops, 9
+    at K = 1."""
+    return 9 * (2 * min(n_keys, 2) - 1)
+
+
+SPPM_FULL = dict(xres=256, yres=256, spp=1, maxdepth=4)
+SPPM_ITERATIONS = 16
+SPPM_SWEEPS = SPPM_ITERATIONS * (4 + 4 + 4)  # camera closest + light samples + photons
+SPPM_STRIDE = 4
+SPPM_PARITY = dict(xres=32, yres=32, spp=1, maxdepth=4)
+SPPM_PARITY_ITERATIONS = 2
+CAMERA_LINES = {
+    "environment": 'Camera "environment"',
+    "realistic": 'Camera "realistic" "string lensfile" "biconvex-50mm-f8"',
+}
+
+
+def record_anim_walks(renderer):
+    """Render one frame, keeping what the keyframed intersector hands K7 on
+    every sweep: (nodes_f, nodes_i, keys, 7 ray columns, time, any_hit)."""
+    import torch
+
+    from pbrt_tpu_torch.ops import animated_intersect
+
+    calls = []
+    orig = animated_intersect.anim_walk
+
+    def wrapped(nodes_f, nodes_i, keys, comps, time_, any_hit=False):
+        calls.append((nodes_f, nodes_i, keys, tuple(c.clone() for c in comps), time_.clone(),
+                      any_hit))
+        return orig(nodes_f, nodes_i, keys, comps, time_, any_hit)
+
+    animated_intersect.anim_walk = wrapped
+    try:
+        renderer.render()
+        torch.cuda.synchronize()
+    finally:
+        animated_intersect.anim_walk = orig
+    return calls
+
+
+def check_anim(label, call):
+    """K7 against its plain version run on the card on one recorded sweep,
+    by phase 3's rules (``anim_walk.anim_disagreement``).  Returns (max
+    |dt| over hit lanes, (bytes, ops) of the work counted by the plain
+    version: rays in and out once, distinct node rows (48 bytes) and
+    triangles' keyframe rows (K x 36 bytes) once, 25 ops a box test and
+    59 + ``blend_ops(K)`` a blended triangle test; the plain version's
+    ms: this one run, with its work counters on, by CUDA events)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.kernels import anim_walk
+    from pbrt_tpu_torch.kernels.bvh8_walk import counted
+
+    nodes_f, nodes_i, keys, comps, tm, any_hit = call
+    kern = anim_walk.anim_walk(nodes_f, nodes_i, keys, comps, tm, any_hit)
+    torch.cuda.synchronize()
+    counters, out = {}, []
+    plain_ms = cuda_ms(lambda: out.append(anim_walk.anim_walk_plain(
+        nodes_f, nodes_i, keys, comps, tm, any_hit, counters)), 1, warmup=False)
+    host = lambda v: [x.cpu().numpy() for x in v]  # noqa: E731
+    o = np.stack(host(comps[0:3]), 1)
+    d = np.stack(host(comps[3:6]), 1)
+    t_max = comps[6].cpu().numpy()
+    got, want = host(kern), host(out[0])
+    problem = anim_walk.anim_disagreement(got, want, keys.cpu().numpy(), o, d,
+                                          tm.cpu().numpy(), any_hit)
+    if problem is not None:
+        raise AssertionError(f"anim_walk {label} (any_hit={any_hit}): {problem}")
+    hit = want[1] >= 0
+    err = 0.0 if any_hit or not hit.any() else float(np.abs(got[0][hit] - want[0][hit]).max())
+    live = int((t_max > 1e-4).sum())
+    log(f"  anim_walk {label} {'any-hit' if any_hit else 'closest'}: {len(t_max)} rays, "
+        f"{live} live, {int(hit.sum())} hit, max |dt| {err:.3e}, plain {plain_ms:.1f} ms")
+    c = counted(counters)
+    k = keys.shape[1]
+    n_bytes = len(t_max) * (32 + 16) + c["node_rows"] * 48 + c["leaf_rows"] * k * 36
+    n_ops = c["slab_tests"] * SLAB_OPS + c["tri_tests"] * (TRI_OPS + blend_ops(k))
+    return err, (n_bytes, n_ops), plain_ms
+
+
+def eager_ops(r):
+    """Eager PyTorch ops of one ``r.render()`` outside the intersector's
+    calls (a dispatch counter; the walks' plain versions excluded)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    itx = r.compiled.intersector
+    on = [True]
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += on[0]
+            return func(*args, **(kwargs or {}))
+
+    def quiet(f):
+        def g(*a, **k):
+            on[0] = False
+            try:
+                return f(*a, **k)
+            finally:
+                on[0] = True
+        return g
+
+    itx.intersect, itx.occluded = quiet(itx.intersect), quiet(itx.occluded)
+    try:
+        with Count():
+            r.render(progress=False)
+    finally:
+        del itx.intersect, itx.occluded
+    return Count.n
+
+
+def phase_motion(card):
+    """Phase 16: motion blur, SPPM and the environment and realistic
+    cameras through the pbrt command.  (a) config 3 with a turning torus
+    and a moving camera at full width (K7 x 14, every 4th sweep against
+    its plain version on the card, frame seconds, busy share; 32x32 card
+    against CPU); (b) the moving quad under volpath, bdpt, sppm and mlt
+    and a moving sphere, card against CPU; (c) config 3 under sppm at full width
+    (K2 x 192, every 4th sweep against the plain walk, render seconds,
+    eager ops per iteration, peak memory; 32x32 card against CPU); (d)
+    config 3 under the environment and realistic cameras (a frame each,
+    K2 x 14, and 32x32 card against CPU)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.testscenes import (
+        MOVING_SPHERE,
+        config3_scenefile,
+        mesh_scene_renderer,
+        motion_quad_text,
+        write_torus_ply,
+    )
+
+    os.makedirs(SCENEFILE_DIR, exist_ok=True)
+    d = os.path.abspath(SCENEFILE_DIR)
+    ply = f"{d}/torus.ply"
+    write_torus_ply(ply)
+    batch = str(MOTION_BATCH)
+    res = {}
+
+    log(f"== phase 16 (a): config 3 in motion through cli.main (the torus turns 30 degrees, "
+        f"the camera moves 0.25 along x), {MOTION}, ray_batch {batch}")
+    config3_scenefile(f"{d}/motion.pbrt", ply, **MOTION, rotate=MOTION_ROTATE,
+                      shift=MOTION_SHIFT)
+    got, build_s, launches = cli_render([f"{d}/motion.pbrt", "--ray-batch", batch, "-o",
+                                         f"{d}/motion.pfm", "-q"])
+    r = got["renderer"]
+    img = got["image"]
+    n_keys = r.compiled.tables["_flags"]["animated_keys"]
+    qps = r.integrator.queries_per_sample()
+    log(f"  cli.main: build {build_s:.2f} s, first frame {got['seconds']:.3f} s, "
+        f"{r.compiled.tri_data.count} triangles in {n_keys} keyframes, camera keyframes "
+        f"{tuple(r.camera._anim_c2w.shape)}, {qps} sweeps per lane, launches {launches}; "
+        f"image mean {img.mean():.6f} max {img.max():.4f}")
+    if n_keys != MOTION_KEYS or launches != {"anim_walk": MOTION_SWEEPS}:
+        raise AssertionError(f"the motion frame: {n_keys} keys, launches {launches}, want "
+                             f"{MOTION_KEYS} keys and anim_walk x {MOTION_SWEEPS}")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("the motion frame's image is not finite or all black")
+    calls = record_anim_walks(r)
+    if len(calls) != MOTION_SWEEPS:
+        raise AssertionError(f"the motion frame: recorded {len(calls)} K7 sweeps")
+    works, plain, err = [], [], 0.0
+    for i, call in enumerate(calls[::MOTION_STRIDE]):
+        e, work, p_ms = check_anim(f"motion sweep {i * MOTION_STRIDE}", call)
+        err = max(err, e)
+        works.append(work)
+        plain.append(p_ms)
+    from pbrt_tpu_torch.kernels.anim_walk import anim_walk as k7
+
+    ms = [cuda_ms(lambda: k7(*c[:5], any_hit=c[5]), 20) for c in calls]
+    del calls
+    b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
+    ms_checked = float(np.mean(ms[::MOTION_STRIDE]))
+    log(f"  anim_walk per sweep {[round(t, 4) for t in ms]} ms: mean {np.mean(ms):.4f} ms "
+        f"({ms_checked:.4f} over the checked sweeps, bound {b_ms:.5f} ms ({b_by}), "
+        f"{b_ms / ms_checked:.2%} of it); plain on the card {[round(t, 1) for t in plain]} ms")
+    median, times = timed(lambda: r.image(r.render()))
+    queries = PIXELS * MOTION["spp"] * sum(qps)
+    prof = phase_profile("motion", r, median)
+    log(f"  motion frame {median:.4f} s ({[round(x, 4) for x in times]}), "
+        f"{queries / median / 1e6:.3f} Mray/s, {prof['launches']} launches, card busy "
+        f"{prof['device_s'] / median:.1%}, on {card}")
+    res["motion"] = dict(build_s=build_s, keys=n_keys, launches=launches, frame_s=median,
+                         frames_s=times, mray_s=queries / median / 1e6,
+                         kernel_launches=prof["launches"], device_s=prof["device_s"],
+                         busy_share=prof["device_s"] / median, card=card)
+    k7_res = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(plain)),
+                  bound_ms=b_ms, bound_by=b_by, library_ms=None, sweep_ms=ms,
+                  ms_at_plain_sweeps=ms_checked, plain_stride=MOTION_STRIDE,
+                  launches_per_frame=launches["anim_walk"])
+    del got, r
+    config3_scenefile(f"{d}/motion_small.pbrt", ply, **MOTION_PARITY, rotate=MOTION_ROTATE,
+                      shift=MOTION_SHIFT)
+    imgs = {dev: cli_render([f"{d}/motion_small.pbrt", "--ray-batch", batch, "-o",
+                             f"{d}/motion_small_{dev}.pfm", "-q"], device=dev)[0]["image"]
+            for dev in (DEVICE, "cpu")}
+    res["motion"]["parity"] = compare_images("the motion scene at 32x32", imgs[DEVICE],
+                                             imgs["cpu"])
+
+    log("== phase 16 (b): the moving quad under volpath, bdpt, sppm and mlt, and a moving "
+        "sphere under path, 16x16, card against CPU")
+    quad = {"volpath": motion_quad_text("volpath"), "bdpt": motion_quad_text("bdpt"),
+            "sppm": motion_quad_text("sppm", extra='"integer numiterations" 4 '
+                                     '"integer photonsperiteration" 4096'),
+            "moving sphere": motion_quad_text("path", sphere=MOVING_SPHERE)}
+    res["motion_integrators"] = {}
+    for label, text in quad.items():
+        with open(f"{d}/quad.pbrt", "w") as f:
+            f.write(text)
+        imgs, quad_launches = {}, None
+        for dev in (DEVICE, "cpu"):
+            rendered, _, lc = cli_render([f"{d}/quad.pbrt", "-o", f"{d}/quad_{dev}.pfm", "-q"],
+                                         device=dev)
+            imgs[dev] = rendered["image"]
+            quad_launches = lc if dev == DEVICE else quad_launches
+        log(f"  {label}: launches {quad_launches}")
+        if label == "moving sphere" and not quad_launches.get("anim_walk"):
+            raise AssertionError("the moving sphere's frame did not launch anim_walk")
+        res["motion_integrators"][label] = dict(
+            launches=quad_launches, parity=compare_images(f"{label} at 16x16", imgs[DEVICE],
+                                                          imgs["cpu"]))
+    # mlt accepts or rejects on ratios of its target, so it is held as
+    # phase 15 (b) holds it: one evaluation of a seeded table (its time
+    # from the table's dimension 4) and b, card against CPU
+    with open(f"{d}/quad.pbrt", "w") as f:
+        f.write(motion_quad_text("mlt", spp=1, extra='"integer mutationsperpixel" 4'))
+    mlt = {}
+    for dev in (DEVICE, "cpu"):
+        rendered, _, lc = cli_render([f"{d}/quad.pbrt", "-o", f"{d}/quad_mlt_{dev}.pfm", "-q"],
+                                     device=dev)
+        rr, img = rendered["renderer"], rendered["image"]
+        m = rr.integrator
+        u = np.random.default_rng(7).uniform(size=(MLT_TABLE, m.n_dims)).astype(np.float32)
+        with torch.no_grad():
+            ev = m._evaluate(torch.as_tensor(u, device=dev), rr.film)
+        mlt[dev] = dict(ev=[x.cpu().numpy() for x in ev[:3]], img=img, b=m.last_b,
+                        acceptance=m.last_acceptance, launches=lc)
+        del rendered, rr, m
+    got, want = mlt[DEVICE], mlt["cpu"]
+    log(f"  mlt: launches {got['launches']}; b card {got['b']:.7f} cpu {want['b']:.7f}, "
+        f"acceptance card {got['acceptance']:.4f} cpu {want['acceptance']:.4f}, image mean "
+        f"card {got['img'].mean():.6f} cpu {want['img'].mean():.6f}")
+    parity = {name: compare_images(f"mlt evaluation of {MLT_TABLE} lanes at 16x16: {name}",
+                                   g.reshape(MLT_TABLE, -1), w.reshape(MLT_TABLE, -1))
+              for name, g, w in zip(("p_film", "L", "f"), got["ev"], want["ev"])}
+    if not (np.isfinite(got["img"]).all() and got["img"].max() > 0):
+        raise AssertionError("mlt over the moving quad: the card's image is not finite or black")
+    if (abs(got["b"] - want["b"]) > 1e-4 * abs(want["b"])
+            or abs(got["acceptance"] - want["acceptance"]) > 0.05
+            or abs(got["img"].mean() - want["img"].mean()) > 0.15 * want["img"].mean()):
+        raise AssertionError("mlt over the moving quad: b, acceptance or image mean differ "
+                             "between the card and the CPU")
+    res["motion_integrators"]["mlt"] = dict(
+        launches=got["launches"], parity=parity, b_card=got["b"], b_cpu=want["b"],
+        acceptance_card=got["acceptance"], acceptance_cpu=want["acceptance"],
+        image_mean_card=float(got["img"].mean()), image_mean_cpu=float(want["img"].mean()))
+
+    log(f"== phase 16 (c): config 3 under sppm through cli.main, {SPPM_FULL}, "
+        f"{SPPM_ITERATIONS} iterations, default photons and radius")
+    sppm = f'"integer numiterations" {SPPM_ITERATIONS}'
+    config3_scenefile(f"{d}/sppm.pbrt", ply, **SPPM_FULL, integrator="sppm", extra=sppm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got, build_s, launches = cli_render([f"{d}/sppm.pbrt", "--ray-batch", batch, "-o",
+                                         f"{d}/sppm.pfm", "-q"])
+    peak = torch.cuda.max_memory_allocated()
+    r = got["renderer"]
+    sp = r.integrator
+    img = got["image"]
+    first_s = got["seconds"]
+    log(f"  cli.main: build {build_s:.2f} s, first render {got['seconds']:.3f} s, "
+        f"{sp.last_evaluations} iterations of {sp.last_lanes // sp.last_evaluations} camera "
+        f"lanes and {sp.last_photon_sweeps // sp.last_evaluations // sp.max_depth} photons, "
+        f"launches {launches}, peak memory {peak / 2**30:.3f} GiB; image mean "
+        f"{img.mean():.6f} max {img.max():.4f}")
+    if launches != {"stream_walk8": SPPM_SWEEPS}:
+        raise AssertionError(f"sppm launched {launches}, want stream_walk8 x {SPPM_SWEEPS}")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("the sppm image is not finite or all black")
+    walk = r.compiled.intersector.walk
+    calls = record_walks(r)
+    if len(calls) != SPPM_SWEEPS:
+        raise AssertionError(f"sppm: recorded {len(calls)} sweeps")
+    # every 4th sweep, the phase rotating by one each iteration, so that
+    # each of an iteration's 12 sweeps (4 camera, 4 light-sample, 4 photon)
+    # is checked in every 4th iteration
+    per_iteration = SPPM_SWEEPS // SPPM_ITERATIONS
+    checked = [i for i in range(SPPM_SWEEPS) if (i + i // per_iteration) % SPPM_STRIDE == 0]
+    timed_calls, works, stats, plain, err = [], [], [], [], 0.0
+    for i, (o, dd, t_max, any_hit) in enumerate(calls):
+        if i not in checked:
+            timed_calls.append(kernel_call("stream_walk8", walk, o, dd, t_max, any_hit))
+            stats.append(None)
+            continue
+        e, call, work, st, p_ms = check_walk("stream_walk8", f"sppm sweep {i}", walk, o, dd,
+                                             t_max, any_hit)
+        err = max(err, e)
+        timed_calls.append(call)
+        works.append(work)
+        stats.append(st)
+        plain.append(p_ms)
+    del calls
+    ms = [cuda_ms(lambda: fn(*args, **kw), 5) for fn, args, kw in timed_calls]
+    del timed_calls
+    b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
+    ms_checked = float(np.mean([ms[i] for i in checked]))
+    log(f"  stream_walk8 on the sppm sweeps: mean {np.mean(ms):.4f} ms ({ms_checked:.4f} "
+        f"over the {len(checked)} checked sweeps, bound {b_ms:.5f} ms ({b_by}), "
+        f"{b_ms / ms_checked:.2%} of it); the first iteration's "
+        f"{[round(t, 4) for t in ms[:per_iteration]]} ms; plain on the card "
+        f"{np.mean(plain):.1f} ms a checked sweep")
+    median, times = timed(lambda: r.image(r.render()), reps=2)
+    del r, got
+    small = mesh_scene_renderer(xres=16, yres=16, spp=1, maxdepth=SPPM_FULL["maxdepth"],
+                                nu=24, nv=24, device="cpu", integrator="sppm",
+                                extra='"integer numiterations" 1')[0]
+    ops = eager_ops(small)
+    log(f"  sppm render {median:.3f} s ({[round(x, 3) for x in times]}) for "
+        f"{SPPM_ITERATIONS} iterations on {card}; {ops} eager ops an iteration outside the "
+        "walks (a CPU count)")
+    res["sppm"] = dict(build_s=build_s, first_s=first_s, launches=launches,
+                       render_s=median, renders_s=times, eager_ops_per_iteration=ops,
+                       peak_bytes=peak, iterations=SPPM_ITERATIONS, card=card)
+    k2_sppm = dict(launches=launches["stream_walk8"], ms=float(np.mean(ms)),
+                   ms_at_plain_sweeps=ms_checked, bound_ms=b_ms, bound_by=b_by,
+                   plain_ms=float(np.mean(plain)), max_abs_err=err, plain_stride=SPPM_STRIDE,
+                   sweep_ms=ms)
+    config3_scenefile(f"{d}/sppm_small.pbrt", ply, **SPPM_PARITY, integrator="sppm",
+                      extra=f'"integer numiterations" {SPPM_PARITY_ITERATIONS}')
+    imgs = {dev: cli_render([f"{d}/sppm_small.pbrt", "--ray-batch", batch, "-o",
+                             f"{d}/sppm_small_{dev}.pfm", "-q"], device=dev)[0]["image"]
+            for dev in (DEVICE, "cpu")}
+    res["sppm"]["parity"] = compare_images("sppm at 32x32", imgs[DEVICE], imgs["cpu"])
+
+    res["cameras"] = {}
+    for name, line in CAMERA_LINES.items():
+        log(f"== phase 16 (d): config 3 under {line}, {MOTION}")
+        config3_scenefile(f"{d}/{name}.pbrt", ply, **MOTION, camera=line)
+        got, build_s, launches = cli_render([f"{d}/{name}.pbrt", "--ray-batch", batch, "-o",
+                                             f"{d}/{name}.pfm", "-q"])
+        r = got["renderer"]
+        img = got["image"]
+        if launches != {"stream_walk8": 14} or type(r.camera).__name__ == "PerspectiveCamera":
+            raise AssertionError(f"{name}: camera {type(r.camera).__name__}, launches "
+                                 f"{launches}, want stream_walk8 x 14")
+        if not (np.isfinite(img).all() and img.max() > 0):
+            raise AssertionError(f"{name}: image not finite or all black")
+        median, times = timed(lambda: r.image(r.render()))
+        log(f"  {name}: build {build_s:.2f} s, first frame {got['seconds']:.3f} s, launches "
+            f"{launches}, frame {median:.4f} s ({[round(x, 4) for x in times]}) on {card}; "
+            f"image mean {img.mean():.6f}, {(img.max(axis=-1) > 0).mean():.3f} of pixels lit")
+        del got, r
+        config3_scenefile(f"{d}/{name}_small.pbrt", ply, **MOTION_PARITY, camera=line)
+        imgs = {dev: cli_render([f"{d}/{name}_small.pbrt", "--ray-batch", batch, "-o",
+                                 f"{d}/{name}_small_{dev}.pfm", "-q"], device=dev)[0]["image"]
+                for dev in (DEVICE, "cpu")}
+        res["cameras"][name] = dict(
+            build_s=build_s, launches=launches, frame_s=median, frames_s=times, card=card,
+            parity=compare_images(f"{name} camera at 32x32", imgs[DEVICE], imgs["cpu"]))
+    return res, k7_res, k2_sppm
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -2325,10 +2764,10 @@ def main(argv=None):
     log(f"== phase 1: torch {torch.__version__} cuda {torch.version.cuda}; card:")
     log(card)
 
-    from pbrt_tpu_torch.kernels import bitonic, build, bvh2_walk, bvh8_walk
+    from pbrt_tpu_torch.kernels import anim_walk, bitonic, build, bvh2_walk, bvh8_walk
 
     seconds = build.build()
-    for mod in (bvh8_walk, bvh2_walk, bitonic):
+    for mod in (bvh8_walk, bvh2_walk, bitonic, anim_walk):
         mod.load_library()
     log(f"== phase 2: kernels built in {seconds:.2f} s (one nvcc per source, together)")
     for src, text in build.build_logs.items():
@@ -2391,6 +2830,9 @@ def main(argv=None):
         card, args.profile)
     kern["stream_walk8"]["volume"].update(k2_grad)
     print(json.dumps({"bdpt": bdpt}))
+    motion, kern["anim_walk"], kern["stream_walk8"]["sppm"] = phase_motion(card)
+    launches["anim_walk"] = kern["anim_walk"]["launches_per_frame"]
+    print(json.dumps({"motion": motion}))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

@@ -2,21 +2,36 @@
 ``pbrt_tpu/cameras/__init__.py``).
 
 The perspective and orthographic cameras (with thin-lens depth of
-field) are ported, and the pinhole perspective camera's importance
-(``supports_light_tracing``, ``pdf_we_dir``, ``project``: pbrt-v3's
-Pdf_We and We raster computation), which BDPT's light-tracing
-strategies and their MIS densities read.  Environment and realistic
-cameras and camera motion blur wait for ROADMAP Queue 1 item 8.
+field), the environment camera (``EnvironmentCamera``: the whole sphere
+of directions in lat-long) and the lens-system camera
+(``cameras/realistic.py``), and the pinhole perspective camera's
+importance (``supports_light_tracing``, ``pdf_we_dir``, ``project``:
+pbrt-v3's Pdf_We and We raster computation), which BDPT's light-tracing
+strategies and their MIS densities read.
+
+Camera motion blur (the projective cameras): ``set_animation`` keeps the
+camera-to-world matrices keyframed across the shutter on the host
+(``core/animated.py``), and ``generate_rays(p_film, u_lens, u_time)``
+blends them per lane with the hat weights of its shutter time; without
+``u_time`` (ray differentials, SPPM's camera rays) the static
+camera-to-world applies, as in the reference.  A realistic camera whose
+lens file cannot be read logs an error and falls back to a perspective
+camera, as in the reference.
 """
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
+from pbrt_tpu_torch import PI, float_t
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
 from pbrt_tpu_torch.core.transform import Transform, apply_point, apply_vector
+from pbrt_tpu_torch.ops.animated_intersect import time_weights
+
+log = logging.getLogger("pbrt_tpu_torch")
 
 
 def _screen_window(frame_aspect, screen_window_param=None):
@@ -57,10 +72,29 @@ class ProjectiveCamera:
         else:
             self.film_area = 1.0
         self.cam_pos_world = np.asarray(camera_to_world.apply_p(np.zeros(3)), dtype=float_t)
+        self._anim_c2w = None  # [K, 4, 4] keyframes when the camera moves
 
-    def _to_world(self, o, d):
-        d_w = apply_vector(self._c2w, d)
-        return apply_point(self._c2w, o), d_w / torch.linalg.norm(d_w, dim=-1, keepdim=True)
+    def set_animation(self, key_transforms):
+        """Camera motion blur: the camera-to-world matrices at K shutter
+        times (decompose + slerp on the host, ``core/animated.py``)."""
+        self._anim_c2w = torch.as_tensor(
+            np.stack([t.m for t in key_transforms]).astype(float_t), device=self._c2w.device)
+
+    def _to_world(self, o, d, u_time=None):
+        """Camera-space (o, d) -> world, blended per lane between the
+        keyframed matrices when the camera moves and ``u_time`` is given;
+        d normalized."""
+        if self._anim_c2w is None or u_time is None:
+            o_w, d_w = apply_point(self._c2w, o), apply_vector(self._c2w, d)
+        else:
+            w = time_weights(torch.broadcast_to(u_time, o.shape[:-1]).to(torch.float32),
+                             self._anim_c2w.shape[0])
+            m = w[:, 0, None, None] * self._anim_c2w[0]
+            for k in range(1, self._anim_c2w.shape[0]):
+                m = m + w[:, k, None, None] * self._anim_c2w[k]
+            o_w = torch.sum(m[:, :3, :3] * o[:, None, :], dim=-1) + m[:, :3, 3]
+            d_w = torch.sum(m[:, :3, :3] * d[:, None, :], dim=-1)
+        return o_w, d_w / torch.linalg.norm(d_w, dim=-1, keepdim=True)
 
 
 class PerspectiveCamera(ProjectiveCamera):
@@ -70,8 +104,9 @@ class PerspectiveCamera(ProjectiveCamera):
         super().__init__(camera_to_world, Transform.perspective(fov_deg, 1e-2, 1000.0),
                          resolution, screen_window, lens_radius, focal_distance, device)
 
-    def generate_rays(self, p_film, u_lens=None):
-        """p_film: [N, 2] raster samples -> (origin, dir [N, 3], weight [N])."""
+    def generate_rays(self, p_film, u_lens=None, u_time=None):
+        """p_film: [N, 2] raster samples, u_lens [N, 2], u_time [N] shutter
+        times -> (origin, dir [N, 3], weight [N])."""
         n = p_film.shape[0]
         p_raster = torch.cat([p_film, torch.zeros_like(p_film[:, :1])], dim=-1)
         p_camera = apply_point(self._r2c, p_raster)
@@ -83,7 +118,7 @@ class PerspectiveCamera(ProjectiveCamera):
             o = torch.cat([p_lens, torch.zeros_like(p_lens[:, :1])], dim=-1)
             d = p_focus - o
             d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        o_w, d_w = self._to_world(o, d)
+        o_w, d_w = self._to_world(o, d, u_time)
         return o_w, d_w, torch.ones(n, dtype=torch.float32, device=p_film.device)
 
     # -- camera importance (pinhole only: BDPT's light tracing) -------------
@@ -127,8 +162,9 @@ class OrthographicCamera(ProjectiveCamera):
         super().__init__(camera_to_world, Transform.orthographic(0.0, 1.0), resolution,
                          screen_window, lens_radius, focal_distance, device)
 
-    def generate_rays(self, p_film, u_lens=None):
-        """p_film: [N, 2] raster samples -> (origin, dir [N, 3], weight [N])."""
+    def generate_rays(self, p_film, u_lens=None, u_time=None):
+        """p_film: [N, 2] raster samples, u_lens [N, 2], u_time [N] shutter
+        times -> (origin, dir [N, 3], weight [N])."""
         n = p_film.shape[0]
         o = apply_point(self._r2c, torch.cat([p_film, torch.zeros_like(p_film[:, :1])], dim=-1))
         d = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=o.device).expand(n, 3)
@@ -138,17 +174,31 @@ class OrthographicCamera(ProjectiveCamera):
             o = o + torch.cat([p_lens, torch.zeros_like(p_lens[:, :1])], dim=-1)
             d = p_focus - o
             d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-        o_w, d_w = self._to_world(o, d)
+        o_w, d_w = self._to_world(o, d, u_time)
         return o_w, d_w, torch.ones(n, dtype=torch.float32, device=p_film.device)
+
+
+class EnvironmentCamera:
+    """Every direction of the sphere in lat-long: x to phi, y to theta."""
+
+    def __init__(self, camera_to_world: Transform, resolution, device="cuda"):
+        self.resolution = (int(resolution[0]), int(resolution[1]))
+        self._c2w = torch.as_tensor(camera_to_world.m.astype(float_t), device=device)
+
+    def generate_rays(self, p_film, u_lens=None, u_time=None):
+        """p_film: [N, 2] raster samples -> (origin, dir [N, 3], weight [N])."""
+        res_x, res_y = self.resolution
+        theta = PI * p_film[..., 1] / res_y
+        phi = 2 * PI * p_film[..., 0] / res_x
+        st, ct = torch.sin(theta), torch.cos(theta)
+        d = torch.stack([st * torch.cos(phi), ct, -st * torch.sin(phi)], dim=-1)
+        o_w = apply_point(self._c2w, torch.zeros_like(d))
+        d_w = apply_vector(self._c2w, d)
+        return o_w, d_w, torch.ones(p_film.shape[0], dtype=torch.float32, device=p_film.device)
 
 
 def make_camera(name: str, params, camera_to_world: Transform, film, device="cuda"):
     """Factory per pbrt-v3 MakeCamera; the film supplies the resolution."""
-    if name not in ("perspective", "orthographic"):
-        raise NotImplementedError(
-            f"Camera '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-            "only 'perspective' and 'orthographic' are"
-        )
     res = film.full_resolution
     params.find_one_float("shutteropen", 0.0)
     params.find_one_float("shutterclose", 1.0)
@@ -161,6 +211,32 @@ def make_camera(name: str, params, camera_to_world: Transform, film, device="cud
         sw = tuple(float(v) for v in sw_list)
     if name == "orthographic":
         return OrthographicCamera(camera_to_world, res, sw, lens_radius, focal, device=device)
+    if name == "environment":
+        return EnvironmentCamera(camera_to_world, res, device=device)
+    if name == "realistic":
+        from pbrt_tpu_torch.cameras.realistic import (
+            BUILTIN_LENSES,
+            RealisticCamera,
+            load_lens_file,
+        )
+
+        raw = params.find_one_string("lensfile", "")
+        lensfile = raw if raw in BUILTIN_LENSES else params.find_one_filename("lensfile", "")
+        ap_mm = params.find_one_float("aperturediameter", 1.0)
+        focusd = params.find_one_float("focusdistance", 10.0)
+        simple = params.find_one_bool("simpleweighting", True)
+        try:
+            return RealisticCamera(camera_to_world, load_lens_file(lensfile), film,
+                                   focus_distance=focusd, aperture_diameter_m=ap_mm * 1e-3,
+                                   simple_weighting=simple, device=device)
+        except (OSError, ValueError) as err:
+            log.error("realistic camera: %s; falling back to perspective", err)
+            return PerspectiveCamera(camera_to_world, 45.0, res, sw, lens_radius, focal,
+                                     device=device)
+    if name != "perspective":
+        log.warning("Camera '%s' unknown; using perspective.", name)
+        return PerspectiveCamera(camera_to_world, 90.0, res, sw, lens_radius, focal,
+                                 device=device)
     fov = params.find_one_float("fov", 90.0)
     half = params.find_one_float("halffov", -1.0)
     if half > 0:

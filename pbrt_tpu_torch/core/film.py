@@ -5,8 +5,9 @@ Counterpart of ``pbrt_tpu/core/film.py``: ``initial_state`` (``xyz``,
 filtered scatter: each sample adds its filter-weighted XYZ to every pixel
 of its half-open support, with the max-sample-luminance clamp and the
 crop window), ``add_splats`` (the unfiltered scatter of BDPT's light
-tracing and of MLT) and ``to_rgb``, which adds ``splat_scale`` times the
-splat channel after the weight division and before ``scale``.  The dense
+tracing and of MLT), ``set_image`` (a whole image, SPPM's) and
+``to_rgb``, which adds ``splat_scale`` times the splat channel after the
+weight division and before ``scale``.  The dense
 path's per-pixel sums are taken by ``render.Renderer`` (the reference's
 ``_step_impl_dense``).
 
@@ -84,6 +85,14 @@ class Film:
             (math.floor(b.p_min[0] + 0.5 - rx), math.floor(b.p_min[1] + 0.5 - ry)),
             (math.ceil(b.p_max[0] - 0.5 + rx), math.ceil(b.p_max[1] - 0.5 + ry)),
         )
+
+    def get_physical_extent(self) -> Bounds2f:
+        """The film's extent in metres, centred on the optical axis (its
+        diagonal is ``diagonal_m``)."""
+        aspect = self.full_resolution[1] / self.full_resolution[0]
+        x = math.sqrt(self.diagonal_m ** 2 / (1 + aspect ** 2))
+        y = aspect * x
+        return Bounds2f((-x / 2, -y / 2), (x / 2, y / 2))
 
     def initial_state(self) -> Dict[str, torch.Tensor]:
         w, h = self.cropped_pixel_bounds.diagonal()
@@ -184,6 +193,14 @@ class Film:
         rgb = torch.where(nz[..., None], torch.clamp(rgb * inv_w[..., None], min=0.0), rgb)
         rgb = rgb + splat_scale * (state["splat_xyz"] @ self.xyz_to_rgb.T)
         return rgb * self.scale
+
+    def set_image(self, state, rgb_image):
+        """A state whose image is ``rgb_image`` [H, W, 3] (weight 1, no
+        splats): how integrators that estimate whole pixels (SPPM) hand
+        back their result."""
+        return {"xyz": rgb_image @ self.rgb_to_xyz.T,
+                "weight": torch.ones_like(state["weight"]),
+                "splat_xyz": torch.zeros_like(state["splat_xyz"])}
 
     def write_image(self, state, splat_scale: float = 1.0, filename=None) -> None:
         """Write the image to ``filename`` (the film's unless given); the

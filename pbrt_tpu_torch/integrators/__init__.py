@@ -1,13 +1,18 @@
 """Integrators (counterpart of ``pbrt_tpu/integrators/__init__.py``).
 
 ``path``, ``volpath``, ``directlighting``, ``whitted``, ``ao``,
-``bdpt`` and ``mlt`` are ported.  As in the reference, ``path`` on a
-scene with participating media (subsurface interiors included) renders
-through the volumetric path integrator, and ``mlt`` on such a scene
-targets it instead of BDPT.  sppm waits for ROADMAP Queue 1 item 8.
+``bdpt``, ``mlt`` and ``sppm`` are ported.  As in the reference,
+``path`` on a scene with participating media (subsurface interiors
+included) renders through the volumetric path integrator, and ``mlt`` on
+such a scene targets it instead of BDPT.  An unknown name takes
+``path``, with a warning, as in the reference.
 """
 
 from __future__ import annotations
+
+import logging
+
+log = logging.getLogger("pbrt_tpu_torch")
 
 
 def make_integrator(compiled):
@@ -54,7 +59,14 @@ def make_integrator(compiled):
             # the unidirectional target
             strategy="path" if compiled.media else "bdpt",
         )
-    raise NotImplementedError(
-        f"Integrator '{name}' is not ported yet (ROADMAP.md Queue 1 item 8); "
-        "'path', 'volpath', 'directlighting', 'whitted', 'ao', 'bdpt' and 'mlt' are"
-    )
+    if name == "sppm":
+        from pbrt_tpu_torch.integrators.sppm import SPPMIntegrator
+
+        return SPPMIntegrator(
+            compiled, max_depth,
+            n_iterations=params.find_one_int("numiterations", 16),
+            photons_per_iteration=params.find_one_int("photonsperiteration", -1),
+            initial_radius=params.find_one_float("radius", -1.0),
+        )
+    log.warning("Integrator '%s' unknown; using path.", name)
+    return PathIntegrator(compiled, max_depth, 1.0)

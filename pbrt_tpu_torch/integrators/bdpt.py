@@ -144,7 +144,7 @@ class BDPTIntegrator(PathIntegrator):
     # -- subpath tracing ------------------------------------------------------
 
     def _walk(self, sampler, key_xy, sidx, o, d, beta0, pdf_dir0, n_verts, dim_base, theta,
-              origin_p=None, origin_ns=None):
+              origin_p=None, origin_ns=None, time=None):
         """Trace a subpath -> (list of _Vertex, escape info, origin_rev).
 
         origin_rev (when origin_p is given): the area density of reaching
@@ -167,7 +167,8 @@ class BDPTIntegrator(PathIntegrator):
 
         for k in range(n_verts):
             base = dim_base + 7 * k
-            hit = self._intersect(o, d, torch.full((n,), INF_T, device=dev), sort=True)
+            hit = self._intersect(o, d, torch.full((n,), INF_T, device=dev), sort=True,
+                                  time=time)
             esc_new = alive & ~hit["hit"]
             esc_beta = torch.where(esc_new[..., None], beta, esc_beta)
             esc_d = torch.where(esc_new[..., None], d, esc_d)
@@ -176,7 +177,7 @@ class BDPTIntegrator(PathIntegrator):
                 esc_first = esc_new
             esc_mask = esc_mask | esc_new
             alive = alive & hit["hit"]
-            si = compute_interaction(c.tables, hit, o, d)
+            si = compute_interaction(c.tables, hit, o, d, None, time)
             wo = si["wo"]
             ns, ss, ts = shading_frame(si, wo)
             params = eval_material_params(c.materials, si["mat"], si, theta)
@@ -310,6 +311,8 @@ class BDPTIntegrator(PathIntegrator):
         L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         splats = []
         enable_t0 = self.enable_t0 if enable_t0 is None else (enable_t0 and self.enable_t0)
+        # one shutter time per path: both subpaths and every connection
+        time = self._time(sampler, pixel_xy, sample_index)
         cam = c.camera
         if enable_t0:
             cam_pdf_dir0 = cam.pdf_we_dir(d)
@@ -320,7 +323,7 @@ class BDPTIntegrator(PathIntegrator):
         cam_verts, (esc, esc_beta, esc_d, esc_pdf, esc_first), _ = self._walk(
             sampler, pixel_xy, sample_index, o, d,
             torch.ones((n, 3), dtype=torch.float32, device=dev), cam_pdf_dir0,
-            self.t_max, 5, theta)
+            self.t_max, 5, theta, time=time)
 
         # ---- s = 0: escaped rays see the infinite lights ---------------------
         # (env paths admit only the escape and NEE strategies)
@@ -370,7 +373,7 @@ class BDPTIntegrator(PathIntegrator):
                 b_pdf = B.bsdf_pdf(v.params, wo_l, wi_l)
                 can = v.valid & ~v.delta & (l_pdf > 0) & (f.amax(dim=-1) > 0)
                 shadow_o = _offset_origin(v.p, v.ns, wi_w)
-                occ = self._occluded(shadow_o, wi_w, l_dist - 2 * SHADOW_EPS)
+                occ = self._occluded(shadow_o, wi_w, l_dist - 2 * SHADOW_EPS, time)
                 # light side (s' = 0): the camera path continues onto the light
                 j0 = torch.where(l_info["hittable"] & (t + 1 <= self.t_max),
                                  b_pdf / torch.clamp(l_pdf, min=1e-12), 0.0)
@@ -400,7 +403,7 @@ class BDPTIntegrator(PathIntegrator):
         light_key = pixel_xy + torch.tensor(LIGHT_KEY_OFFSET, dtype=pixel_xy.dtype, device=dev)
         light_verts, _, origin_rev = self._walk(
             sampler, light_key, sample_index, lo, ld, lbeta, lpdf_dir, self.s_max,
-            5 + 7 * self.t_max, theta, origin_p=lo, origin_ns=l_ns)
+            5 + 7 * self.t_max, theta, origin_p=lo, origin_ns=l_ns, time=time)
         light = {"verts": light_verts, "origin_fwd": lpdf_pos, "origin_rev": origin_rev,
                  "origin_hittable": origin_hittable}
         cam_pos = torch.as_tensor(cam.cam_pos_world, device=dev)
@@ -422,7 +425,7 @@ class BDPTIntegrator(PathIntegrator):
                 wi_factor = 1.0 / torch.clamp(cam.film_area * cos_cam ** 3 * dc * dc, min=1e-20)
                 ok = lv.valid & ~lv.delta & in_view & (f_l.amax(dim=-1) > 0)
                 shadow_o = _offset_origin(lv.p, lv.ns, wi_cam_w)
-                occ = self._occluded(shadow_o, wi_cam_w, dc - 2 * SHADOW_EPS)
+                occ = self._occluded(shadow_o, wi_cam_w, dc - 2 * SHADOW_EPS, time)
                 # MIS: the light-side walk with the camera's densities
                 rl1 = _dir_pdf_to_area(cam.pdf_we_dir(-wi_cam_w), cam_pos[None, :], lv.p,
                                        lv.ns)
@@ -449,7 +452,7 @@ class BDPTIntegrator(PathIntegrator):
                 conn = conn & (f_c.amax(dim=-1) > 0) & (f_l.amax(dim=-1) > 0) & (g > 0)
                 shadow_o = _offset_origin(cv.p, cv.ns, w_dir)
                 dist = torch.sqrt(torch.clamp(dist2, min=1e-20))
-                occ = self._occluded(shadow_o, w_dir, dist - 2 * SHADOW_EPS)
+                occ = self._occluded(shadow_o, w_dir, dist - 2 * SHADOW_EPS, time)
                 # MIS: the densities remapped at the vertices by the edge
                 rc1 = _dir_pdf_to_area(B.bsdf_pdf(lv.params, wo_lv, wi_lv), lv.p, cv.p, cv.ns)
                 rl1 = _dir_pdf_to_area(B.bsdf_pdf(cv.params, wo_c, wi_c), cv.p, lv.p, lv.ns)

@@ -21,7 +21,9 @@ wavefront is co-sorted into the next bounce's traversal order
 the reference, with alive, specular_bounce and gather_only packed into
 one flags column), the closest-hit sweeps run sort-free, shadow sweeps
 sort per call, and one scatter restores lane order for the film.  The
-brute-force intersector keeps lanes in order throughout.
+brute-force intersector keeps lanes in order throughout, and so does an
+animated scene (motion blur), whose every query takes the lane's shutter
+time from sampler dimension 4.
 
 Derived integrators (``integrators/direct.py``) set two class knobs, as
 the reference's do: ``direct_only`` (non-specular continuations trace
@@ -88,10 +90,15 @@ class PathIntegrator:
         self.max_depth = int(max_depth)
         self.rr_threshold = float(rr_threshold)
         self.remat = bool(remat)
+        # an animated scene blends its keyframed geometry at each lane's
+        # shutter time (sampler dimension 4) in every query
+        self._animated = bool(compiled.tables["_flags"]["animated_keys"])
         # the reference's rule: keep the wavefront in traversal order across
-        # bounces when the intersector takes a sort hint and has triangles
+        # bounces when the intersector takes a sort hint and has triangles,
+        # and the scene does not move
         itx = compiled.intersector
-        self._sc = bool(getattr(itx, "supports_sort_hint", False)) and itx.n_tri > 0
+        self._sc = (bool(getattr(itx, "supports_sort_hint", False)) and itx.n_tri > 0
+                    and not self._animated)
 
     def queries_per_sample(self):
         """(closest, shadow) intersector queries per pixel-sample lane:
@@ -103,15 +110,26 @@ class PathIntegrator:
         """The BSDF sample of a bounce (a hook for derived integrators)."""
         return B.bsdf_sample(params, wo_l, u_lobe, u_b)
 
-    def _intersect(self, o, d, t_max, sort):
+    def _intersect(self, o, d, t_max, sort, time=None):
+        """Closest hits; ``time``: the lanes' shutter times (animated
+        scenes, whose intersector takes no sort hint)."""
         with torch.no_grad():
+            if self._animated:
+                return self.c.intersector.intersect(o, d, t_max, time=time)
             if getattr(self.c.intersector, "supports_sort_hint", False):
                 return self.c.intersector.intersect(o, d, t_max, sort=sort)
             return self.c.intersector.intersect(o, d, t_max)
 
-    def _occluded(self, o, d, t_max):
+    def _occluded(self, o, d, t_max, time=None):
         with torch.no_grad():
+            if self._animated:
+                return self.c.intersector.occluded(o, d, t_max, time=time)
             return self.c.intersector.occluded(o, d, t_max)
+
+    def _time(self, sampler, pixel_xy, sample_index):
+        """The lanes' shutter times in an animated scene (the camera ray's
+        dimension 4), else None."""
+        return sampler.get(pixel_xy, sample_index, 4) if self._animated else None
 
     def _env_radiance(self, d, theta=None):
         le = torch.zeros_like(d)
@@ -212,11 +230,12 @@ class PathIntegrator:
         (L, beta, alive, specular_bounce, gather_only, prev_bsdf_pdf, prev_p, o, d,
          pixel_xy, sample_index, lane) = carry
         base = 5 + 7 * bounce
+        time = self._time(sampler, pixel_xy, sample_index)
         # dead lanes trace with t_max = 0 (they sort into trailing blocks)
         t_far = torch.where(alive, INF_T, 0.0)
         # camera rays arrive pixel-major; sorted-carry lanes were sorted at
         # the end of the previous bounce
-        hit = self._intersect(o, d, t_far, sort=bounce > 0 and not self._sc)
+        hit = self._intersect(o, d, t_far, sort=bounce > 0 and not self._sc, time=time)
 
         if any(lt.is_infinite for lt in c.lights):
             esc = alive & ~hit["hit"]
@@ -239,7 +258,7 @@ class PathIntegrator:
             _, dxd, _ = c.camera.generate_rays(p_film + off_x, u_lens)
             _, dyd, _ = c.camera.generate_rays(p_film + off_y, u_lens)
             ray_diff = (dxd, dyd)
-        si = compute_interaction(c.tables, hit, o, d, ray_diff)
+        si = compute_interaction(c.tables, hit, o, d, ray_diff, time)
         wo = si["wo"]
 
         if c.area_lights:
@@ -285,7 +304,7 @@ class PathIntegrator:
             )[..., None]
             # shadow wavefronts get their own sort: their directions diverge
             # from the carry order
-            vis = can & ~self._occluded(shadow_o, wi_w, shadow_t)
+            vis = can & ~self._occluded(shadow_o, wi_w, shadow_t, time)
             L = L + torch.where(vis[..., None], contrib, 0.0)
 
         # --- BSDF sampling -------------------------------------------------

@@ -95,7 +95,8 @@ class VolPathIntegrator(PathIntegrator):
         t = self._types[torch.clamp(mat_id, 0, len(self._mat_types) - 1).long()]
         return hit_mask & (mat_id >= 0) & (t != B.NONE)
 
-    def _shadow_tr(self, med, shadow_o, wi_w, l_dist, pixel_xy, sample_index, bounce):
+    def _shadow_tr(self, med, shadow_o, wi_w, l_dist, pixel_xy, sample_index, bounce,
+                   time=None):
         """A shadow ray's transmittance through its media and null-material
         boundaries, and whether an opaque surface occludes it ->
         (tr [N, 3], occluded [N])."""
@@ -109,21 +110,21 @@ class VolPathIntegrator(PathIntegrator):
         if segs == 1:
             # no null-material boundaries: one any-hit sweep and one
             # full-length transmittance
-            occ = self._occluded(cur_o, wi_w, remaining)
+            occ = self._occluded(cur_o, wi_w, remaining, time)
             if self.media:
                 rng_seg = make_track_rng(pixel_xy, sample_index, 1024 + bounce)
                 tr = self._medium_transmittance(cur_med, cur_o, wi_w, remaining, rng_seg)
             return tr, occ
         occ = torch.zeros(n, dtype=torch.bool, device=wi_w.device)
         for seg in range(segs):
-            h = self._intersect(cur_o, wi_w, remaining, sort=True)
+            h = self._intersect(cur_o, wi_w, remaining, sort=True, time=time)
             seg_len = torch.where(h["hit"], h["t"], remaining)
             if self.media:
                 rng_seg = make_track_rng(pixel_xy, sample_index, 1024 + bounce * segs + seg)
                 tr = tr * self._medium_transmittance(cur_med, cur_o, wi_w, seg_len, rng_seg)
             if seg == segs - 1:
                 return tr, occ | h["hit"]
-            si = compute_interaction(c.tables, h, cur_o, wi_w)
+            si = compute_interaction(c.tables, h, cur_o, wi_w, None, time)
             opaque = self._opaque_mask(h["hit"], si["mat"])
             occ = occ | opaque
             passing = h["hit"] & ~opaque
@@ -198,6 +199,7 @@ class VolPathIntegrator(PathIntegrator):
         steps = self.passthrough_steps
         has_env = any(lt.is_infinite for lt in c.lights)
         base = 5 + N_DIMS_PER_BOUNCE * bounce
+        time = self._time(sampler, pixel_xy, sample_index)
 
         # --- the march: closest hit and medium sample per segment,
         # passing null-material boundaries (a medium switch, no depth)
@@ -212,7 +214,7 @@ class VolPathIntegrator(PathIntegrator):
         for step in range(steps):
             # the camera's first segment is pixel-major: no ray sort
             h = self._intersect(o_seg, d, torch.full((n,), INF_T, device=dev),
-                                sort=not (bounce == 0 and step == 0))
+                                sort=not (bounce == 0 and step == 0), time=time)
             t_hit = torch.where(h["hit"], h["t"], INF_T)
             if self.media:
                 rng_track = make_track_rng(pixel_xy, sample_index,
@@ -229,7 +231,7 @@ class VolPathIntegrator(PathIntegrator):
             else:
                 scat_s = torch.zeros(n, dtype=torch.bool, device=dev)
                 t_med_s = t_hit
-            si_s = compute_interaction(c.tables, h, o_seg, d)
+            si_s = compute_interaction(c.tables, h, o_seg, d, None, time)
             opaque = self._opaque_mask(h["hit"], si_s["mat"])
             # a lane settles when it scatters, hits a real surface or
             # escapes; at the budget's end it settles on the null hit
@@ -321,7 +323,7 @@ class VolPathIntegrator(PathIntegrator):
             shadow_o = torch.where(scattered[..., None], p_med,
                                    _offset_origin(si["p"], si["ng"], wi_w))
             tr, occ = self._shadow_tr(med, shadow_o, wi_w, l_dist, pixel_xy, sample_index,
-                                      bounce)
+                                      bounce, time)
             w_l = torch.where(l_delta, 1.0, power_heuristic(1, l_pdf, 1, b_pdf))
             contrib = beta * f * li * tr * (w_l / torch.clamp(l_pdf, min=1e-12))[..., None]
             L = L + torch.where((can & ~occ)[..., None], contrib, 0.0)

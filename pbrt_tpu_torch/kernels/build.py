@@ -25,7 +25,7 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("bvh8_walk", "bvh2_walk", "bitonic")
+SOURCES = ("bvh8_walk", "bvh2_walk", "bitonic", "anim_walk")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pbrt_tpu_torch_kernels"
 NVCC_FLAGS = [

@@ -344,27 +344,35 @@ def walk8_plain(nodes, tris, roots, cand, ncand, nodes_pad, leaves_pad, rays,
             lo, ld = o[li], torch.stack([dx[li], dy[li], dz[li]], dim=1)
             bt, bp = best_t[li], best_prim[li]
             base = c[is_leaf] * slots_per_tree + first
-            for s in range(n_rows * LEAF_SLOTS):
-                p0 = tri[:, s, 0:3]
-                e1 = tri[:, s, 3:6] - p0
-                e2 = tri[:, s, 6:9] - p0
-                pvx = ld[:, 1] * e2[:, 2] - ld[:, 2] * e2[:, 1]
-                pvy = ld[:, 2] * e2[:, 0] - ld[:, 0] * e2[:, 2]
-                pvz = ld[:, 0] * e2[:, 1] - ld[:, 1] * e2[:, 0]
-                det = e1[:, 0] * pvx + e1[:, 1] * pvy + e1[:, 2] * pvz
-                det_ok = torch.abs(det) > 1e-12
-                inv_det = torch.where(det_ok, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
-                tv = lo - p0
-                b0 = (tv[:, 0] * pvx + tv[:, 1] * pvy + tv[:, 2] * pvz) * inv_det
-                qvx = tv[:, 1] * e1[:, 2] - tv[:, 2] * e1[:, 1]
-                qvy = tv[:, 2] * e1[:, 0] - tv[:, 0] * e1[:, 2]
-                qvz = tv[:, 0] * e1[:, 1] - tv[:, 1] * e1[:, 0]
-                b1 = (ld[:, 0] * qvx + ld[:, 1] * qvy + ld[:, 2] * qvz) * inv_det
-                tt = (e2[:, 0] * qvx + e2[:, 1] * qvy + e2[:, 2] * qvz) * inv_det
-                ok = ((s < count) & det_ok & (b0 >= 0.0) & (b1 >= 0.0)
-                      & (b0 + b1 <= 1.0) & (tt > RAY_EPS) & (tt < bt))
-                bp = torch.where(ok, base + s, bp)
-                bt = torch.where(ok, tt, bt)
+            # every slot at once ([L, S]; each product and sum rounds as
+            # it would slot by slot), then the slot-order pass's result:
+            # the first slot of least t among the hits, if it beats best_t
+            p0 = tri[:, :, 0:3]
+            e1 = tri[:, :, 3:6] - p0
+            e2 = tri[:, :, 6:9] - p0
+            ldx, ldy, ldz = ld[:, 0:1], ld[:, 1:2], ld[:, 2:3]
+            pvx = ldy * e2[..., 2] - ldz * e2[..., 1]
+            pvy = ldz * e2[..., 0] - ldx * e2[..., 2]
+            pvz = ldx * e2[..., 1] - ldy * e2[..., 0]
+            det = e1[..., 0] * pvx + e1[..., 1] * pvy + e1[..., 2] * pvz
+            det_ok = torch.abs(det) > 1e-12
+            inv_det = torch.where(det_ok, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+            tv = lo[:, None, :] - p0
+            b0 = (tv[..., 0] * pvx + tv[..., 1] * pvy + tv[..., 2] * pvz) * inv_det
+            qvx = tv[..., 1] * e1[..., 2] - tv[..., 2] * e1[..., 1]
+            qvy = tv[..., 2] * e1[..., 0] - tv[..., 0] * e1[..., 2]
+            qvz = tv[..., 0] * e1[..., 1] - tv[..., 1] * e1[..., 0]
+            b1 = (ldx * qvx + ldy * qvy + ldz * qvz) * inv_det
+            tt = (e2[..., 0] * qvx + e2[..., 1] * qvy + e2[..., 2] * qvz) * inv_det
+            slot = torch.arange(tri.shape[1], device=dev)
+            ok = ((slot < count[:, None]) & det_ok & (b0 >= 0.0) & (b1 >= 0.0)
+                  & (b0 + b1 <= 1.0) & (tt > RAY_EPS))
+            tt = torch.where(ok, tt, torch.inf)
+            t_min = tt.amin(dim=1)
+            s_min = torch.where(tt == t_min[:, None], slot, tri.shape[1]).amin(dim=1)
+            better = t_min < bt
+            bp = torch.where(better, base + s_min, bp)
+            bt = torch.where(better, t_min, bt)
             if any_hit:
                 hit = bp >= 0
                 bt = torch.where(hit, INERT_T, bt)

@@ -18,13 +18,17 @@ paths, chosen as the reference chooses them:
   state and the chunk cursor are saved every ``checkpoint_every`` chunks
   and a matching checkpoint is resumed (``utils/checkpoint.py``).
 
+A moving camera (``set_animation``) takes each lane's shutter time from
+sampler dimension 4 on both film paths, the dimension the integrators
+read for the geometry of an animated scene.
+
 Integrators that splat (``provides_splats``: BDPT's light tracing) are
 called through ``li_splat`` and always take the scatter film; each
 chunk's splats are added unfiltered to the film's splat channel, masked
 to the finite values of live lanes and scaled by 1 / spp.  Integrators
-that own their budget (``custom_render``: MLT's mutations per pixel) are
+that own their budget (``custom_render``: MLT and SPPM) are
 handed the renderer before any chunking; only an explicit ``spp``
-overrides their budget.
+overrides their budget (MLT's mutations per pixel, SPPM's iterations).
 
 ``render_scene`` is the scene file's path from ``WorldEnd``: build,
 render, write the image.  The spectral render mode waits for ROADMAP
@@ -74,7 +78,10 @@ class Renderer:
         sampler = self.sampler.bounded(spp)
         p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sample_index, 0)
         u_lens = sampler.get2(pixel_xy, sample_index, 2)
-        o, d, wgt = self.camera.generate_rays(p_film, u_lens)
+        # a moving camera reads the lane's shutter time (dimension 4)
+        u_time = (sampler.get(pixel_xy, sample_index, 4)
+                  if getattr(self.camera, "_anim_c2w", None) is not None else None)
+        o, d, wgt = self.camera.generate_rays(p_film, u_lens, u_time)
         if getattr(self.integrator, "provides_splats", False):
             L, splats = self.integrator.li_splat(sampler, pixel_xy, sample_index, o, d)
         else:

@@ -18,8 +18,18 @@ used), the ``_flags`` that prune interaction work, the ``scene/*`` stats
 counters, and the reference's intersector choice: the BVH for
 ``bvh``/``kdtree`` scenes of at least ``minprims`` triangles, the
 brute-force sweep otherwise.  As in the reference, a surface without a
-MediumInterface sends a ray that crosses it to vacuum (-1).  Motion blur
-raises (ROADMAP Queue 1 item 8).
+MediumInterface sends a ray that crosses it to vacuum (-1).
+
+Motion blur, as in the reference: a camera whose transform moves across
+the shutter gets keyframed camera-to-world matrices
+(``set_animation``); shape records whose CTM moves get K decompose +
+slerp keyframes (``core/animated.py``; K the most any record needs),
+static records replicate across the keys so that every key table shares
+one topology, animated spheres are tessellated, ``tables["tri_keys"]``
+holds one [T, 18] (p0 p1 p2 n0 n1 n2) table per key and
+``_flags["animated_keys"]`` is K, and the scene takes the keyframed
+intersector (``ops/animated_intersect.AnimatedIntersector``), never the
+BVH8 path.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 
 from pbrt_tpu_torch import float_t, require_device
 from pbrt_tpu_torch.cameras import make_camera
+from pbrt_tpu_torch.core.animated import AnimatedTransform
 from pbrt_tpu_torch.core.film import Film
 from pbrt_tpu_torch.core.geometry import arccos0
 from pbrt_tpu_torch.core.filters import make_filter
@@ -41,6 +52,7 @@ from pbrt_tpu_torch.lights import DiffuseAreaLight, Light, make_light
 from pbrt_tpu_torch.materials import MaterialEntry, build_material
 from pbrt_tpu_torch.media import make_medium
 from pbrt_tpu_torch.media.scattering import make_subsurface_medium
+from pbrt_tpu_torch.ops.animated_intersect import AnimatedIntersector, blend, time_weights
 from pbrt_tpu_torch.ops.intersect import KIND_SPHERE, KIND_TRI
 from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
 from pbrt_tpu_torch.ops.tables import select_rows
@@ -121,10 +133,6 @@ def image_textures(materials):
             yield e.mix_amount
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
 def _tessellate_emitting_sphere(sph: SphereData, sub=24):
     """Emitting spheres become triangles so area sampling is uniform (the
     reference's ``_tessellate_emitting_sphere``)."""
@@ -193,10 +201,15 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         device=device,
     )
     fp.report_unused()
-    if desc.camera_to_world.is_animated():
-        raise _not_ported("camera motion blur", 8)
     camera = make_camera(desc.camera_name, desc.camera_params, desc.camera_to_world[0],
                          film, device=device)
+    shutter_open = desc.camera_params.find_one_float("shutteropen", 0.0)
+    shutter_close = desc.camera_params.find_one_float("shutterclose", 1.0)
+    if desc.camera_to_world.is_animated():
+        c_at = AnimatedTransform(desc.camera_to_world[0], desc.camera_to_world[1],
+                                 desc.transform_start_time, desc.transform_end_time)
+        if c_at.actually_animated and hasattr(camera, "set_animation"):
+            camera.set_animation(c_at.key_transforms(shutter_open, shutter_close))
     desc.camera_params.report_unused()
     sampler = make_sampler(desc.sampler_name, desc.sampler_params, seed)
     desc.sampler_params.report_unused()
@@ -257,22 +270,58 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
             sss_media[id(record)] = len(media) - 1
         return sss_media[id(record)]
 
+    # motion blur: records whose CTM moves get K keyframes across the
+    # shutter; in an animated scene the static records replicate
+    anim_xforms = {}
+    n_keys = 0
     for rec in shape_records:
         if rec.object_to_world_end is not None:
-            raise _not_ported("motion blur", 8)
-        shape = make_shape(rec.name, rec.params, rec.object_to_world, rec.reverse_orientation)
+            at = AnimatedTransform(rec.object_to_world, rec.object_to_world_end,
+                                   desc.transform_start_time, desc.transform_end_time)
+            if at.actually_animated:
+                anim_xforms[id(rec)] = at
+                n_keys = max(n_keys, at.n_keys())
+    scene_animated = bool(anim_xforms)
+    tri_key_parts: List[List[TriangleData]] = [[] for _ in range(max(n_keys, 1))]
+
+    for rec in shape_records:
+        at = anim_xforms.get(id(rec))
+        key_shapes = None
+        if scene_animated:
+            xfs = (at.key_transforms(shutter_open, shutter_close, n_keys) if at is not None
+                   else [rec.object_to_world] * n_keys)
+            key_shapes = [make_shape(rec.name, rec.params, xf, rec.reverse_orientation)
+                          for xf in xfs]
+            shape = key_shapes[0]
+        else:
+            shape = make_shape(rec.name, rec.params, rec.object_to_world,
+                               rec.reverse_orientation)
         if shape is None:
             continue
         rec.params.report_unused()
         m_idx = mat_index(rec.material)
         is_sss = rec.material.name in ("subsurface", "kdsubsurface")
         if isinstance(shape, SphereData):
-            if not (rec.area_light_name or is_sss or rec.inside_medium or rec.outside_medium):
+            if not (rec.area_light_name or is_sss or rec.inside_medium or rec.outside_medium
+                    or at is not None):
                 sph_parts.append(shape)
                 sph_mat.extend([m_idx] * shape.count)
                 continue
-            # area sampling and medium interfaces live on the triangle tables
-            shape = _tessellate_emitting_sphere(shape)
+            # area sampling and medium interfaces live on the triangle
+            # tables, and keyframed triangles carry an animated sphere's motion
+            if at is not None:
+                key_shapes = [_tessellate_emitting_sphere(sk) for sk in key_shapes]
+                if len({sk.count for sk in key_shapes}) != 1:
+                    raise ValueError("animated sphere tessellation produced inconsistent "
+                                     "topology across keyframes")
+                shape = key_shapes[0]
+            else:
+                shape = _tessellate_emitting_sphere(shape)
+        if scene_animated:
+            if at is None:
+                key_shapes = [shape] * n_keys
+            for k in range(n_keys):
+                tri_key_parts[k].append(key_shapes[k])
         light_idx = -1
         if rec.area_light_name:
             ap = rec.area_light_params
@@ -295,6 +344,8 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         tri_med_out.append(np.full(shape.count, med_id(rec.outside_medium), dtype=np.int32))
 
     tri_data = concat_triangle_data(tri_parts)
+    tri_key_data = ([concat_triangle_data(parts) for parts in tri_key_parts]
+                    if scene_animated and tri_key_parts[0] else None)
     sph_data = concat_sphere_data(sph_parts)
     lights: List[Light] = [lt for lt in (make_light(lr, device=device) for lr in desc.lights)
                            if lt is not None]
@@ -360,11 +411,22 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         "uv": bool(uv_needed),
         "tri_flat": bool(tri_flat),
         "tex_width": bool(uv_needed and tex_width_needed),
-        "animated_keys": 0,
+        # K > 0: per-lane shutter times blend the geometry between K keys
+        "animated_keys": len(tri_key_data) if tri_key_data is not None else 0,
     }
+    if tri_key_data is not None:
+        # [T, 18] per key: p0 p1 p2 n0 n1 n2 (compute_interaction blends the
+        # rows of each lane's triangle with its hat weights)
+        tables["tri_keys"] = [
+            torch.as_tensor(np.concatenate([kd.p0, kd.p1, kd.p2, kd.n0, kd.n1, kd.n2],
+                                           axis=1).astype(float_t), device=device)
+            for kd in tri_key_data
+        ]
 
     min_prims = desc.accelerator_params.find_one_int("minprims", 512)
-    if (desc.accelerator_name in ("bvh", "kdtree") and tri_data is not None
+    if tri_key_data is not None:
+        intersector = AnimatedIntersector(tri_key_data, sph_data, device=device)
+    elif (desc.accelerator_name in ("bvh", "kdtree") and tri_data is not None
             and tri_data.count >= min_prims):
         from pbrt_tpu_torch.accel.bvh import BVHIntersector
 
@@ -438,13 +500,15 @@ def _sph_cols(sp):
     return torch.cat([p.to(torch.float32) for p in parts], dim=1)
 
 
-def compute_interaction(tables, hit, o, d, ray_diff=None):
+def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
     """Hit record -> SoA surface interaction dict (triangles and spheres).
 
     Keys: p, ng, ng_raw, ns [N, 3], uv [N, 2], mat, light, med_in,
     med_out [N], wo [N, 3]; with ``ray_diff = (dxd, dyd)`` (the +1-pixel
     camera ray directions sharing origin ``o``) also duvdx, duvdy [N, 2]
-    and tex_width [N].  Misses get mat = light = -1.
+    and tex_width [N].  Misses get mat = light = -1.  ``time`` ([N]
+    normalized shutter times) blends each lane's triangle vertices and
+    shading normals between the ``tri_keys`` tables of an animated scene.
     """
     n = o.shape[0]
     dev = o.device
@@ -486,7 +550,15 @@ def compute_interaction(tables, hit, o, d, ray_diff=None):
         is_tri = hit["hit"] & (hit["kind"] == KIND_TRI)
         cols, lay = _tri_cols(tr, need_normals=not tri_flat, need_uv=uv_needed)
         rows = select_rows(cols, idx)
-        p0, p1, p2 = rows[:, lay["p0"]], rows[:, lay["p1"]], rows[:, lay["p2"]]
+        krows = None
+        if time is not None and "tri_keys" in tables:
+            keys = tables["tri_keys"]
+            kw = time_weights(torch.broadcast_to(time, idx.shape).to(torch.float32), len(keys))
+            # rounded as the reference's compiled blend (and the walks)
+            krows = blend(torch.stack([select_rows(k, idx) for k in keys], dim=1), kw)
+            p0, p1, p2 = krows[:, 0:3], krows[:, 3:6], krows[:, 6:9]
+        else:
+            p0, p1, p2 = rows[:, lay["p0"]], rows[:, lay["p1"]], rows[:, lay["p2"]]
         b0, b1 = hit["b0"], hit["b1"]
         if b0 is None:
             # the walks return only (t, slot): project the hit point onto
@@ -516,7 +588,10 @@ def compute_interaction(tables, hit, o, d, ray_diff=None):
         if tri_flat:
             ns_t = ng_t
         else:
-            n0, n1, n2 = rows[:, lay["n0"]], rows[:, lay["n1"]], rows[:, lay["n2"]]
+            if krows is not None:
+                n0, n1, n2 = krows[:, 9:12], krows[:, 12:15], krows[:, 15:18]
+            else:
+                n0, n1, n2 = rows[:, lay["n0"]], rows[:, lay["n1"]], rows[:, lay["n2"]]
             ns_t = b2[..., None] * n0 + b0[..., None] * n1 + b1[..., None] * n2
             ns_norm = torch.linalg.norm(ns_t, dim=-1, keepdim=True)
             ns_t = torch.where(ns_norm > 1e-9, ns_t / torch.clamp(ns_norm, min=1e-12), ng_t)

@@ -612,15 +612,31 @@ def write_volume_scene(path, ply_path, nu=224, nv=112, **kw):
 
 
 def config3_scenefile(path, ply_path, xres=256, yres=256, spp=8, maxdepth=4,
-                      integrator="path", extra=""):
+                      integrator="path", extra="", camera="", rotate=0.0, shift=0.0):
     """Config 3 as a scene file: :data:`MESH_SCENE` under ``Integrator
     "<integrator>"`` with ``extra`` parameters (e.g. ``"bdpt"``, or
     ``"mlt"`` with ``'"integer mutationsperpixel" 8'``), the torus as a
     ``plymesh`` (written by :func:`write_torus_ply`) and :data:`FLOOR`, in
-    ``mesh_scene_description``'s shape order."""
-    text = (_mesh_head(xres, yres, spp, maxdepth, integrator, extra) + f'Shape "plymesh" "string filename" "{ply_path}"\n' + FLOOR + "WorldEnd\n")
+    ``mesh_scene_description``'s shape order.  ``camera``: another camera
+    line in place of the perspective one (``'Camera "environment"'``, or
+    ``'Camera "realistic" "string lensfile" "biconvex-50mm-f8"'``).  With
+    ``rotate`` or ``shift``, motion across ``shutteropen 0 shutterclose
+    1``: the torus turns ``rotate`` degrees about its axis (z; 30 degrees
+    gives 4 keyframes) and the camera moves ``shift`` along world x."""
+    head = _mesh_head(xres, yres, spp, maxdepth, integrator, extra)
+    cam = 'Camera "perspective" "float fov" 45'
+    assert cam in head
+    torus = f'Shape "plymesh" "string filename" "{ply_path}"\n'
+    if rotate or shift:
+        head = head.replace(cam, (f"ActiveTransform EndTime\nTranslate {-shift} 0 0\n"
+                                  f"ActiveTransform All\n{camera or cam}"
+                                  ' "float shutteropen" 0 "float shutterclose" 1'))
+        torus = (f"AttributeBegin\nActiveTransform EndTime\nRotate {rotate} 0 0 1\n"
+                 f"ActiveTransform All\n{torus}AttributeEnd\n")
+    elif camera:
+        head = head.replace(cam, camera)
     with open(path, "w") as f:
-        f.write(text)
+        f.write(head + torus + FLOOR + "WorldEnd\n")
 
 
 QUADRICS = {  # name -> (transform, material, shape parameters)
@@ -835,3 +851,49 @@ def fog_torus_text(ply_path, xres=12, yres=12, spp=2, maxdepth=3):
     """:data:`FOG_TORUS` with the torus PLY at ``ply_path``
     (:func:`write_torus_ply`): every shape inside the fog, camera too."""
     return FOG_TORUS.format(ply=ply_path, xres=xres, yres=yres, spp=spp, maxdepth=maxdepth)
+
+
+# tests/test_motion_integrators.py's scene: a red quad sweeping +x across
+# the frame under a constant environment light; ``{motion}`` is its
+# transform block, ``{camera_motion}`` the camera's (before ``Camera``)
+MOTION_QUAD = """
+LookAt 0 0 -5  0 0 0  0 1 0
+{camera_motion}Camera "{camera}" "float fov" 50 "float shutteropen" 0 "float shutterclose" 1
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator "{integrator}" "integer maxdepth" {maxdepth} {extra}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+WorldBegin
+LightSource "infinite" "rgb L" [1 1 1]
+Material "matte" "rgb Kd" [0.9 0.2 0.2]
+TransformBegin
+{motion}
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-0.8 -0.8 0  0.8 -0.8 0  0.8 0.8 0  -0.8 0.8 0]
+TransformEnd
+{sphere}WorldEnd
+"""
+
+MOVE = "ActiveTransform EndTime\nTranslate 1.5 0 0\nActiveTransform All"
+CAMERA_MOVE = "ActiveTransform EndTime\nTranslate 0.6 0.3 0\nActiveTransform All\n"
+# a matte sphere that rises across the shutter (tessellated: keyframed
+# triangles carry its motion)
+MOVING_SPHERE = """AttributeBegin
+Material "matte" "rgb Kd" [0.2 0.5 0.8]
+Translate -1.2 -0.6 -0.5
+ActiveTransform EndTime
+Translate -1.2 0.2 -0.5
+ActiveTransform All
+Shape "sphere" "float radius" 0.35
+AttributeEnd
+"""
+
+
+def motion_quad_text(integrator="path", xres=16, yres=16, spp=8, maxdepth=2, extra="",
+                     motion=MOVE, camera_motion="", sphere="", camera="perspective"):
+    """:data:`MOTION_QUAD` under ``integrator``: the quad moved by
+    ``motion`` (:data:`MOVE`, or a static ``Translate``), the camera by
+    ``camera_motion`` (:data:`CAMERA_MOVE`), and ``sphere`` (e.g.
+    :data:`MOVING_SPHERE`) added."""
+    return MOTION_QUAD.format(integrator=integrator, xres=xres, yres=yres, spp=spp,
+                              maxdepth=maxdepth, extra=extra, motion=motion,
+                              camera_motion=camera_motion, sphere=sphere, camera=camera)

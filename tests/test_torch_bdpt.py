@@ -217,7 +217,8 @@ def test_camera_importance_film_splats_and_samplers_against_reference(tmp_path):
     of negative offsets), and ``to_rgb``'s splat scale; a checkpoint
     carries the splat channel; every sampler on the keys BDPT reads
     outside the film (the light subpath's offset pixels, the origin's
-    (lane, -13)) at every dimension BDPT and MLT use, bit-equal."""
+    (lane, -13)) at every dimension BDPT and MLT use, and on SPPM's photon
+    keys ((lane, -7) and (lane, -9), sample index = iteration), bit-equal."""
     import torch
 
     from pbrt_tpu.core.paramset import ParamSet as RefParamSet
@@ -272,23 +273,39 @@ def test_camera_importance_film_splats_and_samplers_against_reference(tmp_path):
     assert cursor == 3 and torch.equal(back["splat_xyz"], got["splat_xyz"])
 
     # samplers, bounded as the renderer calls them: dims 0-39 of the light
-    # subpath's keys, dims 0-73 of the origin's (MLT's table takes 73 + 5)
+    # subpath's keys, dims 0-73 of the origin's (MLT's table takes 73 + 5);
+    # and unbounded, as SPPM calls them, SPPM's photon keys (lane, -7) and
+    # (lane, -9) with the iteration as sample index
     pix = rs.integers(0, 256, size=(1024, 2)).astype(np.int32)
-    keys = {"light": pix + np.asarray([7919, 104729], np.int32),
-            "origin": np.stack([np.arange(1024), np.full(1024, -13)], -1).astype(np.int32)}
+    lane = np.arange(1024)
     si = rs.integers(0, 8, size=1024).astype(np.uint32)
+    iteration = np.full(1024, 13, np.uint32)
+    keys = {"light": (pix + np.asarray([7919, 104729], np.int32), si, True),
+            "origin": (np.stack([lane, np.full(1024, -13)], -1).astype(np.int32), si, True),
+            "photon_emit": (np.stack([lane, np.full(1024, -7)], -1).astype(np.int32),
+                            iteration, False),
+            "photon_bounce": (np.stack([lane, np.full(1024, -9)], -1).astype(np.int32),
+                              iteration, False)}
     ps, rps = ParamSet(), RefParamSet()
     ps.add_int("pixelsamples", [8])
     rps.add_int("pixelsamples", [8])
     for name in ("random", "stratified", "halton", "sobol", "02sequence", "maxmindist"):
-        want_s = ref_make_sampler(name, rps).bounded(8)
-        got_s = make_sampler(name, ps).bounded(8)
-        for kname, key in keys.items():
-            dims = list(range(40)) if kname == "light" else list(range(0, 79, 3))
-            want = np.asarray(jax.jit(lambda k, s: jnp.stack(
-                [want_s.get(k, s, dim) for dim in dims]))(key, si))
-            got = torch.stack([got_s.get(torch.as_tensor(key.astype(np.int64)),
-                                         torch.as_tensor(si.astype(np.int64)), dim)
-                               for dim in dims]).numpy()
+        want_s = {False: ref_make_sampler(name, rps)}
+        want_s[True] = want_s[False].bounded(8)
+        got_s = {False: make_sampler(name, ps)}
+        got_s[True] = got_s[False].bounded(8)
+        dims = {"light": list(range(40)), "origin": list(range(0, 79, 3)),
+                # emission: select, position, direction; bounces: time, lobe, u2
+                "photon_emit": list(range(5)),
+                "photon_bounce": [4] + [5 + 7 * b + j for b in range(4) for j in (3, 4, 5)]}
+        # one reference program per sampler, every key and dimension in it
+        want_all = jax.jit(lambda: {
+            kname: jnp.stack([want_s[bounded].get(key, si, dim) for dim in dims[kname]])
+            for kname, (key, si, bounded) in keys.items()})()
+        for kname, (key, si, bounded) in keys.items():
+            want = np.asarray(want_all[kname])
+            got = torch.stack([got_s[bounded].get(torch.as_tensor(key.astype(np.int64)),
+                                                  torch.as_tensor(si.astype(np.int64)), dim)
+                               for dim in dims[kname]]).numpy()
             np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32),
                                           err_msg=f"{name} {kname}")

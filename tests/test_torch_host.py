@@ -130,7 +130,9 @@ def test_port_never_imports_jax():
             "pbrt_tpu_torch.ops.pallas_bvh", "pbrt_tpu_torch.ops.sortnet",
             "pbrt_tpu_torch.ops.intersect_soa", "pbrt_tpu_torch.diff.grad",
             "pbrt_tpu_torch.core.imageio", "pbrt_tpu_torch.core.mipmap",
-            "pbrt_tpu_torch.textures.imagemap"} <= set(modules)
+            "pbrt_tpu_torch.textures.imagemap", "pbrt_tpu_torch.core.animated",
+            "pbrt_tpu_torch.ops.animated_intersect", "pbrt_tpu_torch.kernels.anim_walk",
+            "pbrt_tpu_torch.cameras.realistic", "pbrt_tpu_torch.integrators.sppm"} <= set(modules)
     for p in pkg.rglob("*.py"):
         assert not re.search(r"(environ|getenv)\W*\(?\W*[\"']PBRT_TPU_", p.read_text()), p
     code = (f"import importlib, sys; [importlib.import_module(m) for m in {modules!r}]; "
