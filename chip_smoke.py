@@ -8,8 +8,11 @@ Run from the repository root:
                                      # Cornell, one config-5, one config-4, one
                                      # scene-file, one volume and one bdpt
                                      # frame (launches, device busy share;
-                                     # phase 16 profiles its motion frame
-                                     # always)
+                                     # phases 16 and 17 profile their motion
+                                     # and fur frames always)
+    python3 chip_smoke.py --phase 17 # phases 1-2 and 17 alone (also 12, 14,
+                                     # 15 or 16); the last line then
+                                     # says "phases": [1, 2, 17]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -255,17 +258,46 @@ Phases (any failure raises and the script exits non-zero):
    memory, and 32x32 with 2 iterations card against CPU; (d) config 3
    under ``Camera "environment"`` and under ``Camera "realistic" "string
    lensfile" "biconvex-50mm-f8"``: a first frame each (K2 x 14), frame
-   seconds, and 32x32 card against CPU.
+   seconds, and 32x32 card against CPU;
+17. hair, the fourier BSDF, sampled-spectrum rendering and BDPT gradients
+   through the pbrt command (written under ``build/chip_smoke/``): (a) a
+   fur ball (``testscenes.fur_text``: 4,096 cubic Bezier ``Shape "curve"``
+   of ``type "flat"`` rooted on a matte unit sphere, tessellated as tubes
+   of 96 triangles, 393,216 curve triangles, one named hair material in
+   melanin mode, a floor, a quad area light and a constant infinite
+   light) at 256x256, 8 spp, ``path`` maxdepth 8, 2 chunks, through
+   ``cli.main``: build seconds and the triangle count, a first frame (K2
+   x 30: 2 chunks x (8 closest + 7 shadow), nothing else), ``k2_frame``
+   (every 4th sweep against the plain walk on the card, K2's time per
+   sweep and its bound, frame seconds), the launches and busy share of a
+   profiled frame, and 32x32 (1 spp, maxdepth 4) card against CPU; (b)
+   config 3's torus under ``Material "fourier"`` with a glossy 8-order
+   table on 64 knots (``testscenes.glossy_fourier_table``, written by
+   ``FourierTable.write``) at 256x256, 8 spp, maxdepth 4: build seconds,
+   a first frame (K2 x 14, nothing else), frame seconds (median of three)
+   and 32x32 card against CPU; (c) config 3 through ``cli.main
+   --sampled-spectrum`` (15 bins, 5 passes, each building the
+   scene anew): the render seconds, the builds' seconds, K2 x 70, the
+   image written, and 32x32 card against CPU; (d) BDPT on config 3 at 4
+   spp against a target with the floor's kd changed: a 4,096-pixel step
+   with and without remat (gradients equal: BDPT has no per-bounce
+   checkpoint) sizes the batch, the largest power of two up to 65,536
+   pixels whose step stays below 40 GiB; at that batch K2's launches
+   (forward only: no replay), peak memory, forward and forward+backward
+   seconds (median of three), every leaf finite, the floor's kd against
+   a central finite difference; every leaf card against CPU at 16x16, 1
+   spp, maxdepth 3, to phase 10 (b)'s tolerance.
 
 The lines before the last are JSON objects: ``{"cornell": ...}``,
 ``{"config5": ...}``, ``{"gradients": ...}``, ``{"config4": ...}``,
 ``{"integrators": ...}``, ``{"scenefile": ...}``, ``{"volume": ...}``,
-``{"bdpt": ...}``, ``{"motion": ...}`` and one with an entry per kernel
-(K2's holds phase 13's sweeps and launches under ``"scenefile"``, phase
-14's under ``"volume"`` with phase 15 (c)'s gradient launches, phase
-15's under ``"bdpt"`` and ``"mlt"`` and phase 16 (c)'s under ``"sppm"``;
-K7's launches are phase 16 (a)'s frame's); the last line is ``{"ok":
-true, "device": {...}}``.
+``{"bdpt": ...}``, ``{"motion": ...}``, ``{"features": ...}`` and one
+with an entry per kernel (K2's holds phase 13's sweeps and launches
+under ``"scenefile"``, phase 14's under ``"volume"`` with phase 15 (c)'s
+gradient launches, phase 15's under ``"bdpt"`` and ``"mlt"``, phase 16
+(c)'s under ``"sppm"`` and phase 17 (a)'s under ``"fur"``; K7's launches
+are phase 16 (a)'s frame's); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -1765,10 +1797,12 @@ SAMPLER_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=2)
 CHECKPOINT = dict(xres=64, yres=64, ray_batch=1 << 14)  # 4 chunks of (b)'s 16 spp
 
 
-def cli_render(argv, device=None):
+def cli_render(argv, device=None, renders=1):
     """``cli.main(argv)`` on ``device`` (``DEVICE`` unless given) with the
-    launch counters zeroed before; returns (what ``render_scene``
-    returned, scene build seconds, the launches)."""
+    launch counters zeroed before; returns (what the outermost
+    ``render_scene`` returned, the scene builds' summed seconds, the
+    launches).  ``renders``: the ``render_scene`` calls expected (a
+    sampled-spectrum render makes one per pass besides the outermost)."""
     import torch
 
     from pbrt_tpu_torch import cli, render
@@ -1801,9 +1835,9 @@ def cli_render(argv, device=None):
         launches = {k: v for k, v in read_counts().items() if v}
     finally:
         render.render_scene, render.build_scene = render_scene, build_scene
-    if rc != 0 or len(kept) != 1:
+    if rc != 0 or len(kept) != renders:
         raise AssertionError(f"cli.main({argv}) returned {rc} after {len(kept)} render(s)")
-    return kept[0], build_s[0], launches
+    return kept[-1], sum(build_s), launches
 
 
 def phase_scenefile(card, config3_image, profile=False):
@@ -2254,6 +2288,18 @@ def phase_bdpt(card, profile=False):
     return res, k2, k2_mlt, k2_grad
 
 
+def file_renderer(path, dev):
+    """A ``Renderer`` of the scene file ``path`` on ``dev``, default options."""
+    from pbrt_tpu_torch import Options
+    from pbrt_tpu_torch.core.api import PbrtAPI
+    from pbrt_tpu_torch.render import Renderer
+
+    api = PbrtAPI(Options(), render_on_world_end=False, device=dev)
+    api.init()
+    api.parse_file(path)
+    return Renderer(api.scene, api.opt, device=dev)
+
+
 def phase_volpath_grad(card, d):
     """Phase 15 (c): one volpath loss-and-gradient step on phase 14's scene
     over all 65,536 pixels at 1 spp with ``remat=True`` (forward and
@@ -2264,23 +2310,14 @@ def phase_volpath_grad(card, d):
     import numpy as np
     import torch
 
-    from pbrt_tpu_torch import Options
-    from pbrt_tpu_torch.core.api import PbrtAPI
     from pbrt_tpu_torch.diff.grad import make_loss_fn, value_and_grad
-    from pbrt_tpu_torch.render import Renderer
     from pbrt_tpu_torch.testscenes import write_volume_scene
 
     log(f"== phase 15 (c): a volpath gradient step on the fog-and-smoke scene, {VOLGRAD}, "
         "remat=True, a zero target")
 
-    def renderer(path, dev):
-        api = PbrtAPI(Options(), render_on_world_end=False, device=dev)
-        api.init()
-        api.parse_file(path)
-        return Renderer(api.scene, api.opt, device=dev)
-
     write_volume_scene(f"{d}/volgrad.pbrt", f"{d}/volume_torus.ply", **VOLGRAD)
-    r = renderer(f"{d}/volgrad.pbrt", DEVICE)
+    r = file_renderer(f"{d}/volgrad.pbrt", DEVICE)
     b = r.film.cropped_pixel_bounds
     target = np.zeros((b.height, b.width, 3), np.float32)
     theta = r.compiled.initial_theta()
@@ -2355,7 +2392,7 @@ def phase_volpath_grad(card, d):
     write_volume_scene(f"{d}/volgrad_small.pbrt", f"{d}/volume_torus.ply", **VOLGRAD_PARITY)
     grads = {}
     for dev in (DEVICE, "cpu"):
-        rr = renderer(f"{d}/volgrad_small.pbrt", dev)
+        rr = file_renderer(f"{d}/volgrad_small.pbrt", dev)
         bb = rr.film.cropped_pixel_bounds
         lf = make_loss_fn(rr, np.zeros((bb.height, bb.width, 3), np.float32),
                           spp=VOLGRAD_PARITY["spp"])
@@ -2749,9 +2786,273 @@ def phase_motion(card):
     return res, k7_res, k2_sppm
 
 
+FUR_CURVES = 4096  # x 96 triangles at tessellation 8 x 6: 393,216 curve triangles
+FUR = dict(xres=256, yres=256, spp=8, maxdepth=8)
+FUR_BATCH = 1 << 18  # 2 chunks
+FUR_SWEEPS = 2 * (8 + 7)  # 2 chunks x (8 closest + 7 shadow) at maxdepth 8
+FUR_STRIDE = 4  # every 4th sweep checked against the plain walk
+FUR_PARITY = dict(xres=32, yres=32, spp=1, maxdepth=4)
+FEATURE_BATCH = 1 << 18  # (b) and (c): 2 chunks of config 3
+FEATURE_SWEEPS = 2 * (4 + 3)  # 2 chunks x (4 closest + 3 shadow) at maxdepth 4
+FOURIER = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
+FOURIER_TABLE = dict(n_mu=64, orders=8)
+SPECTRAL = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
+SPECTRAL_BINS = 15  # --sampled-spectrum: Options.n_spectral_bins, 5 passes of 3 bins
+FEATURE_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3)  # (b) and (c), card against CPU
+BDPT_GRAD = dict(xres=256, yres=256, spp=4, maxdepth=4)  # phase 15's config 3 at 4 spp
+BDPT_GRAD_PROBE = 4096  # pixels of the steps that size the batch
+BDPT_GRAD_MEMORY = 40 * 2**30  # the step's peak must stay below this
+BDPT_GRAD_PARITY = dict(xres=16, yres=16, spp=1, maxdepth=3)
+
+
+def phase_features(card):
+    """Phase 17: hair and fur, the fourier BSDF, sampled-spectrum rendering
+    and BDPT gradients through the pbrt command (scene files under
+    ``build/chip_smoke/``).  Returns (the numbers, K2's on the fur ball)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.testscenes import (config3_scenefile, fur_text, glossy_fourier_table,
+                                           write_torus_ply)
+
+    os.makedirs(SCENEFILE_DIR, exist_ok=True)
+    d = os.path.abspath(SCENEFILE_DIR)
+    ply = f"{d}/torus.ply"
+    write_torus_ply(ply)
+    res = {}
+
+    def parity(label, path, renders=1):
+        imgs, seconds = {}, {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.time()
+            imgs[dev] = cli_render(
+                [path, "-o", path.replace(".pbrt", f"_{dev}.pfm"), "-q"]
+                + (["--sampled-spectrum"] if renders > 1 else []), device=dev, renders=renders)[0]["image"]
+            seconds[dev] = time.time() - t0
+        log(f"  {label}: card {seconds[DEVICE]:.1f} s, cpu {seconds['cpu']:.1f} s with the "
+            "builds")
+        return compare_images(label, imgs[DEVICE], imgs["cpu"])
+
+    log(f"== phase 17 (a): a fur ball of {FUR_CURVES} curves under a hair material through "
+        f"cli.main, {FUR}, ray_batch {FUR_BATCH}")
+    with open(f"{d}/fur.pbrt", "w") as f:
+        f.write(fur_text(FUR_CURVES, **FUR, filename=f"{d}/fur.pfm"))
+    got, build_s, launches = cli_render([f"{d}/fur.pbrt", "--ray-batch", str(FUR_BATCH), "-q"])
+    r = got["renderer"]
+    tris = int(r.compiled.tri_data.count)
+    curve_tris = int((np.abs(r.compiled.tri_data.tan0).sum(axis=-1) > 0).sum())
+    log(f"  cli.main: build {build_s:.2f} s ({tris} triangles, {curve_tris} of them curve "
+        f"triangles), first frame {got['seconds']:.3f} s")
+    if curve_tris != FUR_CURVES * 96:
+        raise AssertionError(f"the fur ball has {curve_tris} curve triangles")
+    frame, k2 = k2_frame("the fur ball", r, FUR_SWEEPS, card,
+                         first=(got["seconds"], launches, got["image"]), plain_stride=FUR_STRIDE)
+    frame["profile"] = phase_profile("fur-ball", r, frame["frame_s"])
+    del got, r
+    with open(f"{d}/fur_small.pbrt", "w") as f:
+        f.write(fur_text(FUR_CURVES, **FUR_PARITY))
+    frame["parity"] = parity(f"the fur ball, {FUR_PARITY}", f"{d}/fur_small.pbrt")
+    res["fur"] = dict(curves=FUR_CURVES, triangles=tris, build_s=build_s, launches=launches,
+                      **frame)
+
+    log(f"== phase 17 (b): config 3's torus under Material \"fourier\" ({FOURIER_TABLE}, "
+        f"written by FourierTable.write) through cli.main, {FOURIER}")
+    glossy_fourier_table(**FOURIER_TABLE).write(f"{d}/glossy.bsdf")
+    material = f'Material "fourier" "string bsdffile" "{d}/glossy.bsdf"'
+    config3_scenefile(f"{d}/fourier.pbrt", ply, **FOURIER, material=material)
+    got, build_s, launches = cli_render([f"{d}/fourier.pbrt", "--ray-batch",
+                                         str(FEATURE_BATCH), "-o", f"{d}/fourier.pfm", "-q"])
+    r = got["renderer"]
+    img = got["image"]
+    log(f"  cli.main: build {build_s:.2f} s, first frame {got['seconds']:.3f} s, launches "
+        f"{launches}; image mean {img.mean():.6f}")
+    if launches != {"stream_walk8": FEATURE_SWEEPS}:
+        raise AssertionError(f"the fourier frame launched {launches}, want stream_walk8 x "
+                             f"{FEATURE_SWEEPS}")
+    if not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError("the fourier image is not finite or all black")
+    median, times = timed(lambda: r.image(r.render()))
+    log(f"  fourier frame {median:.4f} s ({[round(x, 4) for x in times]}) on {card}")
+    res["fourier"] = dict(build_s=build_s, launches=launches, first_frame_s=got["seconds"],
+                          frame_s=median, frames_s=times, card=card)
+    del got, r
+    config3_scenefile(f"{d}/fourier_small.pbrt", ply, **FEATURE_PARITY, material=material)
+    res["fourier"]["parity"] = parity(f"fourier, {FEATURE_PARITY}",
+                                      f"{d}/fourier_small.pbrt")
+
+    log(f"== phase 17 (c): config 3 sampled-spectrum through cli.main --sampled-spectrum, "
+        f"{SPECTRAL_BINS} bins ({SPECTRAL_BINS // 3} passes), {SPECTRAL}")
+    config3_scenefile(f"{d}/spectral.pbrt", ply, **SPECTRAL)
+    passes = SPECTRAL_BINS // 3
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got, build_s, launches = cli_render(
+        [f"{d}/spectral.pbrt", "--ray-batch", str(FEATURE_BATCH), "--sampled-spectrum",
+         "-o", f"{d}/spectral.pfm", "-q"],
+        renders=passes + 1)
+    wall = time.time() - t0
+    img = got["image"]
+    log(f"  cli.main: {passes} passes in {got['seconds']:.3f} s ({wall:.3f} s with the parse "
+        f"and the image write), {build_s:.2f} s of it in the {passes} builds; launches "
+        f"{launches}; image mean {img.mean(axis=(0, 1))}")
+    if launches != {"stream_walk8": FEATURE_SWEEPS * passes}:
+        raise AssertionError(f"the spectral render launched {launches}, want stream_walk8 x "
+                             f"{FEATURE_SWEEPS * passes}")
+    if not (np.isfinite(img).all() and img.max() > 0) or not os.path.exists(f"{d}/spectral.pfm"):
+        raise AssertionError("the spectral image is not finite, all black or not written")
+    res["spectral"] = dict(bins=SPECTRAL_BINS, passes=passes, render_s=got["seconds"],
+                           wall_s=wall, build_s=build_s, launches=launches,
+                           image_mean=img.mean(axis=(0, 1)).tolist(), card=card)
+    del got
+    config3_scenefile(f"{d}/spectral_small.pbrt", ply, **FEATURE_PARITY)
+    res["spectral"]["parity"] = parity(f"sampled-spectrum, {FEATURE_PARITY}",
+                                       f"{d}/spectral_small.pbrt", renders=passes + 1)
+
+    res["bdpt_gradients"] = phase_bdpt_grad(card, d, ply)
+    return res, k2
+
+
+def phase_bdpt_grad(card, d, ply):
+    """Phase 17 (d): one BDPT loss-and-gradient step on config 3 as a scene
+    file against a target rendered with the floor's kd changed, at 4 spp
+    over the largest power-of-two batch of pixels, up to all 65,536, whose
+    step stays below BDPT_GRAD_MEMORY (sized from a 4,096-pixel step with
+    and without remat, which must agree: BDPT ignores remat); forward and
+    forward+backward seconds, K2's launches in each, peak memory, every
+    leaf finite, the floor's kd against a central finite difference; every
+    leaf card against CPU at 16x16."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.diff.grad import make_loss_fn, render_image_diff, value_and_grad
+    from pbrt_tpu_torch.testscenes import config3_scenefile
+
+    spp = BDPT_GRAD["spp"]
+    log(f"== phase 17 (d): a BDPT gradient step on config 3 as a scene file, {BDPT_GRAD}, the "
+        "floor's kd changed in the target")
+
+    def step(r, target, theta, px, remat=True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        value, g = value_and_grad(make_loss_fn(r, target, spp, remat=remat), theta, px)
+        torch.cuda.synchronize()
+        return value, g, torch.cuda.max_memory_allocated() - base
+
+    config3_scenefile(f"{d}/bdpt_grad.pbrt", ply, **BDPT_GRAD, integrator="bdpt")
+    r = file_renderer(f"{d}/bdpt_grad.pbrt", DEVICE)
+    theta = r.compiled.initial_theta()
+    if theta["kd"][FLOOR].tolist() != [0.4000000059604645, 0.4000000059604645,
+                                       0.41999998688697815]:
+        raise AssertionError(f"material row {FLOOR} is not the floor")
+    t_theta = dict(theta, kd=theta["kd"].clone())
+    t_theta["kd"][FLOOR] += torch.tensor([0.1, -0.08, 0.05], device=DEVICE)
+    with torch.no_grad():
+        target = render_image_diff(r, t_theta, spp=spp, batch=PIXELS).cpu().numpy()
+    all_px = torch.as_tensor(r.film.cropped_pixel_bounds.offsets(), device=DEVICE)
+
+    probe = all_px[:BDPT_GRAD_PROBE]
+    _, g_on, peak_on = step(r, target, theta, probe, remat=True)
+    _, g_off, peak_off = step(r, target, theta, probe, remat=False)
+    on, off = dict(grad_leaves(g_on)), dict(grad_leaves(g_off))
+    worst = max(float((v - on[k]).abs().max()) if v.numel() else 0.0 for k, v in off.items())
+    scale = max(float(v.abs().max()) for v in on.values() if v.numel())
+    log(f"  {BDPT_GRAD_PROBE} pixels: peak above the base {peak_on / 2**30:.3f} GiB with remat, "
+        f"{peak_off / 2**30:.3f} GiB without; max |diff| of the gradients {worst:.3e} of "
+        f"{scale:.3e}")
+    if worst > 1e-6 * scale:
+        raise AssertionError("bdpt gradients with and without remat differ")
+    del g_on, g_off, on, off
+    n = len(all_px)
+    while n > BDPT_GRAD_PROBE and peak_on * n / BDPT_GRAD_PROBE > 0.8 * BDPT_GRAD_MEMORY:
+        n //= 2
+    px = all_px[:n]
+    # li (the gradients' radiance) takes no light-tracing strategy: one
+    # sweep fewer per s = 2..s_max than queries_per_sample counts
+    bd = r.integrator
+    closest, shadow = bd.queries_per_sample()
+    sweeps = closest + shadow - (bd.s_max - 1) * int(bd.enable_t0 and bd._has_traceable_lights())
+    loss = make_loss_fn(r, target, spp)
+    fwd, bwd = {}, {}
+
+    def counted(t, pixels):
+        reset_counts()
+        value = loss(t, pixels)
+        torch.cuda.synchronize()
+        fwd.update(read_counts())
+        reset_counts()
+        return value
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    value, grads = value_and_grad(counted, theta, px)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    bwd.update(read_counts())
+    fwd_l = {k: v for k, v in fwd.items() if v}
+    bwd_l = {k: v for k, v in bwd.items() if v}
+    log(f"  {n} pixels ({spp} spp): loss {float(value):.6e}; launches forward {fwd_l}, "
+        f"backward {bwd_l}; peak {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} above the "
+        f"{base / 2**30:.3f} GiB held before)")
+    if fwd_l != {"stream_walk8": sweeps * spp} or bwd_l:
+        raise AssertionError(f"the bdpt step launched {fwd_l} forward and {bwd_l} backward")
+    if peak >= BDPT_GRAD_MEMORY:
+        raise AssertionError(f"the bdpt step's peak {peak} is above {BDPT_GRAD_MEMORY}")
+    for k, v in grad_leaves(grads):
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"bdpt gradient {k} not finite")
+    kept = dict(grad_leaves(grads))
+    del grads
+    log(f"  floor kd gradient {kept['kd'][FLOOR].tolist()}; area light "
+        f"{kept['area_l'].tolist()}")
+    with torch.no_grad():
+        fwd_s, fwd_all = timed(lambda: loss(theta, px))
+    step_s, step_all = timed(lambda: value_and_grad(loss, theta, px))
+    log(f"  forward {fwd_s:.4f} s ({[round(x, 4) for x in fwd_all]}), forward+backward "
+        f"{step_s:.4f} s ({[round(x, 4) for x in step_all]}), median of three, on {card}")
+    fd = fd_check("bdpt on config 3", loss, theta, "kd", (FLOOR, 0),
+                  float(kept["kd"][FLOOR, 0]), (px,))
+    out = dict(pixels=n, spp=spp, loss=float(value), forward_s=fwd_s, forward_all_s=fwd_all,
+               forward_backward_s=step_s, forward_backward_all_s=step_all, peak_bytes=peak,
+               above_base_bytes=peak - base, probe_pixels=BDPT_GRAD_PROBE,
+               probe_peak_bytes=dict(remat_true=peak_on, remat_false=peak_off),
+               k2_launches_forward=fwd_l["stream_walk8"], k2_launches_backward=0,
+               floor_kd_grad=kept["kd"][FLOOR].tolist(), fd=fd, card=card)
+    del r, kept, loss
+
+    config3_scenefile(f"{d}/bdpt_grad_small.pbrt", ply, **BDPT_GRAD_PARITY, integrator="bdpt")
+    grads = {}
+    for dev in (DEVICE, "cpu"):
+        rr = file_renderer(f"{d}/bdpt_grad_small.pbrt", dev)
+        bb = rr.film.cropped_pixel_bounds
+        lf = make_loss_fn(rr, np.full((bb.height, bb.width, 3), 0.05, np.float32),
+                          spp=BDPT_GRAD_PARITY["spp"])
+        _, grads[dev] = value_and_grad(lf, rr.compiled.initial_theta(),
+                                       torch.as_tensor(bb.offsets(), device=dev))
+    out["parity_max_rel_to_scale"] = compare_grads(f"bdpt, {BDPT_GRAD_PARITY}", grads[DEVICE],
+                                                   grads["cpu"])
+    log(f"  {BDPT_GRAD_PARITY}: every leaf equal, max |card - cpu| "
+        f"{out['parity_max_rel_to_scale']:.3e} of the largest magnitude")
+    return out
+
+
+# the phases that need nothing but the card, by number: ``--phase N`` runs
+# one of them alone after phases 1 and 2
+ALONE = {12: lambda card: phase_integrators(), 14: phase_volume, 15: phase_bdpt,
+         16: phase_motion, 17: phase_features}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--phase", type=int, choices=sorted(ALONE),
+                    help="after the card and the build, run this phase alone; the last "
+                         "line then lists the phases run")
     args = ap.parse_args(argv)
 
     import torch
@@ -2774,6 +3075,13 @@ def main(argv=None):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  {src}: {line.strip()}")
+
+    if args.phase is not None:
+        print(json.dumps({f"phase_{args.phase}": ALONE[args.phase](card)}, default=str))
+        print(json.dumps({"ok": True, "phases": [1, 2, args.phase], "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     rs = renderers()
     kern = phase_kernels(rs)
@@ -2833,6 +3141,8 @@ def main(argv=None):
     motion, kern["anim_walk"], kern["stream_walk8"]["sppm"] = phase_motion(card)
     launches["anim_walk"] = kern["anim_walk"]["launches_per_frame"]
     print(json.dumps({"motion": motion}))
+    features, kern["stream_walk8"]["fur"] = phase_features(card)
+    print(json.dumps({"features": features}))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

@@ -47,8 +47,10 @@ MACHINE_EPSILON = EPSILON * 0.5
 @dataclasses.dataclass
 class Options:
     """Renderer options, mostly fed from the CLI's flags (the fields of
-    ``pbrt_tpu.Options`` but the device mesh and the spectral mode, which
-    wait for ROADMAP Queue 1 items 9 and 8)."""
+    ``pbrt_tpu.Options`` but the device mesh, which waits for ROADMAP
+    Queue 1 item 9; the reference reads ``sampled_spectrum`` from
+    ``PBRT_TPU_SAMPLED_SPECTRUM``, the port from the caller or the CLI's
+    ``--sampled-spectrum``)."""
 
     quick_render: bool = False  # quarter resolution (scene build) and quarter spp (render)
     verbose: bool = False
@@ -59,6 +61,10 @@ class Options:
     # resumes from it
     checkpoint_dir: str | None = None
     checkpoint_every: int = 8
+    # sampled-spectrum transport (render.render_scene_spectral): the bins
+    # rendered, a multiple of 3 dividing 60, three per pass
+    sampled_spectrum: bool = False
+    n_spectral_bins: int = 15
 
 
 def require_device(device) -> torch.device:

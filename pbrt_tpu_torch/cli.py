@@ -1,7 +1,8 @@
 """Command-line driver (counterpart of ``pbrt_tpu/cli.py``):
 
     python -m pbrt_tpu_torch [-n N] [--quick] [-q] [-v] [-o FILE]
-                             [--ray-batch N] [--checkpoint DIR] scene.pbrt ...
+                             [--ray-batch N] [--checkpoint DIR]
+                             [--sampled-spectrum] scene.pbrt ...
 
 parses the scene files and renders each world block at its ``WorldEnd``
 on the CUDA card, writing the film's image (PNG or PFM by extension).
@@ -36,6 +37,9 @@ def main(argv=None, device="cuda") -> int:
     ap.add_argument("--checkpoint", default="", metavar="DIR",
                     help="save film state + sweep cursor to DIR periodically and resume "
                          "from it if present")
+    ap.add_argument("--sampled-spectrum", action="store_true",
+                    help="sampled-spectrum transport: five passes of three wavelength bins, "
+                         "summed to XYZ (the reference's PBRT_TPU_SAMPLED_SPECTRUM)")
     ap.add_argument("scenes", nargs="+", help="pbrt scene files")
     args = ap.parse_args(argv)
     device = require_device(device)
@@ -51,6 +55,7 @@ def main(argv=None, device="cuda") -> int:
         image_file=args.outfile,
         ray_batch=args.ray_batch,
         checkpoint_dir=args.checkpoint or None,
+        sampled_spectrum=args.sampled_spectrum,
     )
     pbrt = PbrtAPI(opts, device=device)
     pbrt.init()

@@ -162,6 +162,10 @@ class _GraphicsState:
         self.area_light_name = ""
         self.area_light_params: Optional[ParamSet] = None
         self.reverse_orientation = False
+        # the record that the shapes after a ``Material`` directive copy
+        # (pbrt-v3's currentMaterial), made at the first such shape and
+        # dropped when the material, a texture or a named material changes
+        self.material_record: Optional[MaterialRecord] = None
 
     def copy(self) -> "_GraphicsState":
         gs = _GraphicsState()
@@ -178,6 +182,7 @@ class _GraphicsState:
             self.area_light_params.copy() if self.area_light_params else None
         )
         gs.reverse_orientation = self.reverse_orientation
+        gs.material_record = self.material_record
         return gs
 
     def make_material_record(self) -> MaterialRecord:
@@ -189,13 +194,18 @@ class _GraphicsState:
                 "Named material '%s' not defined; using default matte.",
                 self.current_named_material,
             )
-        return MaterialRecord(
-            name=self.material_name,
-            params=self.material_params.copy(),
-            float_textures=dict(self.float_textures),
-            spectrum_textures=dict(self.spectrum_textures),
-            mix_children=self._resolve_mix(self.material_name, self.material_params),
-        )
+        if self.material_record is None:
+            self.material_record = MaterialRecord(
+                name=self.material_name,
+                params=self.material_params.copy(),
+                float_textures=dict(self.float_textures),
+                spectrum_textures=dict(self.spectrum_textures),
+                mix_children=self._resolve_mix(self.material_name, self.material_params),
+            )
+        # a record per shape, as the reference makes them (the material
+        # table's indices follow), sharing the parameters and textures: the
+        # builder makes one entry of them (scene/builder.py)
+        return dataclasses.replace(self.material_record)
 
     def _resolve_mix(self, name: str, params) -> Optional[tuple]:
         if name != "mix":
@@ -492,6 +502,7 @@ class PbrtAPI:
             ft = make_float_texture(texname, self.current_transform[0], tp)
             if ft is not None:
                 self.graphics_state.float_textures[name] = ft
+                self.graphics_state.material_record = None
         elif kind in ("color", "spectrum"):
             if name in self.graphics_state.spectrum_textures:
                 log.info("Spectrum texture '%s' is being redefined", name)
@@ -499,6 +510,7 @@ class PbrtAPI:
             st = make_spectrum_texture(texname, self.current_transform[0], tp)
             if st is not None:
                 self.graphics_state.spectrum_textures[name] = st
+                self.graphics_state.material_record = None
         else:
             log.error("Texture type '%s' is unknown", kind)
 
@@ -508,6 +520,7 @@ class PbrtAPI:
         self.graphics_state.material_name = name
         self.graphics_state.material_params = params
         self.graphics_state.current_named_material = None
+        self.graphics_state.material_record = None
 
     def make_named_material(self, name: str, params: ParamSet) -> None:
         if not self._verify_world("make_named_material"):
@@ -525,6 +538,7 @@ class PbrtAPI:
             named=name,
             mix_children=self.graphics_state._resolve_mix(mat_type, params),
         )
+        self.graphics_state.material_record = None
 
     def named_material(self, name: str) -> None:
         if not self._verify_world("named_material"):

@@ -84,10 +84,19 @@ def coordinate_system(v1):
 
 
 def shading_frame(si, wo):
-    """Face-forwarded shading frame (ns, ss, ts).  Curve tangents (hair)
-    are not ported: every lane takes the default basis."""
+    """Face-forwarded shading frame (ns, ss, ts).  Curve lanes (``si["tang"]``
+    non-zero) align ss (local x) with the fiber tangent, the frame the hair
+    BSDF needs; other lanes keep the default basis.  ``tang`` is present
+    only in scenes with curves."""
     ns = vface_forward(si["ns"], wo)
     ss, ts = coordinate_system(ns)
+    tang = si.get("tang")
+    if tang is not None:
+        t_perp = tang - torch.sum(tang * ns, dim=-1, keepdim=True) * ns
+        t_len = torch.linalg.norm(t_perp, dim=-1, keepdim=True)
+        use = ((torch.sum(tang * tang, dim=-1) > 1e-12) & (t_len[..., 0] > 1e-9))[..., None]
+        ss = torch.where(use, t_perp / torch.clamp(t_len, min=1e-12), ss)
+        ts = torch.where(use, torch.linalg.cross(ns, ss), ts)
     return ns, ss, ts
 
 

@@ -1,10 +1,16 @@
 """RGB spectra and color-space conversions (host numpy).
 
-Copy of the RGB half of ``pbrt_tpu/core/spectrum.py``: the sRGB <-> XYZ
-matrices, the CIE fits that parameter decoding (``xyz``, ``blackbody``,
-sampled ``spectrum`` values) needs, and ``promote_rgb``.  The sampled-
-spectrum render mode (Smits promotion per spectral pass) is not ported,
-so ``promote_rgb`` is the identity on RGB.
+Copy of ``pbrt_tpu/core/spectrum.py``: the sRGB <-> XYZ matrices, the
+CIE fits that parameter decoding (``xyz``, ``blackbody``, sampled
+``spectrum`` values) needs, and the sampled-spectrum render mode's pass
+state.  Spectral transport is diagonal in wavelength, so a render of
+N bins decomposes into N / 3 passes of the unchanged RGB pipeline, whose
+three channels are three wavelength bins (``render.render_scene_spectral``).
+While a pass is active (:func:`set_spectral_bins`), every point where
+host RGB enters the scene build (the ParamSet's spectrum getters, image
+texels, light emission and maps) calls :func:`promote_rgb`: RGB -> a
+Smits spectrum -> the pass's three bins, by the illuminant basis for
+emission and the reflectance basis otherwise.
 """
 
 from __future__ import annotations
@@ -98,10 +104,134 @@ def sampled_to_rgb(samples):
     return xyz_to_rgb(sampled_to_xyz(samples))
 
 
+def _smits_basis(reflectance: bool = False):
+    """Smits-style smooth basis spectra for white/c/m/y/r/g/b.
+
+    Computed (not tabulated from pbrt): minimum-curvature spectra whose
+    projections reproduce the corners of the sRGB cube, in the spirit of
+    pbrt-v3's separate RGBIllum2Spect/RGBRefl2Spect tables (spectrum.cpp).
+
+    * illuminant basis (default): CMF . S = XYZ(rgb) — a light with this
+      spectrum *is* that color.
+    * reflectance basis: (CMF . diag(W)) . S = XYZ(rgb), where W is the
+      illuminant white — a surface with this spectrum *looks* like that
+      color under the white light.  The white-reflectance constraint is
+      satisfied by the flat spectrum S == 1, which has zero curvature, so
+      the KKT solution makes white exactly flat: gray transport composes
+      exactly (0.5^n stays 0.5^n), and every single reflection is
+      XYZ-exact by linearity of the Smits case mixing.
+    """
+    # Solve for each basis: minimize curvature subject to matching XYZ.
+    n = N_SPECTRAL_SAMPLES
+    # Second-difference smoothness matrix
+    d = np.zeros((n - 2, n))
+    for i in range(n - 2):
+        d[i, i] = 1.0
+        d[i, i + 1] = -2.0
+        d[i, i + 2] = 1.0
+    a_smooth = d.T @ d + 1e-6 * np.eye(n)
+    cmf = np.stack([_CIE_X, _CIE_Y, _CIE_Z], axis=0) / _CIE_Y_INTEGRAL  # 3 x n
+    if reflectance:
+        cmf = cmf * _smits_basis(reflectance=False)["white"][None, :]
+    targets = {
+        "white": (1.0, 1.0, 1.0),
+        "red": (1.0, 0.0, 0.0),
+        "green": (0.0, 1.0, 0.0),
+        "blue": (0.0, 0.0, 1.0),
+        "cyan": (0.0, 1.0, 1.0),
+        "magenta": (1.0, 0.0, 1.0),
+        "yellow": (1.0, 1.0, 0.0),
+    }
+    basis = {}
+    for name, rgb in targets.items():
+        xyz = RGB_TO_XYZ @ np.asarray(rgb)
+        # KKT system: [A C^T; C 0] [s; mu] = [0; xyz]
+        kkt = np.zeros((n + 3, n + 3))
+        kkt[:n, :n] = a_smooth
+        kkt[:n, n:] = cmf.T
+        kkt[n:, :n] = cmf
+        rhs = np.zeros(n + 3)
+        rhs[n:] = xyz
+        sol = np.linalg.solve(kkt, rhs)
+        basis[name] = sol[:n]
+    return basis
+
+
+_SMITS = {}
+
+_SPECTRAL_BINS = None  # None, or an int ndarray of 3 bin indices into _WL
+
+
+def set_spectral_bins(bins):
+    """Activate (or with None, end) a 3-bin spectral render pass."""
+    global _SPECTRAL_BINS
+    if bins is None:
+        _SPECTRAL_BINS = None
+    else:
+        b = np.asarray(bins, dtype=np.int64)
+        if b.shape != (3,):
+            raise ValueError("spectral pass needs exactly 3 bin indices")
+        _SPECTRAL_BINS = b
+
+
+def get_spectral_bins():
+    return _SPECTRAL_BINS
+
+
 def promote_rgb(rgb, illuminant: bool = False):
-    """RGB pass-through (the spectral-pass promotion is not ported)."""
-    del illuminant
-    return np.asarray(rgb, dtype=float_t)
+    """RGB [..., 3] -> the active pass's 3 spectral-bin samples (RGB
+    unchanged when no pass is active)."""
+    if _SPECTRAL_BINS is None:
+        return np.asarray(rgb, dtype=float_t)
+    s = rgb_to_sampled(rgb, illuminant=illuminant)
+    return np.ascontiguousarray(s[..., _SPECTRAL_BINS]).astype(float_t)
+
+
+def rgb_to_sampled(rgb, illuminant: bool = False):
+    """Promote RGB [..., 3] to a sampled spectrum [..., 60] (Smits 1999).
+
+    Vectorized over leading axes; the six min/mid/max cases of Smits'
+    algorithm expressed with ``np.where`` masks.  Illuminants are exact in
+    XYZ; reflectances are exact in XYZ as viewed under the illuminant
+    white (see :func:`_smits_basis`).
+    """
+    key = bool(illuminant)
+    if key not in _SMITS:
+        # illuminant basis = plain CMF constraint; reflectance weights the
+        # CMF by the illuminant white
+        _SMITS[key] = _smits_basis(reflectance=not key)
+    bs = _SMITS[key]
+    rgb = np.asarray(rgb, dtype=np.float64)
+    r = rgb[..., 0:1]
+    g = rgb[..., 1:2]
+    b = rgb[..., 2:3]
+
+    def case(lo, mid, hi, secondary, tertiary):
+        return lo * bs["white"] + (mid - lo) * bs[secondary] + (hi - mid) * bs[tertiary]
+
+    out = np.zeros(rgb.shape[:-1] + (N_SPECTRAL_SAMPLES,))
+    conds = [
+        (r <= g) & (g <= b),
+        (r <= b) & (b < g),
+        (g < r) & (r <= b),
+        (g <= b) & (b < r),
+        (b < r) & (r <= g),
+        (b < g) & (g < r),
+    ]
+    vals = [
+        case(r, g, b, "cyan", "blue"),
+        case(r, b, g, "cyan", "green"),
+        case(g, r, b, "magenta", "blue"),
+        case(g, b, r, "magenta", "red"),
+        case(b, r, g, "yellow", "green"),
+        case(b, g, r, "yellow", "red"),
+    ]
+    taken = np.zeros(rgb.shape[:-1] + (1,), dtype=bool)
+    for c, v in zip(conds, vals):
+        use = c & ~taken
+        out = np.where(use, v, out)
+        taken = taken | c
+    return out.astype(float_t)
 
 
 def blackbody(wavelengths_nm, temperature_k):

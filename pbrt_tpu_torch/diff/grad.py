@@ -6,9 +6,13 @@ lobe and light choices, Russian roulette) is fixed by the forward pass's
 random numbers, which are pure functions of (pixel, sample, dimension),
 so the backward pass replays the same paths while ``torch.autograd``
 differentiates the smooth factors (BSDF values, light radiances, MIS
-weights).  With ``remat=True`` each bounce runs under
-``torch.utils.checkpoint``: the backward pass replays the bounce, walks
-included, instead of keeping its wavefront state.
+weights).  With ``remat=True`` each bounce of ``path`` and ``volpath``
+runs under ``torch.utils.checkpoint``: the backward pass replays the
+bounce, walks included, instead of keeping its wavefront state.
+``bdpt`` takes ``remat`` and ignores it, as the reference does: its
+vertex records feed every (s, t) connection, so the whole estimator
+stays alive for the backward and the replay launches no walk; its
+radiance is ``li``, the strategies without light tracing.
 
 Gradient targets are the leaves of ``CompiledScene.initial_theta()``:
 constant material slots (kd, ks, kr, kt, roughness, sigma), the emission
@@ -32,7 +36,8 @@ import torch
 def make_radiance_fn(renderer, remat: bool = True):
     """f(theta, pixel_xy [N, 2], sample_index [N]) -> L [N, 3], the
     camera-weighted finite radiance of one sample per lane, on the
-    renderer's device."""
+    renderer's device (``remat``: the per-bounce checkpoint of path and
+    volpath; no effect on bdpt)."""
     sampler = renderer.sampler
     camera = renderer.camera
     integrator = copy.copy(renderer.integrator)

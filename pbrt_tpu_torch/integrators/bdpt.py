@@ -40,6 +40,12 @@ side, and for each s = 2..s_max one light-tracing ray (when light
 tracing is on) and t_max connection rays: at maxdepth 4, 9 closest and
 23 any-hit sweeps.  The reference inherits the path integrator's
 (maxdepth, maxdepth - 1) and undercounts (ROADMAP Queue 3).
+
+Gradients (``diff/grad.py``) differentiate ``li`` with ``theta`` threaded
+through every material, light and texture evaluation of both subpaths
+and every connection.  ``remat`` is accepted and has no effect: every
+vertex record feeds every connection, so no bounce can be replayed on
+its own, as in the reference.
 """
 
 from __future__ import annotations

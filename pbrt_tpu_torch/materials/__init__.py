@@ -11,8 +11,10 @@ reference approximates it, by substrate lobes), ``mix`` (nested mixes
 included) and the emitter-only ``none``; an unknown name renders as
 matte, as in the reference.  ``subsurface`` and ``kdsubsurface`` are a
 dielectric interface whose interior medium the scene builder attaches
-(``media/scattering.py``).  ``hair`` and ``fourier`` raise (ROADMAP
-Queue 1 item 8).
+(``media/scattering.py``).  ``hair`` (Chiang et al., ``materials/hair.py``:
+pigment from sigma_a, color or melanin, in that priority) and ``fourier``
+(a ``.bsdf`` table, ``materials/fourier.py``; an unreadable file logs an
+error and renders as matte) complete pbrt-v3's set.
 
 ``theta`` (:func:`material_theta`, ``CompiledScene.initial_theta``) is
 the differentiable override: constant-texture slots read their rows from
@@ -51,9 +53,15 @@ class MaterialEntry:
     metal_eta: np.ndarray = None  # metal only, [3] float64
     metal_k: np.ndarray = None
     eta_const: float = 1.5
+    # hair only (pbrt-v3 HairMaterial): the pigment source and the scales' tilt
+    hair_mode: str = ""  # "sigma_a" | "color" | "melanin"
+    hair_sigma_a: np.ndarray = None  # melanin mode: the RGB absorption
+    hair_alpha: float = 2.0  # degrees
     # mix only (pbrt-v3 MixMaterial): two child entries and the blend texture
     mix_children: Optional[tuple] = None
     mix_amount: object = None
+    # fourier only: the loaded .bsdf table (materials/fourier.py)
+    fourier_table: object = None
 
 
 def build_material(record) -> MaterialEntry:
@@ -154,10 +162,47 @@ def build_material(record) -> MaterialEntry:
             remap_roughness=remap(),
             eta_const=tp.find_float("eta", 1.33),
         )
-    if name in ("hair", "fourier"):
-        raise NotImplementedError(
-            f"Material '{name}' is not ported yet (ROADMAP.md Queue 1 item 8)"
-        )
+    if name == "hair":
+        # pbrt-v3 CreateHairMaterial's pigment priority: sigma_a > color >
+        # eumelanin/pheomelanin > the default brown (ce = 1.3)
+        from pbrt_tpu_torch.materials.hair import sigma_a_from_concentration
+
+        e = MaterialEntry(B.HAIR, {"beta_m": float_tex("beta_m", 0.3),
+                                   "beta_n": float_tex("beta_n", 0.3)})
+        e.eta_const = tp.find_float("eta", 1.55)
+        e.hair_alpha = tp.find_float("alpha", 2.0)
+        sig = tp.get_spectrum_texture_or_none("sigma_a")
+        col = tp.get_spectrum_texture_or_none("color")
+        ce = tp.get_float_texture_or_none("eumelanin")
+        cp = tp.get_float_texture_or_none("pheomelanin")
+        if sig is not None:
+            e.hair_mode = "sigma_a"
+            e.textures["sigma_a"] = sig
+        elif col is not None:
+            e.hair_mode = "color"
+            e.textures["sigma_a"] = col  # converted at evaluation (needs beta_n)
+        else:
+            def const_of(t, d):
+                return (float(np.asarray(t.value).reshape(-1)[0])
+                        if isinstance(t, ConstantTexture) else d)
+
+            ce_v = const_of(ce, 0.0) if ce is not None else 0.0
+            cp_v = const_of(cp, 0.0) if cp is not None else 0.0
+            if ce is None and cp is None:
+                ce_v = 1.3
+            e.hair_mode = "melanin"
+            e.hair_sigma_a = sigma_a_from_concentration(ce_v, cp_v).astype(float_t)
+        return e
+    if name == "fourier":
+        from pbrt_tpu_torch.materials.fourier import FourierTable
+
+        fname = tp.find_filename("bsdffile", "")
+        try:
+            table = FourierTable.read(fname)
+        except (OSError, ValueError) as err:
+            log.error("fourier material: %s; using matte", err)
+            return MaterialEntry(B.MATTE, {"kd": spec_tex("Kd", 0.5)})
+        return MaterialEntry(B.FOURIER, eta_const=table.eta, fourier_table=table)
     log.warning("Material '%s' unknown; using matte.", name)
     return MaterialEntry(B.MATTE, {"kd": spec_tex("Kd", 0.5)})
 
@@ -169,6 +214,21 @@ def iter_entries_deep(entries):
         yield e
         if e.mix_children is not None:
             yield from iter_entries_deep(list(e.mix_children))
+
+
+def _entry_masks(entries, mat_id):
+    """(entry, lane mask) for each distinct entry object of ``entries``, in
+    the order of first appearance.  The shapes after one ``Material``
+    directive hold one entry at indices of their own (scene/builder.py), so
+    a scene of thousands of them evaluates it once, not once an index."""
+    first = {}
+    group = [first.setdefault(id(e), len(first)) for e in entries]
+    if len(first) == len(entries):
+        return [(e, mat_id == k) for k, e in enumerate(entries)]
+    uniq = list({id(e): e for e in entries}.values())
+    lut = torch.tensor(group, dtype=torch.int32, device=mat_id.device)
+    g = torch.where(mat_id >= 0, lut[torch.clamp(mat_id, min=0).long()], -1)
+    return [(e, g == j) for j, e in enumerate(uniq)]
 
 
 def _split(entries, half):
@@ -238,10 +298,9 @@ def eval_material_params(entries, mat_id, si, theta=None):
     dev = mat_id.device
     amt = torch.ones((n, 3), dtype=params["kd"].dtype, device=dev)
     is_mix = torch.zeros((n,), dtype=torch.bool, device=dev)
-    for k, e in enumerate(entries):
+    for e, mask in _entry_masks(entries, mat_id):
         if e.mix_children is None:
             continue
-        mask = mat_id == k
         v = e.mix_amount.eval(si)
         if v.dim() == 1:
             v = v[..., None] * torch.ones((1, 3), dtype=v.dtype, device=dev)
@@ -281,8 +340,8 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
         params[slot] = torch.where(m, val, params[slot])
 
     safe_id = torch.clamp(mat_id, 0, max(len(entries) - 1, 0)).long()
-    for k, e in enumerate(entries):
-        mask = mat_id == k
+    masks = _entry_masks(entries, mat_id)
+    for e, mask in masks:
         put("type", mask, torch.tensor(e.type_id, dtype=torch.int32, device=dev))
         for slot in _SPECTRUM_SLOTS:
             tex = e.textures.get(slot)
@@ -322,4 +381,43 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
         if e.metal_eta is not None:
             put("metal_eta", mask, torch.as_tensor(e.metal_eta.astype(float_t), device=dev))
             put("metal_k", mask, torch.as_tensor(e.metal_k.astype(float_t), device=dev))
+
+    # the hair parameter block, present only when the scene has hair
+    if any(e.type_id == B.HAIR for e in entries):
+        from pbrt_tpu_torch.materials.hair import sigma_a_from_reflectance
+
+        params["sigma_a"] = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        params["beta_m"] = zeros1 + 0.3
+        params["beta_n"] = zeros1 + 0.3
+        params["hair_alpha"] = zeros1 + 2.0
+        for e, mask in masks:
+            if e.type_id != B.HAIR:
+                continue
+
+            def fval(slot, default):
+                tex = e.textures.get(slot)
+                if tex is None:
+                    return torch.full((n,), default, dtype=torch.float32, device=dev)
+                v = tex.eval(si)
+                return v.mean(dim=-1) if v.dim() > 1 else v
+
+            beta_m = fval("beta_m", 0.3)
+            beta_n = fval("beta_n", 0.3)
+            put("beta_m", mask, beta_m)
+            put("beta_n", mask, beta_n)
+            put("hair_alpha", mask, torch.tensor(e.hair_alpha, dtype=torch.float32, device=dev))
+            if e.hair_mode == "melanin":
+                sig = torch.as_tensor(e.hair_sigma_a, device=dev).expand(n, 3)
+            else:
+                sig = e.textures["sigma_a"].eval(si)
+                if sig.dim() == 1:
+                    sig = sig[..., None] * torch.ones((1, 3), dtype=sig.dtype, device=dev)
+                if e.hair_mode == "color":
+                    sig = sigma_a_from_reflectance(sig, beta_n[..., None])
+            put("sigma_a", mask, sig)
+
+    # fourier tables: one device bundle per fourier entry
+    if any(e.type_id == B.FOURIER for e in entries):
+        params["fourier"] = [{**e.fourier_table.device_arrays(dev), "mask": mask}
+                             for e, mask in masks if e.type_id == B.FOURIER]
     return params

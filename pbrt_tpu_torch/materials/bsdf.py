@@ -7,8 +7,9 @@ parameter set's static type set (``params["_active"]``) are skipped.
 Ported: diffuse (Lambert and Oren-Nayar), the perfect mirror, smooth and
 rough glass, plastic, metal (conductor Fresnel), substrate (Ashikhmin-
 Shirley FresnelBlend), uber and translucent, with GGX (Trowbridge-Reitz)
-microfacets, and their blends (``mix``).  Hair and fourier are not
-ported (``build_material`` raises for them; ROADMAP Queue 1 item 8).
+microfacets, and their blends (``mix``); hair (``materials/hair.py``)
+and the fourier tables (``materials/fourier.py``), which are present
+only when the scene has them (``params["sigma_a"]``, ``params["fourier"]``).
 
 Mix (pbrt-v3 MixMaterial): ``eval_material_params`` gives a second
 parameter set under ``params["mix_b"]`` with the blend ``mix_amt`` and
@@ -329,6 +330,15 @@ def _bsdf_eval_one(params, wo, wi):
                                            params["kr"])
         rg_trans = _microfacet_transmission_f(params, wo, wi)
         f = torch.where(rough_glass[..., None], rg_refl + rg_trans, f)
+    if has(HAIR) and "sigma_a" in params:
+        from pbrt_tpu_torch.materials.hair import hair_f
+
+        f = torch.where((mtype == HAIR)[..., None], hair_f(params, wo, wi), f)
+    if has(FOURIER) and "fourier" in params:
+        from pbrt_tpu_torch.materials.fourier import fourier_f
+
+        for tbl in params["fourier"]:
+            f = torch.where(tbl["mask"][..., None], fourier_f(tbl, wo, wi), f)
     return f
 
 
@@ -365,6 +375,16 @@ def _bsdf_pdf_one(params, wo, wi):
                                 ggx_pdf_wh(wh_tn, alpha) * dwh_dwi, 0.0)
         rough_glass = (mtype == GLASS) & (alpha > ROUGH_GLASS_MIN_ALPHA)
         pdf = torch.where(rough_glass, 0.5 * (mf_pdf + trans_pdf), pdf)
+    if has(HAIR) and "sigma_a" in params:
+        from pbrt_tpu_torch.materials.hair import hair_pdf
+
+        pdf = torch.where(mtype == HAIR, hair_pdf(params, wo, wi), pdf)
+    if has(FOURIER) and "fourier" in params:
+        from pbrt_tpu_torch.materials.fourier import fourier_pdf_tbl
+
+        for tbl in params["fourier"]:
+            pdf = torch.where(tbl["mask"] & (mtype == FOURIER), fourier_pdf_tbl(tbl, wo, wi),
+                              pdf)
     return pdf
 
 
@@ -432,6 +452,18 @@ def _bsdf_sample_one(params, wo, u_lobe, u2):
         flip = (mtype == TRANSLUCENT) & (u_lobe >= 0.5)
         wi = torch.where(flip[..., None], wi_diff * torch.stack([ones, ones, -ones], dim=-1),
                          wi)
+
+    if has(HAIR) and "sigma_a" in params:
+        from pbrt_tpu_torch.materials.hair import hair_sample_wi
+
+        wi = torch.where((mtype == HAIR)[..., None], hair_sample_wi(params, wo, u_lobe, u2), wi)
+
+    if has(FOURIER) and "fourier" in params:
+        from pbrt_tpu_torch.materials.fourier import fourier_sample_wi_tbl
+
+        for tbl in params["fourier"]:
+            wi = torch.where((tbl["mask"] & (mtype == FOURIER))[..., None],
+                             fourier_sample_wi_tbl(tbl, wo, u_lobe, u2), wi)
 
     specular = (mtype == MIRROR) | ((mtype == GLASS) & ~rough_glass)
     f = _bsdf_eval_one(params, wo, wi)

@@ -31,8 +31,11 @@ handed the renderer before any chunking; only an explicit ``spp``
 overrides their budget (MLT's mutations per pixel, SPPM's iterations).
 
 ``render_scene`` is the scene file's path from ``WorldEnd``: build,
-render, write the image.  The spectral render mode waits for ROADMAP
-Queue 1 item 8.
+render, write the image.  With ``options.sampled_spectrum`` it hands over
+to ``render_scene_spectral``: ``n_spectral_bins / 3`` passes, each
+rebuilding the scene with three wavelength bins promoted into the RGB
+channels (``core/spectrum.py``), summed against the CIE fits to XYZ and
+converted to RGB.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import Options
+from pbrt_tpu_torch import Options, float_t
+from pbrt_tpu_torch.core import spectrum
 from pbrt_tpu_torch.integrators import make_integrator
 from pbrt_tpu_torch.scene.builder import build_scene
 from pbrt_tpu_torch.utils import stats
@@ -224,7 +228,11 @@ class Renderer:
 def render_scene(desc, options: Options | None = None, seed: int = 0, write: bool = True,
                  device="cuda"):
     """A parsed scene -> its image, written to the film's filename when
-    ``write``; returns {image, state, film, renderer, seconds}."""
+    ``write``; returns {image, state, film, renderer, seconds}
+    (``render_scene_spectral``'s dict under ``options.sampled_spectrum``)."""
+    opt = options or Options()
+    if opt.sampled_spectrum and spectrum.get_spectral_bins() is None:
+        return render_scene_spectral(desc, opt, seed, write, device)
     r = Renderer(desc, options, seed, device=device)
     t0 = time.time()
     state = r.render()
@@ -242,5 +250,44 @@ def render_scene(desc, options: Options | None = None, seed: int = 0, write: boo
 
 def render_scene_spectral(desc, options: Options | None = None, seed: int = 0,
                           write: bool = True, device="cuda"):
-    raise NotImplementedError("the sampled-spectrum render mode is not ported yet "
-                              "(ROADMAP.md Queue 1 item 8)")
+    """Sampled-spectrum transport: ``options.n_spectral_bins`` bins (15 by
+    default: 5 passes; 60 is the full grid), three a pass.  Each pass
+    binds three bins to the RGB pipeline's channels and renders the scene
+    anew (promotion happens at build time); the bins' radiances sum
+    against the CIE fits into XYZ, then RGB.  The pass state is cleared
+    however a pass ends.  Returns {image, film, seconds, xyz}."""
+    opt = options or Options()
+    n_bins = int(opt.n_spectral_bins)
+    k = spectrum.N_SPECTRAL_SAMPLES
+    if n_bins % 3 or k % n_bins:
+        raise ValueError(f"n_spectral_bins={n_bins} must be a multiple of 3 dividing {k}")
+    stride = k // n_bins
+    chosen = np.arange(n_bins) * stride + stride // 2
+    t0 = time.time()
+    xyz = None
+    film = None
+    try:
+        for p in range(n_bins // 3):
+            bins = chosen[3 * p:3 * p + 3]
+            spectrum.set_spectral_bins(bins)
+            out = render_scene(desc, opt, seed, write=False, device=device)
+            film = out["film"]
+            img = np.asarray(out["image"], dtype=np.float64)  # three bins' radiances
+            cmf = np.stack([spectrum._CIE_X[bins], spectrum._CIE_Y[bins],
+                            spectrum._CIE_Z[bins]])  # [3 xyz, 3 bins]
+            contrib = np.einsum("hwb,cb->hwc", img, cmf)
+            xyz = contrib if xyz is None else xyz + contrib
+            log.info("spectral pass %d/%d (bins %s)", p + 1, n_bins // 3, bins)
+    finally:
+        spectrum.set_spectral_bins(None)
+    xyz = xyz * (stride / spectrum._CIE_Y_INTEGRAL)
+    img = np.asarray(spectrum.xyz_to_rgb(xyz.astype(float_t)))
+    dt = time.time() - t0
+    log.info("Spectral render (%d bins, %d passes) in %.2fs", n_bins, n_bins // 3, dt)
+    if write and film is not None and film.filename:
+        from pbrt_tpu_torch.core.imageio import write_image
+
+        write_image(film.filename, img.astype(float_t), film.cropped_pixel_bounds,
+                    film.full_resolution)
+        log.info("Wrote %s", film.filename)
+    return {"image": img.astype(float_t), "film": film, "seconds": dt, "xyz": xyz}

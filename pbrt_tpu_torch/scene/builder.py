@@ -245,12 +245,20 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
 
     materials: List[MaterialEntry] = []
     mat_cache = {}
+    # one entry for the records that share their parameters and textures
+    # (those of the shapes after one Material directive): the material
+    # table keeps an index per record, and they all hold the same entry
+    entries = {}
 
     def mat_index(record) -> int:
         key = id(record)
         if key not in mat_cache:
-            materials.append(build_material(record))
-            record.params.report_unused()
+            shared = (id(record.params), id(record.float_textures),
+                      id(record.spectrum_textures))
+            if shared not in entries:
+                entries[shared] = build_material(record)
+                record.params.report_unused()
+            materials.append(entries[shared])
             mat_cache[key] = len(materials) - 1
         return mat_cache[key]
 
@@ -369,6 +377,10 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         for k in TRI_KEYS[:9]:
             if not np.isfinite(host[k]).all():
                 raise ValueError(f"Non-finite values in scene table 'tri.{k}'")
+        if tri_data.tan0 is not None:
+            # curve tangents (hair shading), zero on the other triangles
+            for k in ("tan0", "tan1", "tan2"):
+                host[k] = getattr(tri_data, k)
         tables["tri"] = {k: torch.as_tensor(v, device=device) for k, v in host.items()}
     if sph_data is not None:
         for k in ("o2w", "w2o", "radius", "z_min", "z_max"):
@@ -469,13 +481,17 @@ def _world_bounds(tri_data, sph_data):
 
 def _tri_cols(tr, need_normals=True, need_uv=True):
     """Pack the triangle table into one [T, C] f32 matrix plus a name ->
-    column-slice layout (the reference's ``_tri_cols``)."""
+    column-slice layout (the reference's ``_tri_cols``): p0 p1 p2 (9)
+    [n0 n1 n2 (9)] [uv0 uv1 uv2 (6)] mat light med_in med_out (4)
+    [tan0 tan1 tan2 (9)]."""
     names = ["p0", "p1", "p2"]
     if need_normals:
         names += ["n0", "n1", "n2"]
     if need_uv:
         names += ["uv0", "uv1", "uv2"]
     names += ["mat", "light", "med_in", "med_out"]
+    if "tan0" in tr:
+        names += ["tan0", "tan1", "tan2"]
     parts = []
     layout = {}
     at = 0
@@ -506,8 +522,9 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
     Keys: p, ng, ng_raw, ns [N, 3], uv [N, 2], mat, light, med_in,
     med_out [N], wo [N, 3]; with ``ray_diff = (dxd, dyd)`` (the +1-pixel
     camera ray directions sharing origin ``o``) also duvdx, duvdy [N, 2]
-    and tex_width [N].  Misses get mat = light = -1.  ``time`` ([N]
-    normalized shutter times) blends each lane's triangle vertices and
+    and tex_width [N]; in scenes with curves also tang [N, 3], the
+    interpolated curve tangent (zero off curves).  Misses get mat = light
+    = -1.  ``time`` ([N] normalized shutter times) blends each lane's triangle vertices and
     shading normals between the ``tri_keys`` tables of an animated scene.
     """
     n = o.shape[0]
@@ -638,6 +655,11 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
         light = torch.where(is_tri, col_int("light"), light)
         med_in = torch.where(is_tri, col_int("med_in"), med_in)
         med_out = torch.where(is_tri, col_int("med_out"), med_out)
+        if "tan0" in tr:
+            # the curve tangent (hair shading); zero on other triangles
+            tang_t = (b2[..., None] * rows[:, lay["tan0"]] + b0[..., None] * rows[:, lay["tan1"]]
+                      + b1[..., None] * rows[:, lay["tan2"]])
+            tang = torch.where(m, tang_t, 0.0)
 
     if "sph" in tables:
         cols = tables["sph_cols"]
@@ -691,4 +713,6 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
         out["tex_width"] = tex_width
         out["duvdx"] = duvdx
         out["duvdy"] = duvdy
+    if "tri" in tables and "tan0" in tables["tri"]:
+        out["tang"] = tang
     return out

@@ -5,7 +5,8 @@ The device intersector knows two primitive kinds, spheres and
 triangles; every other pbrt-v3 shape (disk, cylinder, cone, paraboloid,
 hyperboloid, heightfield, plymesh, loopsubdiv, nurbs) becomes triangles
 with analytic vertex normals at scene-build time, as in the reference.
-Curves wait for the hair slice (ROADMAP Queue 1 item 8).
+Curves (``shapes/curve.py``) also carry per-corner tangents for the hair
+BSDF.
 """
 
 from __future__ import annotations
@@ -35,6 +36,9 @@ class TriangleData:
     n0: Optional[np.ndarray] = None  # shading normals (world), or None
     n1: Optional[np.ndarray] = None
     n2: Optional[np.ndarray] = None
+    tan0: Optional[np.ndarray] = None  # curve tangents (world), hair shading
+    tan1: Optional[np.ndarray] = None
+    tan2: Optional[np.ndarray] = None
 
     @property
     def count(self) -> int:
@@ -137,7 +141,8 @@ def _grid_triangles(pts_w, nrm_w, uvc, min_area):
     keep = td.areas() > min_area
     if not keep.all():
         td = TriangleData(**{f.name: getattr(td, f.name)[keep]
-                             for f in dataclasses.fields(TriangleData)})
+                             for f in dataclasses.fields(TriangleData)
+                             if getattr(td, f.name) is not None})
     return td
 
 
@@ -300,10 +305,9 @@ def make_shape(name: str, params, o2w, reverse: bool):
 
         return make_nurbs(params, o2w, reverse)
     if name == "curve":
-        raise NotImplementedError(
-            "Shape 'curve' is not ported yet: its per-corner tangents serve the hair "
-            "BSDF (ROADMAP.md Queue 1 item 8)"
-        )
+        from pbrt_tpu_torch.shapes.curve import make_curve
+
+        return make_curve(params, o2w, reverse)
     log.error("Shape '%s' unknown.", name)
     return None
 
@@ -323,6 +327,18 @@ def concat_triangle_data(parts):
         return ng, ng, ng
 
     n0s, n1s, n2s = zip(*(normals_of(p) for p in parts))
+
+    def tangents_of(td):
+        # a zero tangent marks "not a curve"; hair lanes never read these
+        if td.tan0 is not None:
+            return td.tan0, td.tan1, td.tan2
+        z = np.zeros_like(td.p0)
+        return z, z, z
+
+    has_tan = any(p.tan0 is not None for p in parts)
+    t0s = t1s = t2s = None
+    if has_tan:
+        t0s, t1s, t2s = zip(*(tangents_of(p) for p in parts))
     return TriangleData(
         p0=np.concatenate([p.p0 for p in parts]),
         p1=np.concatenate([p.p1 for p in parts]),
@@ -333,4 +349,7 @@ def concat_triangle_data(parts):
         n0=np.concatenate(n0s),
         n1=np.concatenate(n1s),
         n2=np.concatenate(n2s),
+        tan0=np.concatenate(t0s) if has_tan else None,
+        tan1=np.concatenate(t1s) if has_tan else None,
+        tan2=np.concatenate(t2s) if has_tan else None,
     )

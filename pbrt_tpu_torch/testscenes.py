@@ -612,7 +612,8 @@ def write_volume_scene(path, ply_path, nu=224, nv=112, **kw):
 
 
 def config3_scenefile(path, ply_path, xres=256, yres=256, spp=8, maxdepth=4,
-                      integrator="path", extra="", camera="", rotate=0.0, shift=0.0):
+                      integrator="path", extra="", camera="", rotate=0.0, shift=0.0,
+                      material=""):
     """Config 3 as a scene file: :data:`MESH_SCENE` under ``Integrator
     "<integrator>"`` with ``extra`` parameters (e.g. ``"bdpt"``, or
     ``"mlt"`` with ``'"integer mutationsperpixel" 8'``), the torus as a
@@ -622,8 +623,14 @@ def config3_scenefile(path, ply_path, xres=256, yres=256, spp=8, maxdepth=4,
     ``'Camera "realistic" "string lensfile" "biconvex-50mm-f8"'``).  With
     ``rotate`` or ``shift``, motion across ``shutteropen 0 shutterclose
     1``: the torus turns ``rotate`` degrees about its axis (z; 30 degrees
-    gives 4 keyframes) and the camera moves ``shift`` along world x."""
+    gives 4 keyframes) and the camera moves ``shift`` along world x.
+    ``material``: another material line for the torus (e.g. ``'Material
+    "fourier" "string bsdffile" "glossy.bsdf"'``)."""
     head = _mesh_head(xres, yres, spp, maxdepth, integrator, extra)
+    if material:
+        torus_mat = 'Material "matte" "texture Kd" "checks"'
+        assert torus_mat in head
+        head = head.replace(torus_mat, material)
     cam = 'Camera "perspective" "float fov" 45'
     assert cam in head
     torus = f'Shape "plymesh" "string filename" "{ply_path}"\n'
@@ -897,3 +904,85 @@ def motion_quad_text(integrator="path", xres=16, yres=16, spp=8, maxdepth=2, ext
     return MOTION_QUAD.format(integrator=integrator, xres=xres, yres=yres, spp=spp,
                               maxdepth=maxdepth, extra=extra, motion=motion,
                               camera_motion=camera_motion, sphere=sphere, camera=camera)
+
+
+FUR_HEAD = """
+LookAt 0 -4.4 1.3  0 0 0.05  0 0 1
+Camera "perspective" "float fov" 40
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator "{integrator}" "integer maxdepth" {maxdepth}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+    "string filename" "{filename}"
+Accelerator "bvh"
+WorldBegin
+LightSource "infinite" "rgb L" [0.25 0.27 0.3]
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [7 7 6.5]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [-1.5 -2.5 3.5  -1.5 -0.5 3.5  0.5 -0.5 3.5  0.5 -2.5 3.5]
+AttributeEnd
+Material "matte" "rgb Kd" [0.45 0.4 0.35]
+Shape "sphere" "float radius" 1
+Material "matte" "rgb Kd" [0.4 0.4 0.42]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-8 -8 -1.35  8 -8 -1.35  8 8 -1.35  -8 8 -1.35]
+Material "hair" "float eumelanin" {eumelanin} "float pheomelanin" 0.3
+    "float beta_m" 0.3 "float beta_n" 0.3 "float alpha" 2
+"""
+
+
+def fur_text(n_curves=4096, xres=256, yres=256, spp=8, maxdepth=8, seed=0,
+             filename="fur.pfm", integrator="path", eumelanin=1.3, length=0.3,
+             tessellation=8, tessellation_v=6):
+    """A fur ball: ``n_curves`` cubic Bezier curves of ``type "flat"``
+    rooted on a matte unit sphere, each growing ``length`` along its root
+    normal and drooping toward -z, ``width0`` 0.01 tapering to ``width1``
+    0.002, under one hair material in melanin mode; a floor quad, a quad
+    area light and a constant infinite light.  Each curve tessellates into
+    2 x ``tessellation`` x ``tessellation_v`` triangles (96 at 8 x 6):
+    393,216 at the default 4096 curves.  The curves follow one plain
+    ``Material "hair"`` directive, as pbrt's hair files put it, and share
+    its record.  Roots and droop are made from ``seed`` with numpy."""
+    rs = np.random.default_rng(seed)
+    z = 1.0 - 2.0 * rs.random(n_curves)
+    phi = 2.0 * np.pi * rs.random(n_curves)
+    r = np.sqrt(np.maximum(0.0, 1.0 - z * z))
+    n = np.stack([r * np.cos(phi), r * np.sin(phi), z], axis=-1)
+    droop = np.array([0.0, 0.0, -1.0]) + 0.3 * rs.normal(size=(n_curves, 3))
+    droop -= np.sum(droop * n, axis=-1, keepdims=True) * n
+    droop /= np.maximum(np.linalg.norm(droop, axis=-1, keepdims=True), 1e-9)
+    lens = length * (0.8 + 0.4 * rs.random(n_curves))[:, None]
+    ctrl = np.stack([n, n + 0.4 * lens * n, n + 0.75 * lens * n + 0.2 * lens * droop,
+                     n + lens * (0.9 * n + 0.45 * droop)], axis=1)
+    lines = [FUR_HEAD.format(spp=spp, maxdepth=maxdepth, xres=xres, yres=yres,
+                             filename=filename, integrator=integrator, eumelanin=eumelanin)]
+    for c in ctrl:
+        pts = " ".join(f"{v:.6f}" for v in c.reshape(-1))
+        lines.append(f'Shape "curve" "string type" "flat" "point P" [{pts}] '
+                     f'"float width0" 0.01 "float width1" 0.002 '
+                     f'"integer tessellation" {tessellation} '
+                     f'"integer tessellation_v" {tessellation_v}')
+    lines.append("WorldEnd\n")
+    return "\n".join(lines)
+
+
+def glossy_fourier_table(n_mu=64, orders=8, eta=1.3):
+    """A synthetic glossy ``fourier`` table: reflection only, a_k =
+    |mu_i| c_k (1, 0.8, 0.5) over the channels (Y, R, B) with c_k =
+    (1 + k)^-1.2, on ``n_mu`` uniform zenith knots (``tests/test_fourier.py``'s
+    glossy table with more orders and knots).  Write it with
+    ``FourierTable.write``."""
+    from pbrt_tpu_torch.materials.fourier import FourierTable
+
+    coeffs = 1.0 / (1.0 + np.arange(orders)) ** 1.2
+    mu = np.linspace(-1.0, 1.0, n_mu)
+    oal = np.zeros((n_mu * n_mu, 2), dtype=np.int64)
+    runs, off = [], 0
+    for i in range(n_mu):
+        for j in range(n_mu):
+            if mu[i] * mu[j] < 0:
+                a = np.outer([1.0, 0.8, 0.5], coeffs * abs(mu[i])).astype(np.float32)
+                oal[i * n_mu + j] = (off, orders)
+                runs.append(a.reshape(-1))
+                off += 3 * orders
+    return FourierTable(eta, mu, oal, np.concatenate(runs), m_max=orders, n_channels=3)

@@ -4,7 +4,8 @@
 The image is read and converted on the host when the texture is made
 (inverse gamma for 8-bit formats, the scale, v flipped so that texture
 t = 0 is the image's bottom row); lookups gather from the packed pyramid
-over the wavefront.  ``si["_tex"]`` (set by ``eval_material_params``
+over the wavefront.  In a spectral pass the texels' RGB becomes the
+pass's three bins.  ``si["_tex"]`` (set by ``eval_material_params``
 from ``theta["tex_images"]``) may replace the pyramid by a tensor keyed
 by this texture's ``tex_id``: its texels are then gradient targets.
 """
@@ -19,6 +20,7 @@ import torch
 from pbrt_tpu_torch import float_t, inverse_gamma_correct
 from pbrt_tpu_torch.core.imageio import read_image
 from pbrt_tpu_torch.core.mipmap import WRAP_NAMES, WRAP_REPEAT, MIPMap
+from pbrt_tpu_torch.core.spectrum import get_spectral_bins, promote_rgb
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -46,6 +48,9 @@ class ImageTexture:
         img = img * float(scale)
         if not spectral:
             img = img.mean(axis=-1, keepdims=True)
+        elif get_spectral_bins() is not None:
+            # a spectral pass: the linear texel RGB becomes the pass's bins
+            img = promote_rgb(img).astype(np.float64)
         self.mipmap = MIPMap(img[::-1].astype(float_t), wrap=WRAP_NAMES.get(wrap, WRAP_REPEAT),
                              do_trilinear=do_trilinear, max_anisotropy=max_aniso)
 
