@@ -11,7 +11,7 @@ Run from the repository root:
                                      # phases 16 and 17 profile their motion
                                      # and fur frames always)
     python3 chip_smoke.py --phase 17 # phases 1-2 and 17 alone (also 12, 14,
-                                     # 15 or 16); the last line then
+                                     # 15, 16 or 18); the last line then
                                      # says "phases": [1, 2, 17]
 
 Phases (any failure raises and the script exits non-zero):
@@ -286,16 +286,54 @@ Phases (any failure raises and the script exits non-zero):
    (forward only: no replay), peak memory, forward and forward+backward
    seconds (median of three), every leaf finite, the floor's kd against
    a central finite difference; every leaf card against CPU at 16x16, 1
-   spp, maxdepth 3, to phase 10 (b)'s tolerance.
+   spp, maxdepth 3, to phase 10 (b)'s tolerance;
+18. the sort switches and the sharded paths (``parallel/``), the worlds
+   spawned by ``parallel/multihost.run_local_world`` on the one card,
+   each with a deadline (a rank that raises or a world that misses it
+   fails the phase): (a) config 3 (phase 4's) under ``shadow_sort`` =
+   sorted, unsorted and merged, ``sorted_carry=False``, ``deadbit=False``
+   and ``key_obits=4``: K2 x 14 each, each image against phase 4's default
+   to phase 5's tolerance, frame seconds (median of three, taken in
+   turns); under sorted, unsorted and merged, one frame's K2 sweeps and
+   ``co_sort`` calls recorded and each timed alone: K2's ms over the
+   closest-hit and over the shadow sweeps, the sorts' ms; (b) the 24x24
+   torus (1,156 triangles) under ``stream_min_tris=512``: K2 x 7 in place of K1, the image against the
+   whole tree's; (c) ``ShardedRenderer`` in a world of 4 gloo ranks (dp=2,
+   sp=2) on config 3 at 256x256, 8 spp, maxdepth 4: every rank's film
+   equal, against phase 4's default image; K2 x 28 a rank; the render's
+   seconds per rank; its ``build_value_and_grad`` step over the film's
+   first 4,096 pixels at 2 samples a pixel against a target with the
+   floor's kd changed: loss (rtol 1e-4) and every leaf (phase 10 (b)'s
+   tolerance) against the single card's ``make_loss_fn``; (d) the same in
+   a world of 1 under nccl; (e) config 5's 1,000,004 triangles sharded
+   over tp=4 gloo ranks in packed tables (built and saved per shard
+   under ``build/chip_smoke/``, each rank loading its own), through
+   ``make_sharded_path_fn`` at 256x256, 4 spp, maxdepth 4 (config 5's
+   camera, the harness's matte and environment): allreduce and ring, each
+   image against the tp=1 render in the nccl world and against each
+   other, K2 launches per rank, seconds per rank; rank 0's four shard
+   sweeps, recorded in the world and checked once it has exited (no other
+   rank on the card), through K2 and its plain version on rank 0's shard
+   tables (``check_walk``, phase 3's rules) and K2's time per sweep,
+   timed as phase 3's, beside its bound; (f) ``make_sharded_grad_fn``
+   on (e)'s shards at 65,536 pixels, tp=4 (remat on and off) against
+   tp=1: loss rtol 1e-4, every leaf to phase 10 (b)'s tolerance, K2
+   launched in the replay, per-rank peak memory; (g) a world of 2 gloo
+   ranks with skip-link shards of config 3's triangles (256x256, 1 spp,
+   maxdepth 3): K6 per shard, rank 0's sweeps (checked and timed after
+   the world, as (e)'s) bit-equal against its plain version, the image
+   against packed shards'.
 
 The lines before the last are JSON objects: ``{"cornell": ...}``,
 ``{"config5": ...}``, ``{"gradients": ...}``, ``{"config4": ...}``,
 ``{"integrators": ...}``, ``{"scenefile": ...}``, ``{"volume": ...}``,
-``{"bdpt": ...}``, ``{"motion": ...}``, ``{"features": ...}`` and one
-with an entry per kernel (K2's holds phase 13's sweeps and launches
+``{"bdpt": ...}``, ``{"motion": ...}``, ``{"features": ...}``,
+``{"sharded": ...}`` and one with an entry per kernel (K2's holds phase 13's sweeps and launches
 under ``"scenefile"``, phase 14's under ``"volume"`` with phase 15 (c)'s
 gradient launches, phase 15's under ``"bdpt"`` and ``"mlt"``, phase 16
-(c)'s under ``"sppm"`` and phase 17 (a)'s under ``"fur"``; K7's launches
+(c)'s under ``"sppm"``, phase 17 (a)'s under ``"fur"`` and phase 18 (e)-(f)'s
+per-shard sweeps and launches per rank under ``"sharded"``, as K6's
+phase 18 (g)'s; K7's launches
 are phase 16 (a)'s frame's); the last line is ``{"ok": true, "device":
 {...}}``.
 """
@@ -304,9 +342,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 PIXELS = 256 * 256
 SWEEP = 262144  # rays per timed sweep (one config-3 chunk)
@@ -686,8 +726,12 @@ def walk_device_ms(name, calls):
     if name not in SPLIT_WALKS:
         return None
     names = ("whole_prep_kernel", f"{name}_kernel")
-    return [sum(v[0] or 0.0 for v in profiled_ms(lambda: fn(*args, **kw), 10, names).values())
-            for fn, args, kw in calls]
+    out = []
+    for fn, args, kw in calls:
+        got = [v[0] for v in profiled_ms(lambda: fn(*args, **kw), 10, names).values()
+               if v[0] is not None]
+        out.append(sum(got) if got else None)  # None: the trace held neither kernel
+    return out
 
 
 def sweep_lines(name, ms, stats, dev=None):
@@ -703,7 +747,8 @@ def sweep_lines(name, ms, stats, dev=None):
         log(f"    sweep {i}: {n_live} live lanes, {steps:.2f} node steps and {tris:.2f} "
             f"triangle tests per live lane, {t:.4f} ms = "
             f"{t * 1e6 / max(steps, 1e-9):.1f} ns per node step of the mean lane"
-            + ("" if dev is None else f", device {dev[i]:.4f} ms")
+            + ("" if dev is None else ", device not measured" if dev[i] is None
+               else f", device {dev[i]:.4f} ms")
             + ("" if segments is None else f", S = {segments}")
             + ("" if rays is None else f", {rays} rays per task"))
 
@@ -3041,10 +3086,398 @@ def phase_bdpt_grad(card, d, ply):
     return out
 
 
+SWITCHES = {  # phase 18 (a): Renderer arguments -> the reference's variables
+    "sorted": {},
+    "unsorted": dict(shadow_sort="unsorted"),  # PBRT_TPU_SC_NOSORT_SHADOW=1
+    "merged": dict(shadow_sort="merged"),  # PBRT_TPU_SC_MERGED=1
+    "no_sorted_carry": dict(sorted_carry=False),  # PBRT_TPU_NO_SORTED_CARRY=1
+    "no_deadbit": dict(deadbit=False),  # PBRT_TPU_NO_DEADBIT=1
+    "key_obits4": dict(key_obits=4),  # PBRT_TPU_KEY_OBITS=4
+}
+SHARD_RANKS = 4  # (c), (e), (f): gloo ranks sharing the one card
+SHARD_GRAD_PIXELS = 4096  # (c), (d): the step's pixels (the film's first 16 rows)
+SHARD_GRAD_SAMPLES = 2  # (c), (d): samples a pixel, over sp
+GEOM = dict(res=256, spp=4, max_depth=4)  # (e), (f): config 5's frame; (f): 65,536 pixels
+GEOM_CAMERA = dict(eye=(2.8, 2.2, 2.8), look=(0.0, 0.0, 0.0), up=(0, 0, 1), fov=45.0)
+SKIP_RANKS = 2  # (g)
+SKIP = dict(res=256, spp=1, max_depth=3)  # (g)
+SKIP_TORUS = dict(nu=224, nv=112)  # (g): config 3's 50,180 triangles
+WORLD_TIMEOUT_S = 420
+WORLD1_BACKEND = "nccl"  # (d)
+
+
+def _compare_np_grads(label, got, want):
+    import torch
+
+    return compare_grads(label, {k: torch.as_tensor(v) for k, v in got.items()},
+                         {k: torch.as_tensor(v) for k, v in want.items()})
+
+
+def _check_loss(label, got, want):
+    rel = abs(got - want) / max(abs(want), 1e-30)
+    log(f"  {label}: loss {got:.6e} against {want:.6e}, rel diff {rel:.3e}")
+    if rel > 1e-4:
+        raise AssertionError(f"{label}: loss {got} against {want}")
+    return rel
+
+
+def frame_device_ms(r):
+    """One frame's K2 sweeps and ``co_sort`` calls, each recorded and then
+    timed alone on the card (CUDA events, mean of 20 after one) -> (K2 ms
+    summed over the closest-hit sweeps, over the shadow sweeps, the sorts'
+    ms summed, the number of sorts)."""
+    import torch
+
+    from pbrt_tpu_torch.integrators import path
+    from pbrt_tpu_torch.ops import sortnet
+
+    walk = r.compiled.intersector.walk
+    sweeps = record_walks(r)
+    sorts, orig = [], sortnet.co_sort
+
+    def recording(operands, network="stable"):
+        sorts.append((tuple(x.clone() for x in operands), network))
+        return orig(operands, network)
+
+    sortnet.co_sort = path.co_sort = recording
+    try:
+        r.render()
+        torch.cuda.synchronize()
+    finally:
+        sortnet.co_sort = path.co_sort = orig
+    k2 = {False: 0.0, True: 0.0}
+    for o, d, t_max, any_hit in sweeps:
+        fn, args, kw = kernel_call("stream_walk8", walk, o, d, t_max, any_hit)
+        k2[any_hit] += cuda_ms(lambda: fn(*args, **kw), 20)
+    sort_ms = 0.0
+    for ops, network in sorts:
+        sort_ms += cuda_ms(lambda: orig(ops, network), 20)
+    return k2[False], k2[True], sort_ms, len(sorts)
+
+
+def shard_walk(shard):
+    """One rank's shard tables (``geomshard.local_shard``) as the walk that
+    ``walk_call`` reads: K2's packed cluster tables or K6's skip-link rows."""
+    from types import SimpleNamespace
+
+    if shard["kind"] == "packed":
+        return SimpleNamespace(nodes=shard["pk_nodes"], tris=shard["pk_tris"],
+                               roots=shard["pk_roots"], cl_min=shard["pk_clmin"],
+                               cl_max=shard["pk_clmax"], depth=shard["depth"])
+    return SimpleNamespace(nodes_f=shard["sk_nodes_f"], nodes_i=shard["sk_nodes_i"],
+                           tris=shard["sk_tris"])
+
+
+def _shard_sweeps(name, label, shard_file, sweeps):
+    """Phase 18's per-shard kernel checks, made here after the world has
+    exited, so that no other rank shares the card: one rank's recorded
+    sweeps (numpy o, d, t_max) on its shard tables (``shard_file``, loaded
+    onto the card) through ``check_walk``, then timed alone by
+    ``time_walks`` -> the kernel's JSON entry."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.parallel.geomshard import local_shard
+
+    with np.load(shard_file) as z:
+        walk = shard_walk(local_shard({k: z[k] for k in z.files}, 0, DEVICE))
+    checked = [check_walk(name, f"{label}, sweep {i}", walk,
+                          *(torch.as_tensor(x, device=DEVICE) for x in sw), False)
+               for i, sw in enumerate(sweeps)]
+    errs, calls, works, stats, plain = zip(*checked)
+    ms, plain_ms, dev = time_walks(name, calls, stats, plain)
+    b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
+    log(f"  {name} on {label}: {len(sweeps)} sweeps of {[len(sw[0]) for sw in sweeps]} rays, "
+        f"each equal to its plain version, max |dt| {max(errs):.3e}; kernel mean "
+        f"{np.mean(ms):.4f} ms ({min(ms):.4f}-{max(ms):.4f}), bound {b_ms:.5f} ms ({b_by}), "
+        f"{b_ms / np.mean(ms):.2%} of it")
+    entry = dict(max_abs_err=max(errs), ms=float(np.mean(ms)), sweep_ms=ms, plain_ms=plain_ms,
+                 bound_ms=b_ms, bound_by=b_by, sweeps=len(sweeps),
+                 sweep_live=[st[0] for st in stats])
+    if dev is not None:
+        entry["sweep_device_ms"] = dev
+    return entry
+
+
+def phase_sharded(card, default_image=None):
+    """Phase 18: the sort switches, and the sharded paths in spawned
+    worlds (``parallel/multihost.run_local_world``) on the one card."""
+    import tempfile
+
+    import torch
+
+    from pbrt_tpu_torch.testscenes import mesh_scene_renderer
+
+    out, k2, k6 = {"card": card}, {}, {}
+    cfg3 = SCENES["config3"]
+    log(f"== phase 18 (a): the sort switches on config 3 ({cfg3})")
+    images, times, launches, rs = {}, {name: [] for name in SWITCHES}, {}, {}
+    for name, sw in SWITCHES.items():
+        r = rs[name] = mesh_scene_renderer(**cfg3, device=DEVICE, **sw)[0]
+        torch.cuda.synchronize()
+        reset_counts()
+        images[name] = r.image(r.render())
+        launches[name] = {k: v for k, v in read_counts().items() if v}
+        closest, shadow = r.integrator.queries_per_sample()
+        want = {"stream_walk8": (closest + shadow) * frame_chunks(r)}
+        log(f"  {name} {sw}: launches {launches[name]}")
+        if launches[name] != want:
+            raise AssertionError(f"{name}: launches {launches[name]}, want {want}")
+    for _ in range(3):  # frames taken in turns, as phase 6's
+        for name, r in rs.items():
+            times[name].append(timed(lambda: r.image(r.render()), reps=1)[0])
+    frames = {name: (sorted(t)[1], t) for name, t in times.items()}
+    for name in SWITCHES:
+        log(f"  {name}: frame {frames[name][0]:.4f} s ({[round(x, 4) for x in frames[name][1]]})"
+            f", median of three taken in turns, on {card}")
+    log("  device ms a frame, each recorded K2 sweep and co_sort timed alone (CUDA events, "
+        "mean of 20 after one)")
+    device_ms = {}
+    for name in ("sorted", "unsorted", "merged"):
+        k2_c, k2_s, sort_ms, n_sorts = frame_device_ms(rs[name])
+        device_ms[name] = dict(k2_closest_ms=k2_c, k2_shadow_ms=k2_s, sorts_ms=sort_ms,
+                               sorts=n_sorts, total_ms=k2_c + k2_s + sort_ms)
+        log(f"  {name}: K2 closest {k2_c:.4f} ms, K2 shadow {k2_s:.4f} ms, {n_sorts} co_sorts "
+            f"{sort_ms:.4f} ms, together {k2_c + k2_s + sort_ms:.4f} ms, on {card}")
+    del rs
+    base = images["sorted"] if default_image is None else default_image
+    out["switches"] = {
+        name: dict(frame_s=frames[name][0], frames_s=frames[name][1], launches=launches[name],
+                   **({"device_ms": device_ms[name]} if name in device_ms else {}),
+                   parity=compare_images(f"{name} against the default image", images[name],
+                                         base, ("default", name)))
+        for name in SWITCHES}
+    default_image = images["sorted"] if default_image is None else default_image
+
+    log("== phase 18 (b): the 24x24 torus (1,156 triangles) under stream_min_tris=512")
+    small = SCENES["small"]
+    imgs = {}
+    for label, kw in (("whole tree", {}), ("stream_min_tris=512", dict(stream_min_tris=512))):
+        r, _ = mesh_scene_renderer(**small, device=DEVICE, **kw)
+        reset_counts()
+        imgs[label] = r.image(r.render())
+        got = {k: v for k, v in read_counts().items() if v}
+        log(f"  {label}: {type(r.compiled.intersector.walk).__name__}, launches {got}")
+        want = {"wide_walk8": 7} if not kw else {"stream_walk8": 7}
+        if got != want:
+            raise AssertionError(f"small torus, {label}: launches {got}, want {want}")
+    out["stream_min_tris"] = dict(launches=got, parity=compare_images(
+        "the small torus, streaming against whole tree", imgs["stream_min_tris=512"],
+        imgs["whole tree"], ("whole tree", "streaming")))
+
+    log("== phase 18: building config 5's shard tables (tp=4 and tp=1, packed)")
+    Path(SCENEFILE_DIR).mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="shards_", dir=SCENEFILE_DIR)
+    try:
+        return _phase_sharded_worlds(card, default_image, out, k2, k6, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase_sharded_worlds(card, default_image, out, k2, k6, tmp):
+    """Phase 18 (c)-(g), with config 5's shard tables saved under ``tmp``."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.diff.grad import make_loss_fn, render_image_diff, value_and_grad
+    from pbrt_tpu_torch.parallel import worlds
+    from pbrt_tpu_torch.parallel.geomshard import shard_triangle_arrays
+    from pbrt_tpu_torch.parallel.multihost import run_local_world
+    from pbrt_tpu_torch.testscenes import mesh_scene_renderer
+
+    cfg3 = SCENES["config3"]
+    t0 = time.time()
+    scene5 = worlds.config5_scene(CONFIG5["nu"], CONFIG5["nv"])
+    files = {}
+    for tp in (SHARD_RANKS, 1):
+        tables = shard_triangle_arrays(*scene5, tp, packed=True)
+        files[(tp, "packed")] = worlds.save_shards(tables, f"{tmp}/tp{tp}")
+        if tp == SHARD_RANKS:
+            shard_info = dict(clusters=int(tables["pk_nodes"].shape[1]),
+                              node_rows=int(tables["pk_nodes"].shape[2]),
+                              leaf_rows=int(tables["pk_tris"].shape[2]),
+                              per_shard=int(tables["p0"].shape[1]))
+        del tables
+    build_s = time.time() - t0
+    log(f"  {scene5[0].count} triangles; tables built and saved in {build_s:.2f} s; tp="
+        f"{SHARD_RANKS} shard tables {shard_info}")
+    out["config5_shards"] = dict(triangles=int(scene5[0].count), build_s=build_s, **shard_info)
+    del scene5
+
+    # the single-card references of (c) and (d): the step's target (the
+    # floor's kd changed) and make_loss_fn's loss and gradient
+    r3, _ = mesh_scene_renderer(**cfg3, device=DEVICE)
+    theta = r3.compiled.initial_theta()
+    t_theta = dict(theta, kd=theta["kd"].clone())
+    t_theta["kd"][FLOOR] += torch.tensor([0.1, -0.08, 0.05], device=DEVICE)
+    with torch.no_grad():
+        target = render_image_diff(r3, t_theta, spp=SHARD_GRAD_SAMPLES).cpu().numpy()
+    px = torch.as_tensor(r3.film.cropped_pixel_bounds.offsets()[:SHARD_GRAD_PIXELS],
+                         device=DEVICE)
+    value, g = value_and_grad(make_loss_fn(r3, target, spp=SHARD_GRAD_SAMPLES), theta, px)
+    single_loss, single_grads = float(value), worlds.flat_leaves(g)
+    del r3, g
+
+    renderer_fn = functools.partial(worlds.scene_renderer, **cfg3)
+    sharding_kw = dict(renderer_fn=renderer_fn, spp=cfg3["spp"], grad_samples=SHARD_GRAD_SAMPLES,
+                       grad_pixels=SHARD_GRAD_PIXELS, grad_target=target)
+    geom_kw = dict(res=GEOM["res"], spp=GEOM["spp"], max_depth=GEOM["max_depth"],
+                   camera=GEOM_CAMERA, n_mats=3, shard_files=files)
+
+    log(f"== phase 18 (c), (e), (f): a world of {SHARD_RANKS} gloo ranks on the one card")
+    cases4 = [(1, SHARD_RANKS, "packed", "allreduce"), (1, SHARD_RANKS, "packed", "ring")]
+    grads4 = [(1, SHARD_RANKS, "packed", True), (1, SHARD_RANKS, "packed", False)]
+    t0 = time.time()
+    world4 = run_local_world(worlds.rank_tasks, SHARD_RANKS, backend="gloo", device=DEVICE,
+                             timeout_s=WORLD_TIMEOUT_S, args=([
+                                 (worlds.rank_sharding, dict(sharding_kw, meshes=((2,),))),
+                                 (worlds.rank_geomshard, dict(geom_kw, cases=cases4,
+                                                              grad_cases=grads4, record_rank=0)),
+                             ],))
+    world4_s = time.time() - t0
+    log(f"  the world ran in {world4_s:.1f} s (spawn, builds and every case)")
+
+    log("== phase 18 (d), and the tp=1 references of (e), (f): a world of 1 under nccl")
+    t0 = time.time()
+    world1 = run_local_world(worlds.rank_tasks, 1, backend=WORLD1_BACKEND, device=DEVICE,
+                             timeout_s=WORLD_TIMEOUT_S, args=([
+                                 (worlds.rank_sharding, dict(sharding_kw, meshes=((1,),))),
+                                 (worlds.rank_geomshard, dict(
+                                     geom_kw, cases=[(1, 1, "packed", "allreduce")],
+                                     grad_cases=[(1, 1, "packed", True)])),
+                             ],))
+    world1_s = time.time() - t0
+    log(f"  the world ran in {world1_s:.1f} s")
+
+    for label, world, sp in (("(c) dp=2 sp=2, 4 gloo ranks", world4, 2),
+                             ("(d) dp=1 sp=1, 1 nccl rank", world1, 1)):
+        res = [w[0] for w in world]
+        img = res[0]["images"][sp]
+        for rr in res[1:]:
+            if not np.array_equal(rr["images"][sp], img):
+                raise AssertionError(f"{label}: ranks hold different films")
+        per_rank = [rr["launches"][sp]["stream_walk8"] for rr in res]
+        chunks = -(-cfg3["spp"] // sp)  # one 65,536-pixel chunk a round
+        if per_rank != [chunks * 7] * len(res):
+            raise AssertionError(f"{label}: stream_walk8 launches per rank {per_rank}")
+        log(f"  {label}: ShardedRenderer.render {[round(rr['seconds'][sp], 4) for rr in res]} s "
+            f"per rank (the ranks start together: the render's whole time is the longest); "
+            f"stream_walk8 {per_rank} per rank")
+        entry = dict(render_s=[rr["seconds"][sp] for rr in res],
+                     render_whole_s=max(rr["seconds"][sp] for rr in res), k2_launches=per_rank,
+                     parity=compare_images(f"{label} against phase 4's default image", img,
+                                           default_image, ("single card", "sharded")))
+        loss_rel = _check_loss(f"{label} grad step against make_loss_fn", res[0]["loss"],
+                               single_loss)
+        worst = _compare_np_grads(f"{label} grad step", res[0]["grads"], single_grads)
+        log(f"  {label}: grad step {[round(rr['grad_seconds'], 4) for rr in res]} s per rank, "
+            f"stream_walk8 {[rr['grad_launches']['stream_walk8'] for rr in res]} per rank; "
+            f"every leaf within rtol 1e-3 of make_loss_fn's (max {worst:.3e} of the largest)")
+        entry.update(grad_s=[rr["grad_seconds"] for rr in res], grad_loss_rel=loss_rel,
+                     grad_max_rel_to_scale=worst,
+                     grad_k2_launches=[rr["grad_launches"]["stream_walk8"] for rr in res])
+        out["sharded_renderer_" + ("gloo4" if sp == 2 else "nccl1")] = entry
+    out["world_s"] = dict(gloo4=world4_s, nccl1=world1_s)
+
+    g4 = [w[1] for w in world4]
+    g1 = world1[0][1]
+    ref_case = (1, 1, "packed", "allreduce")
+    ref_img = g1["images"][ref_case]
+    log(f"  (e) transports: {g4[0]['transport']}")
+    geo = {"transport": g4[0]["transport"]}
+    for case in cases4:
+        img = g4[0]["images"][case]
+        for rr in g4[1:]:
+            if not np.array_equal(rr["images"][case], img):
+                raise AssertionError(f"(e) {case}: ranks hold different films")
+        per_rank = [rr["launches"][case]["stream_walk8"] for rr in g4]
+        want = GEOM["max_depth"] * (SHARD_RANKS if case[3] == "ring" else 1)
+        if per_rank != [want] * SHARD_RANKS:
+            raise AssertionError(f"(e) {case}: stream_walk8 launches per rank {per_rank}, "
+                                 f"want {want}")
+        log(f"  (e) {case[3]}: {[round(rr['seconds'][case], 4) for rr in g4]} s per rank, "
+            f"stream_walk8 {per_rank} per rank")
+        geo[case[3]] = dict(seconds=[rr["seconds"][case] for rr in g4], k2_launches=per_rank,
+                            parity=compare_images(f"(e) tp={SHARD_RANKS} {case[3]} against "
+                                                  "tp=1", img, ref_img, ("tp=1", "tp=4")))
+    log(f"  (e) the tp=1 image: mean {ref_img.mean():.6f}, max {ref_img.max():.4f}")
+    geo["ring_vs_allreduce"] = compare_images(
+        "(e) ring against allreduce", g4[0]["images"][cases4[1]], g4[0]["images"][cases4[0]],
+        ("allreduce", "ring"))
+    geo["tp1"] = dict(seconds=g1["seconds"][ref_case],
+                      k2_launches=g1["launches"][ref_case]["stream_walk8"])
+    k2.update(_shard_sweeps("stream_walk8", f"rank 0's shard of config 5 (tp={SHARD_RANKS}, "
+                            "allreduce)", files[(SHARD_RANKS, "packed")][0],
+                            g4[0]["sweeps"]["packed"]))
+    k2["launches_per_rank"] = {c[3]: geo[c[3]]["k2_launches"] for c in cases4}
+    out["geomshard"] = geo
+
+    log(f"== phase 18 (f): make_sharded_grad_fn at {GEOM['res'] ** 2} pixels, tp="
+        f"{SHARD_RANKS} against tp=1")
+    ref = g1["grads"][(1, 1, "packed", True)]
+    gr = {}
+    for case in grads4:
+        got = g4[0]["grads"][case]
+        loss_rel = _check_loss(f"(f) remat={case[3]}", got["loss"], ref["loss"])
+        worst = _compare_np_grads(f"(f) remat={case[3]}", got["grads"], ref["grads"])
+        e = gr[f"remat_{str(case[3]).lower()}"] = dict(
+            loss=got["loss"], loss_rel=loss_rel, max_rel_to_scale=worst,
+            seconds=[rr["grads"][case]["seconds"] for rr in g4],
+            k2_launches=[rr["grads"][case]["launches"]["stream_walk8"] for rr in g4],
+            peak_bytes=[rr["grads"][case]["peak_bytes"] for rr in g4])
+        log(f"  remat={case[3]}: {[round(x, 4) for x in e['seconds']]} s per rank, "
+            f"stream_walk8 {e['k2_launches']} per rank, peak bytes {e['peak_bytes']} per rank; "
+            f"every leaf within rtol 1e-3 of tp=1's (max {worst:.3e} of the largest)")
+    on, off = gr["remat_true"]["k2_launches"], gr["remat_false"]["k2_launches"]
+    if not all(b == GEOM["max_depth"] < a for a, b in zip(on, off)):
+        raise AssertionError(f"(f) stream_walk8 launches with remat {on}, without {off}: the "
+                             "replay must launch it")
+    gr["tp1"] = dict(loss=ref["loss"], seconds=ref["seconds"], peak_bytes=ref["peak_bytes"])
+    out["sharded_grad"] = gr
+    k2["grad_launches_per_rank"] = dict(remat_true=on, remat_false=off)
+
+    log(f"== phase 18 (g): a world of {SKIP_RANKS} gloo ranks with skip-link shards of config "
+        f"3's triangles ({SKIP})")
+    cases2 = [(1, SKIP_RANKS, "skip", "allreduce"), (1, SKIP_RANKS, "skip", "ring"),
+              (1, SKIP_RANKS, "packed", "allreduce")]
+    skip_scene = functools.partial(worlds.config5_scene, **SKIP_TORUS)
+    skip_files = worlds.save_shards(shard_triangle_arrays(*skip_scene(), SKIP_RANKS, bvh=True),
+                                    f"{tmp}/skip{SKIP_RANKS}")
+    t0 = time.time()
+    world2 = [w[0] for w in run_local_world(
+        worlds.rank_tasks, SKIP_RANKS, backend="gloo", device=DEVICE, timeout_s=WORLD_TIMEOUT_S,
+        args=([(worlds.rank_geomshard, dict(
+            SKIP, cases=cases2, camera=GEOM_CAMERA, record_rank=0, n_mats=3, scene=skip_scene,
+            shard_files={(SKIP_RANKS, "skip"): skip_files}))],))]
+    log(f"  the world ran in {time.time() - t0:.1f} s")
+    per_rank = {c[3] + "_" + c[2]: [rr["launches"][c] for rr in world2] for c in cases2}
+    log(f"  launches per rank: {per_rank}")
+    for c in cases2[:2]:
+        want = SKIP["max_depth"] * (SKIP_RANKS if c[3] == "ring" else 1)
+        if [rr["launches"][c]["skip_walk"] for rr in world2] != [want] * SKIP_RANKS:
+            raise AssertionError(f"(g) {c}: skip_walk launches {per_rank}")
+    k6.update(_shard_sweeps("skip_walk", f"rank 0's skip-link shard (tp={SKIP_RANKS}, "
+                            "allreduce)", skip_files[0], world2[0]["sweeps"]["skip"]))
+    k6["launches_per_rank"] = {c[3]: [rr["launches"][c]["skip_walk"] for rr in world2]
+                               for c in cases2[:2]}
+    out["skip_shards"] = dict(
+        seconds={c[3] + "_" + c[2]: world2[0]["seconds"][c] for c in cases2},
+        skip_vs_packed=compare_images("(g) skip-link shards against packed ones",
+                                      world2[0]["images"][cases2[0]],
+                                      world2[0]["images"][cases2[2]], ("packed", "skip")),
+        ring_vs_allreduce=compare_images("(g) skip ring against allreduce",
+                                         world2[0]["images"][cases2[1]],
+                                         world2[0]["images"][cases2[0]], ("allreduce", "ring")))
+    return out, k2, k6
+
+
 # the phases that need nothing but the card, by number: ``--phase N`` runs
 # one of them alone after phases 1 and 2
 ALONE = {12: lambda card: phase_integrators(), 14: phase_volume, 15: phase_bdpt,
-         16: phase_motion, 17: phase_features}
+         16: phase_motion, 17: phase_features,
+         18: lambda card: phase_sharded(card)[0]}
 
 
 def main(argv=None):
@@ -3143,6 +3576,9 @@ def main(argv=None):
     print(json.dumps({"motion": motion}))
     features, kern["stream_walk8"]["fur"] = phase_features(card)
     print(json.dumps({"features": features}))
+    sharded, kern["stream_walk8"]["sharded"], kern["skip_walk"]["sharded"] = phase_sharded(
+        card, config3_image)
+    print(json.dumps({"sharded": sharded}, default=str))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

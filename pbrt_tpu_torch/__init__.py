@@ -14,7 +14,12 @@ where there is no card.  On CPU tensors each kernel wrapper runs its
 plain PyTorch version, on CUDA tensors it launches the kernel or raises.
 
 Float policy: float32 throughout (the reference's ``PBRT_TPU_DOUBLE``
-switch is not carried over yet).
+switch is not carried over yet: ROADMAP Queue 1).
+
+Mesh-parallel rendering (``parallel/``): one process per mesh device in a
+``torch.distributed`` group, a ``DeviceMesh`` with the reference's axes
+dp, sp and tp; ``parallel.mesh.ShardedRenderer`` shards pixels and
+samples, ``parallel.geomshard`` shards the triangles.
 """
 
 from __future__ import annotations
@@ -47,8 +52,9 @@ MACHINE_EPSILON = EPSILON * 0.5
 @dataclasses.dataclass
 class Options:
     """Renderer options, mostly fed from the CLI's flags (the fields of
-    ``pbrt_tpu.Options`` but the device mesh, which waits for ROADMAP
-    Queue 1 item 9; the reference reads ``sampled_spectrum`` from
+    ``pbrt_tpu.Options`` but ``mesh_shape``, which nothing reads: a mesh
+    is made by ``parallel.multihost.global_mesh`` and handed to its
+    user; the reference reads ``sampled_spectrum`` from
     ``PBRT_TPU_SAMPLED_SPECTRUM``, the port from the caller or the CLI's
     ``--sampled-spectrum``)."""
 

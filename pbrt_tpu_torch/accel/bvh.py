@@ -8,11 +8,11 @@ The walk is chosen by an argument where the reference reads environment
 switches (``walk``):
 
 * ``"bvh8"`` (default; the reference on the TPU): streaming BVH8
-  cluster tables (32-triangle leaves) for 4096 triangles or more, one
-  whole BVH8 tree (16-triangle leaves) below;
+  cluster tables (32-triangle leaves) for ``stream_min_tris`` (4096)
+  triangles or more, one whole BVH8 tree (16-triangle leaves) below;
 * ``"binary"`` (``PBRT_TPU_WIDE=0``): streaming binary cluster tables
-  (32-triangle leaves) for 4096 or more, one whole ordered binary tree
-  below.  That tree takes 8-triangle leaves: the reference builds
+  (32-triangle leaves) for ``stream_min_tris`` or more, one whole
+  ordered binary tree below.  That tree takes 8-triangle leaves: the reference builds
   16-triangle leaves there, which its ``PallasBVH2`` refuses, and runs
   only with ``PBRT_TPU_LEAF_SLOTS=8``;
 * ``"binary_fused"`` (``PBRT_TPU_FUSED_LEAF=1`` as well): as ``binary``
@@ -27,6 +27,15 @@ only on the device of the tables.  The packed walks sort rays by
 order (``_traverse_sorted``); the skip walk, as in the reference, does
 not.  ``sort`` picks the ``co_sort`` network of those sorts and of the
 integrator's sorted carry ("stable" or "bitonic", ``ops/sortnet.py``).
+
+Three more arguments stand where the reference reads environment
+variables, with the same meanings and defaults: ``stream_min_tris``
+(``PBRT_TPU_STREAM_MIN_TRIS``, 4096: the triangle count from which the
+packed walks take the streaming cluster tables), ``key_obits``
+(``PBRT_TPU_KEY_OBITS``, 5: origin Morton bits per axis in the sort key;
+the direction takes ``min(4, (28 - 3 * key_obits) // 3)``) and
+``deadbit`` (``PBRT_TPU_NO_DEADBIT`` unset, True: spent lanes get key bit
+31 and sort last).
 
 Spheres take the reference's brute-force sweep
 (``ops/intersect_soa.py``) after every walk, in the rays' lane order: a
@@ -79,7 +88,8 @@ class BVHIntersector:
     # the integrator may keep its wavefront in sort_keys order
     supports_sort_hint = True
 
-    def __init__(self, tri_data, sph_data=None, device="cuda", walk="bvh8", sort="stable"):
+    def __init__(self, tri_data, sph_data=None, device="cuda", walk="bvh8", sort="stable",
+                 stream_min_tris=STREAM_MIN_TRIS, key_obits=KEY_OBITS, deadbit=True):
         if walk not in WALKS:
             raise ValueError(f"unknown walk {walk!r}; expected one of {WALKS}")
         if sort not in ("stable", "bitonic"):
@@ -88,9 +98,13 @@ class BVHIntersector:
         self.n_sph = sph_data.count if sph_data is not None else 0
         self._sph_brute = (SoABruteForceIntersector(None, sph_data, device=device)
                            if self.n_sph else None)
+        if not 0 <= int(key_obits) <= 9:
+            raise ValueError(f"key_obits {key_obits} outside 0..9 (3 x obits + 3 key bits)")
         self.walk_name = walk
         self.sort_network = sort
-        use_stream = self.n_tri >= STREAM_MIN_TRIS and walk != "skip"
+        self.key_obits = int(key_obits)
+        self.deadbit = bool(deadbit)
+        use_stream = self.n_tri >= int(stream_min_tris) and walk != "skip"
         if walk == "skip":
             leaf_size = SKIP_LEAF_SIZE
         elif use_stream:
@@ -137,9 +151,10 @@ class BVHIntersector:
 
         Coincident-origin wavefronts (camera, point-light shadows) share
         the high bits and fall through to the direction bits; lanes whose
-        t_max is spent sort into trailing blocks.
+        t_max is spent sort into trailing blocks (unless ``deadbit`` is
+        off).
         """
-        obits = KEY_OBITS
+        obits = self.key_obits
         dbits = min(4, (28 - 3 * obits) // 3)
         octant = (
             (d[..., 0] < 0).long() * 4 + (d[..., 1] < 0).long() * 2 + (d[..., 2] < 0).long()
@@ -160,6 +175,8 @@ class BVHIntersector:
             | (_part1by2(qi[..., 2]) << 2)
         ) & ((1 << (3 * obits)) - 1)
         key = ((morton << (3 + 3 * dbits)) | (octant << (3 * dbits)) | dir_m) & MASK32
+        if not self.deadbit:
+            return key
         return key | ((t_max <= RAY_EPS).long() << 31)
 
     def _traverse_sorted(self, o, d, t_max, any_hit):

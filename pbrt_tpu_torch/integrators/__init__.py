@@ -6,6 +6,11 @@
 included) renders through the volumetric path integrator, and ``mlt`` on
 such a scene targets it instead of BDPT.  An unknown name takes
 ``path``, with a warning, as in the reference.
+
+``sorted_carry`` and ``shadow_sort`` (``integrators/path.py``) reach the
+integrators that run ``PathIntegrator``'s bounce loop: ``path`` (without
+media), ``directlighting`` and ``whitted``, as the reference's inherit its
+environment switches; the others have loops of their own.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import logging
 log = logging.getLogger("pbrt_tpu_torch")
 
 
-def make_integrator(compiled):
+def make_integrator(compiled, sorted_carry=True, shadow_sort="sorted"):
     """Integrator factory per pbrt-v3 MakeIntegrator names."""
     from pbrt_tpu_torch.integrators.direct import DirectLightingIntegrator, WhittedIntegrator
     from pbrt_tpu_torch.integrators.path import PathIntegrator
@@ -28,13 +33,16 @@ def make_integrator(compiled):
         rr_threshold = params.find_one_float("rrthreshold", 1.0)
         if compiled.media:
             return VolPathIntegrator(compiled, max_depth, rr_threshold)
-        return PathIntegrator(compiled, max_depth, rr_threshold)
+        return PathIntegrator(compiled, max_depth, rr_threshold, sorted_carry=sorted_carry,
+                              shadow_sort=shadow_sort)
     if name == "volpath":
         return VolPathIntegrator(compiled, max_depth, params.find_one_float("rrthreshold", 1.0))
     if name == "directlighting":
-        return DirectLightingIntegrator(compiled, max_depth)
+        return DirectLightingIntegrator(compiled, max_depth, sorted_carry=sorted_carry,
+                                        shadow_sort=shadow_sort)
     if name == "whitted":
-        return WhittedIntegrator(compiled, max_depth)
+        return WhittedIntegrator(compiled, max_depth, sorted_carry=sorted_carry,
+                                 shadow_sort=shadow_sort)
     if name == "ao":
         from pbrt_tpu_torch.integrators.ao import AOIntegrator
 
@@ -69,4 +77,5 @@ def make_integrator(compiled):
             initial_radius=params.find_one_float("radius", -1.0),
         )
     log.warning("Integrator '%s' unknown; using path.", name)
-    return PathIntegrator(compiled, max_depth, 1.0)
+    return PathIntegrator(compiled, max_depth, 1.0, sorted_carry=sorted_carry,
+                          shadow_sort=shadow_sort)

@@ -25,17 +25,18 @@ from pbrt_tpu_torch.integrators.path import PathIntegrator
 class DirectLightingIntegrator(PathIntegrator):
     direct_only = True
 
-    def __init__(self, compiled, max_depth=5):
+    def __init__(self, compiled, max_depth=5, **switches):
         # one more bounce, so that the deepest non-specular vertex still
         # traces its emission-only segment
-        super().__init__(compiled, max_depth=max(2, max_depth + 1), rr_threshold=1.0)
+        super().__init__(compiled, max_depth=max(2, max_depth + 1), rr_threshold=1.0,
+                         **switches)
 
 
 class WhittedIntegrator(PathIntegrator):
     nee_mis = False
 
-    def __init__(self, compiled, max_depth=5):
-        super().__init__(compiled, max_depth=max(2, max_depth), rr_threshold=1.0)
+    def __init__(self, compiled, max_depth=5, **switches):
+        super().__init__(compiled, max_depth=max(2, max_depth), rr_threshold=1.0, **switches)
 
     def _bsdf_sample(self, params, wo_l, u_lobe, u_b):
         wi, f, pdf, spec = super()._bsdf_sample(params, wo_l, u_lobe, u_b)

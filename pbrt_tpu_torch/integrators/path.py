@@ -15,15 +15,28 @@ Rays that escape collect the infinite lights' radiance, weighted by MIS
 against the lights' sampling pdf.
 
 Sorted carry, where the reference takes it (an intersector with a sort
-hint and triangles, i.e. the BVH): at the end of every bounce the whole
-wavefront is co-sorted into the next bounce's traversal order
-(``sort_keys``; the intersector's ``co_sort`` network, 22 columns as in
-the reference, with alive, specular_bounce and gather_only packed into
-one flags column), the closest-hit sweeps run sort-free, shadow sweeps
-sort per call, and one scatter restores lane order for the film.  The
-brute-force intersector keeps lanes in order throughout, and so does an
-animated scene (motion blur), whose every query takes the lane's shutter
-time from sampler dimension 4.
+hint and triangles, i.e. the BVH) and ``sorted_carry`` is on (the
+reference's ``PBRT_TPU_NO_SORTED_CARRY`` unset): at the end of every
+bounce the whole wavefront is co-sorted into the next bounce's traversal
+order (``sort_keys``; the intersector's ``co_sort`` network, 22 columns
+as in the reference, with alive, specular_bounce and gather_only packed
+into one flags column), the closest-hit sweeps run sort-free, and one
+scatter restores lane order for the film.  ``shadow_sort`` picks the
+shadow sweeps' order under sorted carry:
+
+* ``"sorted"`` (default): each shadow sweep sorts its rays per call;
+* ``"unsorted"`` (``PBRT_TPU_SC_NOSORT_SHADOW=1``): it walks them in
+  carry order;
+* ``"merged"`` (``PBRT_TPU_SC_MERGED=1``): the shadow columns (origin,
+  direction, t, premasked contribution) ride the carry co-sort (32
+  columns, which ``co_sort`` splits as the reference does) and the
+  occlusion sweep runs sort-free in the next bounce's order.
+
+All three give the same image: occlusion is per lane and the NEE add
+commutes with the permutation.  Without sorted carry every shadow sweep
+sorts.  The brute-force intersector keeps lanes in order throughout, and
+so does an animated scene (motion blur), whose every query takes the
+lane's shutter time from sampler dimension 4.
 
 Derived integrators (``integrators/direct.py``) set two class knobs, as
 the reference's do: ``direct_only`` (non-specular continuations trace
@@ -42,8 +55,7 @@ bounce in ``torch.utils.checkpoint`` (the reference's
 ``jax.checkpoint``): the backward pass replays the bounce from its
 inputs, walks included, instead of keeping its wavefront state, so the
 memory kept per bounce is the carry alone.  Media take the volumetric
-path integrator (``volpath.py``); the merged shadow+carry sort is not
-ported (ROADMAP Queue 1 item 8).
+path integrator (``volpath.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from pbrt_tpu_torch.scene.builder import compute_interaction
 
 SHADOW_EPS = 1e-3
 INF_T = 1e8
+SHADOW_SORTS = ("sorted", "unsorted", "merged")
 
 
 def _to_local(ns, ss, ts, v):
@@ -85,7 +98,11 @@ class PathIntegrator:
     direct_only = False
     nee_mis = True
 
-    def __init__(self, compiled, max_depth=5, rr_threshold=1.0, remat=False):
+    def __init__(self, compiled, max_depth=5, rr_threshold=1.0, remat=False,
+                 sorted_carry=True, shadow_sort="sorted"):
+        if shadow_sort not in SHADOW_SORTS:
+            raise ValueError(f"unknown shadow_sort {shadow_sort!r}; expected one of "
+                             f"{SHADOW_SORTS}")
         self.c = compiled
         self.max_depth = int(max_depth)
         self.rr_threshold = float(rr_threshold)
@@ -97,8 +114,9 @@ class PathIntegrator:
         # bounces when the intersector takes a sort hint and has triangles,
         # and the scene does not move
         itx = compiled.intersector
-        self._sc = (bool(getattr(itx, "supports_sort_hint", False)) and itx.n_tri > 0
-                    and not self._animated)
+        self._sc = (bool(sorted_carry) and bool(getattr(itx, "supports_sort_hint", False))
+                    and itx.n_tri > 0 and not self._animated)
+        self.shadow_sort = shadow_sort
 
     def queries_per_sample(self):
         """(closest, shadow) intersector queries per pixel-sample lane:
@@ -120,10 +138,14 @@ class PathIntegrator:
                 return self.c.intersector.intersect(o, d, t_max, sort=sort)
             return self.c.intersector.intersect(o, d, t_max)
 
-    def _occluded(self, o, d, t_max, time=None):
+    def _occluded(self, o, d, t_max, time=None, sort=True):
+        """Any-hit queries; ``sort``: sort the rays around a packed walk
+        (only an intersector with a sort hint takes it)."""
         with torch.no_grad():
             if self._animated:
                 return self.c.intersector.occluded(o, d, t_max, time=time)
+            if not sort and getattr(self.c.intersector, "supports_sort_hint", False):
+                return self.c.intersector.occluded(o, d, t_max, sort=False)
             return self.c.intersector.occluded(o, d, t_max)
 
     def _time(self, sampler, pixel_xy, sample_index):
@@ -284,6 +306,7 @@ class PathIntegrator:
         alive = alive & (si["mat"] >= 0) & (params["type"] != B.NONE)
 
         # --- next-event estimation ----------------------------------------
+        nee_cols = None
         if c.lights:
             u_sel = sampler.get(pixel_xy, sample_index, base + 0)
             u_l = sampler.get2(pixel_xy, sample_index, base + 1)
@@ -302,10 +325,15 @@ class PathIntegrator:
             contrib = beta * f * li * (
                 torch.abs(wi_l[..., 2]) * w_l / torch.clamp(l_pdf, min=1e-12)
             )[..., None]
-            # shadow wavefronts get their own sort: their directions diverge
-            # from the carry order
-            vis = can & ~self._occluded(shadow_o, wi_w, shadow_t, time)
-            L = L + torch.where(vis[..., None], contrib, 0.0)
+            if self._sc and self.shadow_sort == "merged":
+                # the shadow columns ride the carry co-sort below
+                nee_cols = (shadow_o, wi_w, shadow_t, torch.where(can[..., None], contrib, 0.0))
+            else:
+                # shadow wavefronts get their own sort unless told otherwise:
+                # their directions diverge from the carry order
+                sort_shadow = not self._sc or self.shadow_sort == "sorted"
+                vis = can & ~self._occluded(shadow_o, wi_w, shadow_t, time, sort=sort_shadow)
+                L = L + torch.where(vis[..., None], contrib, 0.0)
 
         # --- BSDF sampling -------------------------------------------------
         u_lobe = sampler.get(pixel_xy, sample_index, base + 3)
@@ -353,14 +381,18 @@ class PathIntegrator:
         keys = c.intersector.sort_keys(o, d, t_next)
         flags = (alive.to(torch.int32) | (specular_bounce.to(torch.int32) << 1)
                  | (gather_only.to(torch.int32) << 2))
+        carried = (keys, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
+                   flags)
+        srt = co_sort(carried + (nee_cols or ()), c.intersector.sort_network)
         (_, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
-         flags) = co_sort(
-            (keys, L, beta, prev_bsdf_pdf, prev_p, o, d, pixel_xy, sample_index, lane,
-             flags),
-            c.intersector.sort_network,
-        )
+         flags) = srt[:len(carried)]
         alive = (flags & 1) != 0
         specular_bounce = (flags & 2) != 0
         gather_only = (flags & 4) != 0
+        if nee_cols is not None:
+            # the occlusion sweep in the next bounce's order, sort-free
+            so, sw, st, pre = srt[len(carried):]
+            occluded = self._occluded(so, sw, st, time, sort=False)
+            L = L + torch.where(occluded[..., None], 0.0, pre)
         return (L, beta, alive, specular_bounce, gather_only, prev_bsdf_pdf, prev_p, o, d,
                 pixel_xy, sample_index, lane)

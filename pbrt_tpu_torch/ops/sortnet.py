@@ -16,8 +16,11 @@ lanes sort last as in the reference.  Two networks:
   which moves every column through every stage.  The network is not
   stable, but it is deterministic.
 
-The reference splits a sort of more than 22 columns into groups (the
-merged shadow+carry sort, not ported); here such a bitonic sort raises.
+A sort of more than 22 columns (the merged shadow+carry sort's 32) takes
+the reference's split whatever ``network`` says: groups of 20 payload
+columns, each sorted by (key, lane).  That pair is unique per lane, so
+every group gets the one stable order: here a stable ``torch.sort`` of
+the keys and a gather per payload column, never the network.
 
 Gradients: the stable network is a permutation by indexing, which
 autograd differentiates.  The bitonic network is not differentiable (the
@@ -44,16 +47,11 @@ def co_sort(operands, network="stable"):
     key, in the lane order of ``network`` ("stable" or "bitonic")."""
     keys = operands[0]
     n = keys.shape[0]
-    if network == "stable" or (network == "bitonic" and n < MIN_N):
-        keys_s, order = torch.sort(keys, stable=True)
-        return (keys_s,) + tuple(x[order] for x in operands[1:])
-    if network != "bitonic":
+    if network not in ("stable", "bitonic"):
         raise ValueError(f"co_sort: unknown network {network!r}")
     columns = sum(math.prod(x.shape[1:]) for x in operands)
-    if columns > MAX_COLUMNS:
-        raise ValueError(
-            f"co_sort: {columns} columns exceed the reference's cap of {MAX_COLUMNS}; "
-            "its split of wider sorts (the merged shadow+carry sort) is not ported"
-        )
+    if network == "stable" or n < MIN_N or columns > MAX_COLUMNS:
+        keys_s, order = torch.sort(keys, stable=True)
+        return (keys_s,) + tuple(x[order] for x in operands[1:])
     keys_s, _, cols = bitonic_co_sort(keys.contiguous(), operands[1:])
     return (keys_s,) + cols

@@ -1,9 +1,12 @@
 """Top-level render orchestration (counterpart of ``pbrt_tpu/render.py``).
 
-``Renderer(desc, options, seed, device, walk, sort)`` builds the scene's
+``Renderer(desc, options, seed, device, walk, sort, sorted_carry,
+shadow_sort, stream_min_tris, key_obits, deadbit)`` builds the scene's
 tables on ``device`` (a CUDA card unless the caller asks for the CPU),
-with the BVH walk and ``co_sort`` network named by ``walk`` and ``sort``
-(``accel/bvh.py``), and sweeps (pixel, sample) lanes in chunks of
+with the BVH walk, ``co_sort`` network and sort-key switches named by
+``walk``, ``sort``, ``stream_min_tris``, ``key_obits`` and ``deadbit``
+(``accel/bvh.py``) and the path integrator's ``sorted_carry`` and
+``shadow_sort`` (``integrators/path.py``), and sweeps (pixel, sample) lanes in chunks of
 ``options.ray_batch``: camera rays -> path integrator -> film.  Two film
 paths, chosen as the reference chooses them:
 
@@ -61,12 +64,16 @@ class Renderer:
     """Holds the compiled scene; reusable across renders."""
 
     def __init__(self, desc, options: Options | None = None, seed: int = 0,
-                 device="cuda", walk: str = "bvh8", sort: str = "stable"):
+                 device="cuda", walk: str = "bvh8", sort: str = "stable",
+                 sorted_carry: bool = True, shadow_sort: str = "sorted",
+                 stream_min_tris: int = 4096, key_obits: int = 5, deadbit: bool = True):
         self.options = options or Options()
         self.device = torch.device(device)
         self.compiled = build_scene(desc, self.options, seed, device=self.device, walk=walk,
-                                    sort=sort)
-        self.integrator = make_integrator(self.compiled)
+                                    sort=sort, stream_min_tris=stream_min_tris,
+                                    key_obits=key_obits, deadbit=deadbit)
+        self.integrator = make_integrator(self.compiled, sorted_carry=sorted_carry,
+                                          shadow_sort=shadow_sort)
         self.compiled.integrator_params.report_unused()
         self.film = self.compiled.film
         self.sampler = self.compiled.sampler

@@ -169,13 +169,14 @@ def _tessellate_emitting_sphere(sph: SphereData, sub=24):
 
 
 def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "bvh8",
-                sort: str = "stable") -> CompiledScene:
+                sort: str = "stable", stream_min_tris: int = 4096, key_obits: int = 5,
+                deadbit: bool = True) -> CompiledScene:
     """SceneDescription (core/api.py) -> CompiledScene on ``device`` (a
     CUDA card unless the caller asks for the CPU; without one this
     raises).  ``options.quick_render`` quarters the resolution and
-    ``options.image_file`` overrides the film's filename.  ``walk`` and
-    ``sort`` pick the BVH walk and the ``co_sort`` network
-    (``accel/bvh.py``)."""
+    ``options.image_file`` overrides the film's filename.  ``walk``,
+    ``sort``, ``stream_min_tris``, ``key_obits`` and ``deadbit`` go to the
+    BVH (``accel/bvh.py``)."""
     device = require_device(device)
     filt = make_filter(desc.filter_name, desc.filter_params)
     desc.filter_params.report_unused()
@@ -442,7 +443,9 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
             and tri_data.count >= min_prims):
         from pbrt_tpu_torch.accel.bvh import BVHIntersector
 
-        intersector = BVHIntersector(tri_data, sph_data, device=device, walk=walk, sort=sort)
+        intersector = BVHIntersector(tri_data, sph_data, device=device, walk=walk, sort=sort,
+                                     stream_min_tris=stream_min_tris, key_obits=key_obits,
+                                     deadbit=deadbit)
     else:
         intersector = SoABruteForceIntersector(tri_data, sph_data, device=device)
     desc.accelerator_params.report_unused()

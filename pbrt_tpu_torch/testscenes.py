@@ -214,16 +214,20 @@ def mesh_scene_description(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 <<
 
 def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16,
                         nu=224, nv=112, seed=0, device="cuda", walk="bvh8",
-                        sort="stable", sphere=False, integrator="path", extra=""):
+                        sort="stable", sphere=False, integrator="path", extra="",
+                        **switches):
     """BASELINE config 3 (``sphere``: with a mirror sphere; ``integrator``
     in place of ``path``) on ``device`` with the BVH walk ``walk`` and the
-    ``co_sort`` network ``sort`` (``accel/bvh.py``) -> (Renderer,
+    ``co_sort`` network ``sort`` (``accel/bvh.py``); ``switches``: the
+    rest of ``Renderer``'s (``sorted_carry``, ``shadow_sort``,
+    ``stream_min_tris``, ``key_obits``, ``deadbit``) -> (Renderer,
     n_torus_tris)."""
     from pbrt_tpu_torch.render import Renderer
 
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
                                                 nu, nv, sphere, integrator, extra)
-    return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort), n_tris
+    return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort,
+                    **switches), n_tris
 
 
 CONFIG4_HEAD = """

@@ -79,8 +79,13 @@ def test_co_sort_fallbacks(monkeypatch):
                       network=network)
         np.testing.assert_array_equal(got[0].numpy(), want[0].astype(np.int64))
         np.testing.assert_array_equal(got[1].numpy(), want[1])
-    big = torch.zeros(1 << 15, dtype=torch.int64)
-    with pytest.raises(ValueError, match="cap of 22"):
-        co_sort((big, torch.zeros((1 << 15, 22))), network="bitonic")
+    # above the reference's cap of 22 columns its split into (key, lane)
+    # groups gives the stable order, whatever the network
+    big = torch.as_tensor(_keys(1 << 15, 3).astype(np.int64))
+    wide = torch.as_tensor(np.random.default_rng(4).normal(size=(1 << 15, 22)),
+                           dtype=torch.float32)
+    got = co_sort((big, wide), network="bitonic")
+    order = torch.sort(big, stable=True).indices
+    assert torch.equal(got[0], big[order]) and torch.equal(got[1], wide[order])
     with pytest.raises(ValueError, match="unknown network"):
         co_sort((big, big), network="radix")
