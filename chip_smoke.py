@@ -11,7 +11,7 @@ Run from the repository root:
                                      # phases 16 and 17 profile their motion
                                      # and fur frames always)
     python3 chip_smoke.py --phase 17 # phases 1-2 and 17 alone (also 12, 14,
-                                     # 15, 16 or 18); the last line then
+                                     # 15, 16, 18 or 19); the last line then
                                      # says "phases": [1, 2, 17]
 
 Phases (any failure raises and the script exits non-zero):
@@ -29,8 +29,9 @@ Phases (any failure raises and the script exits non-zero):
      sorted bounce and shadow rays with their dead lanes);
    - K1 ``wide_walk8``: the small torus's seven 16,384-ray sweeps;
    - K4 ``stream_walk2``, K4b ``stream_walk2_fused``, K6 ``skip_walk``:
-     config 3's seven chunk-0 sweeps under ``walk="binary"``,
-     ``"binary_fused"`` and ``"skip"``;
+     every third of config 3's seven chunk-0 sweeps (0, 3, 6; all seven
+     before phase 19) under ``walk="binary"``, ``"binary_fused"`` and
+     ``"skip"``;
    - K4 ``ordered_walk2``: the small torus's seven sweeps, ``walk="binary"``;
    - K5 ``bitonic_tile`` + ``bitonic_merge`` + ``gather_rows``: every
      ``co_sort`` of 262,144 lanes in a config-3 frame under
@@ -215,10 +216,12 @@ Phases (any failure raises and the script exits non-zero):
    seeded 1,024-lane primary-sample table on the card against the CPU to
    phase 5's tolerance and the bootstrap b within rtol 1e-4; (c) phase
    14's scene (64^3 grid, maxdepth 5) at 1 spp: one ``make_loss_fn`` step over all
-   65,536 pixels with ``remat=True`` (forward and forward+backward
+   65,536 pixels with ``remat=True`` (its forward's seconds, taken inside
+   the step since phase 19, and forward+backward
    seconds, K2's launches in the forward and in the replay, which must
-   launch it, peak memory, every leaf finite), a 4,096-pixel step with and
-   without remat (gradients equal, both peaks), and every leaf on the card
+   launch it, peak memory, every leaf finite), the same step without
+   remat (gradients equal, its peak; a 4,096-pixel pair of steps before
+   phase 19: the step is host-bound, so the pair cost two full steps), and every leaf on the card
    against the CPU's at 16x16 (a 16^3 grid, maxdepth 2), to phase 10 (b)'s tolerance;
 16. motion blur, SPPM and the environment and realistic cameras through
    the pbrt command (written under ``build/chip_smoke/``): (a) config 3 as
@@ -229,7 +232,7 @@ Phases (any failure raises and the script exits non-zero):
    256x256, 8 spp, maxdepth 4, 2 chunks, through ``cli.main``: scene
    build seconds, a first frame (K7 ``anim_walk`` x 14: 2 chunks x (4
    closest + 3 any-hit), nothing else; the image finite and not black),
-   every 4th of a recorded frame's sweeps through K7 against
+   every 5th (every 4th before phase 19) of a recorded frame's sweeps through K7 against
    ``anim_walk_plain`` run on the card (hit masks equal, t within rtol
    1e-6, prims equal except on exact t ties, b0 and b1 within 2e-5), K7's
    time per sweep beside its bound (rays in and out once, distinct node
@@ -237,7 +240,7 @@ Phases (any failure raises and the script exits non-zero):
    triangle test: the blend reads only the two keys of non-zero weight,
    9 products and 9 fused multiply-adds), frame seconds (median of three after the first), the
    launches and the card's busy share of a profiled frame, and the scene
-   at 32x32, 2 spp, maxdepth 3 on the card against the CPU to phase 5's
+   at 16x16 (32x32 before phase 19), 2 spp, maxdepth 3 on the card against the CPU to phase 5's
    tolerance; (b) tests/test_motion_integrators.py's moving quad under
    ``volpath``, ``bdpt`` and ``sppm`` and a moving (tessellated) sphere
    under ``path``, 16x16, card against CPU (the quad's two triangles take
@@ -265,20 +268,21 @@ Phases (any failure raises and the script exits non-zero):
    of ``type "flat"`` rooted on a matte unit sphere, tessellated as tubes
    of 96 triangles, 393,216 curve triangles, one named hair material in
    melanin mode, a floor, a quad area light and a constant infinite
-   light) at 256x256, 8 spp, ``path`` maxdepth 8, 2 chunks, through
-   ``cli.main``: build seconds and the triangle count, a first frame (K2
-   x 30: 2 chunks x (8 closest + 7 shadow), nothing else), ``k2_frame``
+   light) at 256x256, 4 spp (8 before phase 19), ``path`` maxdepth 8, one
+   chunk, through ``cli.main``: build seconds and the triangle count, a
+   first frame (K2 x 15: 8 closest + 7 shadow, nothing else), ``k2_frame``
    (every 4th sweep against the plain walk on the card, K2's time per
    sweep and its bound, frame seconds), the launches and busy share of a
-   profiled frame, and 32x32 (1 spp, maxdepth 4) card against CPU; (b)
+   profiled frame, and 16x16 (32x32 before phase 19; 1 spp, maxdepth 4)
+   card against CPU; (b)
    config 3's torus under ``Material "fourier"`` with a glossy 8-order
    table on 64 knots (``testscenes.glossy_fourier_table``, written by
    ``FourierTable.write``) at 256x256, 8 spp, maxdepth 4: build seconds,
    a first frame (K2 x 14, nothing else), frame seconds (median of three)
-   and 32x32 card against CPU; (c) config 3 through ``cli.main
+   and 16x16 (32x32 before phase 19) card against CPU; (c) config 3 through ``cli.main
    --sampled-spectrum`` (15 bins, 5 passes, each building the
    scene anew): the render seconds, the builds' seconds, K2 x 70, the
-   image written, and 32x32 card against CPU; (d) BDPT on config 3 at 4
+   image written, and 16x16 (32x32 before phase 19) card against CPU; (d) BDPT on config 3 at 4
    spp against a target with the floor's kd changed: a 4,096-pixel step
    with and without remat (gradients equal: BDPT has no per-bounce
    checkpoint) sizes the batch, the largest power of two up to 65,536
@@ -322,19 +326,42 @@ Phases (any failure raises and the script exits non-zero):
    ranks with skip-link shards of config 3's triangles (256x256, 1 spp,
    maxdepth 3): K6 per shard, rank 0's sweeps (checked and timed after
    the world, as (e)'s) bit-equal against its plain version, the image
-   against packed shards'.
+   against packed shards';
+19. the float64 policy (``double=True``, the reference's
+   ``PBRT_TPU_DOUBLE=1``): (a) config 3 (phase 4's) in double through
+   ``mesh_scene_renderer``, the counters zeroed before its first frame
+   and read after (K2 x 14, nothing else), every sweep's rays (cast to
+   float32 at the walk) through K2 and its plain version (phase 3's
+   rules), the float64 image against the float32 image to phase 5's
+   tolerance, frame seconds in double and in float32 (medians of three,
+   taken in turns), and under ``sort="bitonic"`` every ``co_sort`` of a
+   frame, its float64 payload columns included, through K5 against the
+   plain network (bit-equal); (b) phase 16 (a)'s config 3 in motion, in
+   double through ``cli.main --double`` (256x256, 8 spp, maxdepth 4, 2
+   chunks), the counters zeroed before and read after (K7's double
+   instance x 14, nothing else), every 5th recorded sweep through it and
+   its plain version (masks equal, t within rtol 1e-12, prims equal but
+   on exact ties, b0 and b1 within 1e-9), every sweep timed beside its
+   bound (bytes over 3.35 TB/s, FP64 operations over 33.5 TFLOP/s), and
+   its time against phase 16 (a)'s float instance's in a whole run; (c) Cornell in double at
+   phase 7's size (no kernel; frame seconds, median of three) and at
+   32x32, 2 spp, maxdepth 5 on the card against the CPU to phase 5's
+   tolerance; (d) ``tests/test_refrender.py``'s GI box at 16x16, 4 spp,
+   maxdepth 4 on the card in float32 and in double against
+   ``refrender.py`` fed the card's own sample stream, to
+   ``tests/test_torch_refrender.py``'s bounds.
 
 The lines before the last are JSON objects: ``{"cornell": ...}``,
 ``{"config5": ...}``, ``{"gradients": ...}``, ``{"config4": ...}``,
 ``{"integrators": ...}``, ``{"scenefile": ...}``, ``{"volume": ...}``,
 ``{"bdpt": ...}``, ``{"motion": ...}``, ``{"features": ...}``,
-``{"sharded": ...}`` and one with an entry per kernel (K2's holds phase 13's sweeps and launches
+``{"sharded": ...}``, ``{"double": ...}`` and one with an entry per kernel (K2's holds phase 13's sweeps and launches
 under ``"scenefile"``, phase 14's under ``"volume"`` with phase 15 (c)'s
 gradient launches, phase 15's under ``"bdpt"`` and ``"mlt"``, phase 16
 (c)'s under ``"sppm"``, phase 17 (a)'s under ``"fur"`` and phase 18 (e)-(f)'s
 per-shard sweeps and launches per rank under ``"sharded"``, as K6's
 phase 18 (g)'s; K7's launches
-are phase 16 (a)'s frame's); the last line is ``{"ok": true, "device":
+are phase 16 (a)'s frame's, K7<double>'s phase 19 (b)'s); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -352,6 +379,7 @@ PIXELS = 256 * 256
 SWEEP = 262144  # rays per timed sweep (one config-3 chunk)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 33.5e12  # H100 SXM, float64 outside the tensor cores
 # float operations per box (slab) test and per Moller-Trumbore triangle
 # test, counted from the kernels' code: 6 sub, 6 mul, 10 min/max and 3
 # compares; 15 sub, 27 mul, 9 add, 1 div, 1 abs and 6 compares
@@ -376,9 +404,14 @@ KERNELS = {  # name -> (source, TPU kernel it replaces)
     # motion blur's walk, which the reference runs as XLA code
     "anim_walk": ("anim_walk.cu", "pbrt_tpu/ops/animated_intersect.py:176 _bvh_walk "
                   "(jax.lax.while_loop; no Pallas kernel)"),
+    # its double instance, under the double policy (the reference's
+    # float64 blend, :57-58, and walk)
+    "anim_walk_f64": ("anim_walk.cu", "pbrt_tpu/ops/animated_intersect.py:176 _bvh_walk "
+                      "under PBRT_TPU_DOUBLE=1 (jax.lax.while_loop; no Pallas kernel)"),
 }
 # the walks that cut a ray's walk into segments on sparse sweeps (K2 aside)
 SPLIT_WALKS = ("ordered_walk2", "skip_walk")
+PHASE3_STRIDE = 3  # phase 3 checks every third chunk-0 sweep of K4, K4b and K6
 # the renderers of phase 4: config 3 (or the small torus) under a walk and sort
 VARIANTS = {
     "default": ("config3", "bvh8", "stable"),
@@ -432,9 +465,10 @@ def cuda_ms(fn, reps, warmup=True):
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes, n_ops):
-    """(ms, "bytes" or "operations"): the least time for this work."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+    """(ms, "bytes" or "operations"): the least time for this work (its
+    operations at ``ops_per_s``: float32's rate unless given)."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -934,8 +968,11 @@ def phase_kernels(rs):
         calls = record_walks(rs[variant])
         if len(calls) != per_chunk * frame_chunks(rs[variant]):
             raise AssertionError(f"{variant}: recorded {len(calls)} sweeps")
-        keep = calls if name == "stream_walk8" else calls[:per_chunk]
-        for i, (o, d, t_max, any_hit) in enumerate(keep):
+        # K2: every sweep of its frame; the others, whose plain runs take
+        # 1-2.5 s a sweep: every third sweep of chunk 0
+        keep = (list(enumerate(calls)) if name == "stream_walk8"
+                else list(enumerate(calls[:per_chunk]))[::PHASE3_STRIDE])
+        for i, (o, d, t_max, any_hit) in keep:
             run(name, f"config-3 sweep {i}", walk, (o, d, t_max), any_hit, i < per_chunk)
         rays = random_rays(SWEEP, 7, -2.0, 2.0)
         for any_hit in (False, True):
@@ -2191,7 +2228,6 @@ MLT_MUTATIONS = 8  # the scene's mutationsperpixel (tests/test_mlt.py pins it)
 MLT_EVALUATIONS = 11  # 65,536 chains: 2 bootstrap rounds, the seeding, 8 iterations
 MLT_TABLE = 1024  # lanes of the seeded primary-sample table, card against CPU
 VOLGRAD = dict(xres=256, yres=256, spp=1, maxdepth=5, grid=64)  # phase 14's scene
-VOLGRAD_REMAT_PIXELS = 4096
 VOLGRAD_PARITY = dict(xres=16, yres=16, spp=2, maxdepth=2, grid=16)  # depth 3 before phase 16
 
 
@@ -2347,11 +2383,11 @@ def file_renderer(path, dev):
 
 def phase_volpath_grad(card, d):
     """Phase 15 (c): one volpath loss-and-gradient step on phase 14's scene
-    over all 65,536 pixels at 1 spp with ``remat=True`` (forward and
-    forward+backward seconds, K2's launches in the forward and the replay,
-    peak memory, every leaf finite); a 4,096-pixel step with and without
-    remat (gradients equal, both peaks); every leaf on the card against the
-    CPU's at 16x16."""
+    over all 65,536 pixels at 1 spp with ``remat=True`` (its forward's and
+    its forward+backward seconds, K2's launches in the forward and the replay,
+    peak memory, every leaf finite); the same step without remat (the
+    gradients equal, its peak); every leaf on the card against the CPU's at
+    16x16."""
     import numpy as np
     import torch
 
@@ -2372,19 +2408,18 @@ def phase_volpath_grad(card, d):
     fwd, bwd = {}, {}
 
     def counted(t, pixels):
+        # the forward's seconds are taken here, inside the step (with
+        # autograd's tape); a separate no_grad forward before phase 19
         reset_counts()
+        t0 = time.time()
         value = loss(t, pixels)
         torch.cuda.synchronize()
+        fwd["seconds"] = time.time() - t0
         fwd.update(read_counts())
         reset_counts()
         return value
 
     torch.cuda.synchronize()
-    with torch.no_grad():
-        t0 = time.time()
-        loss(theta, px)
-        torch.cuda.synchronize()
-        fwd_s = time.time() - t0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2392,6 +2427,7 @@ def phase_volpath_grad(card, d):
     value, grads = value_and_grad(counted, theta, px)
     torch.cuda.synchronize()
     step_s = time.time() - t0
+    fwd_s = fwd["seconds"]
     peak = torch.cuda.max_memory_allocated()
     bwd.update(read_counts())
     k2_fwd, k2_bwd = fwd["stream_walk8"], bwd["stream_walk8"]
@@ -2407,32 +2443,33 @@ def phase_volpath_grad(card, d):
             raise AssertionError(f"volpath gradient {k} not finite")
     leaves = {k: float(v.abs().max()) for k, v in grad_leaves(grads) if v.numel()}
     log(f"  largest |gradient| per leaf: {leaves}")
-    del grads
     out = dict(pixels=int(px.shape[0]), loss=float(value), forward_s=fwd_s,
                forward_backward_s=step_s, peak_bytes=peak, above_base_bytes=peak - base,
                k2_launches_forward=k2_fwd, k2_launches_backward=k2_bwd, card=card)
 
-    small = px[:VOLGRAD_REMAT_PIXELS]
-    kept, memory = {}, {}
-    for remat in (True, False):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        _, g = value_and_grad(make_loss_fn(r, target, VOLGRAD["spp"], remat=remat), theta,
-                              small)
-        torch.cuda.synchronize()
-        memory[f"remat_{str(remat).lower()}"] = torch.cuda.max_memory_allocated()
-        kept[remat] = dict(grad_leaves(g))
-    worst = max(float((v - kept[True][k]).abs().max()) if v.numel() else 0.0
-                for k, v in kept[False].items())
-    scale = max(float(v.abs().max()) for v in kept[True].values() if v.numel())
-    log(f"  {VOLGRAD_REMAT_PIXELS} pixels: peak with remat {memory['remat_true'] / 2**30:.3f} "
-        f"GiB, without {memory['remat_false'] / 2**30:.3f} GiB; max |diff| {worst:.3e} of "
-        f"{scale:.3e}")
+    # the same step without remat: the host-bound step costs as much at
+    # 4,096 pixels as at 65,536, so it runs at full width
+    kept = dict(grad_leaves(grads))
+    del grads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    _, g = value_and_grad(make_loss_fn(r, target, VOLGRAD["spp"], remat=False), theta, px)
+    torch.cuda.synchronize()
+    plain_step_s = time.time() - t0
+    memory = {"remat_true": peak, "remat_false": torch.cuda.max_memory_allocated()}
+    worst = max(float((v - kept[k]).abs().max()) if v.numel() else 0.0
+                for k, v in grad_leaves(g))
+    scale = max(float(v.abs().max()) for v in kept.values() if v.numel())
+    log(f"  without remat: forward+backward {plain_step_s:.3f} s, peak "
+        f"{memory['remat_false'] / 2**30:.3f} GiB (with remat {peak / 2**30:.3f}); max |diff| "
+        f"{worst:.3e} of {scale:.3e}")
     if worst > 1e-6 * scale:
         raise AssertionError("volpath gradients with and without remat differ")
-    out.update(remat_pixels=VOLGRAD_REMAT_PIXELS, remat_peak_bytes=memory, remat_max_diff=worst)
-    del r, kept
+    out.update(remat_pixels=int(px.shape[0]), remat_peak_bytes=memory, remat_max_diff=worst,
+               no_remat_step_s=plain_step_s)
+    del r, kept, g
 
     write_volume_scene(f"{d}/volgrad_small.pbrt", f"{d}/volume_torus.ply", **VOLGRAD_PARITY)
     grads = {}
@@ -2455,8 +2492,8 @@ MOTION_BATCH = 1 << 18  # 2 chunks
 MOTION_ROTATE, MOTION_SHIFT = 30.0, 0.25  # the torus's turn (degrees), the camera's move
 MOTION_KEYS = 4  # the torus's 30-degree turn: 4 keyframes (core/animated.n_keys)
 MOTION_SWEEPS = 2 * (4 + 3)  # K7: 2 chunks x (4 closest + 3 any-hit) at maxdepth 4
-MOTION_STRIDE = 4  # every 4th sweep checked against the plain walk
-MOTION_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3)
+MOTION_STRIDE = 5  # every 5th sweep checked against the plain walk (every 4th before phase 19)
+MOTION_PARITY = dict(xres=16, yres=16, spp=2, maxdepth=3)  # 32x32 before phase 19
 
 
 def blend_ops(n_keys):
@@ -2503,14 +2540,16 @@ def record_anim_walks(renderer):
     return calls
 
 
-def check_anim(label, call):
+def check_anim(label, call, rtol=1e-6):
     """K7 against its plain version run on the card on one recorded sweep,
-    by phase 3's rules (``anim_walk.anim_disagreement``).  Returns (max
-    |dt| over hit lanes, (bytes, ops) of the work counted by the plain
-    version: rays in and out once, distinct node rows (48 bytes) and
-    triangles' keyframe rows (K x 36 bytes) once, 25 ops a box test and
-    59 + ``blend_ops(K)`` a blended triangle test; the plain version's
-    ms: this one run, with its work counters on, by CUDA events)."""
+    by phase 3's rules (``anim_walk.anim_disagreement``; t within
+    ``rtol``, b0 and b1 within ``anim_walk.B_ATOL`` of t's float).
+    Returns (max |dt| over hit lanes, (bytes, ops) of the work
+    counted by the plain version: rays and times in and out once,
+    distinct node rows (48 bytes) and triangles' keyframe rows (K x 9
+    values) once, 25 ops a box test and 59 + ``blend_ops(K)`` a blended
+    triangle test; the plain version's ms: this one run, with its work
+    counters on, by CUDA events; max |db| where both hit the same prim)."""
     import numpy as np
     import torch
 
@@ -2529,19 +2568,23 @@ def check_anim(label, call):
     t_max = comps[6].cpu().numpy()
     got, want = host(kern), host(out[0])
     problem = anim_walk.anim_disagreement(got, want, keys.cpu().numpy(), o, d,
-                                          tm.cpu().numpy(), any_hit)
+                                          tm.cpu().numpy(), any_hit, rtol)
     if problem is not None:
         raise AssertionError(f"anim_walk {label} (any_hit={any_hit}): {problem}")
     hit = want[1] >= 0
     err = 0.0 if any_hit or not hit.any() else float(np.abs(got[0][hit] - want[0][hit]).max())
+    db = 0.0 if any_hit else anim_walk.max_b_diff(got, want)
     live = int((t_max > 1e-4).sum())
     log(f"  anim_walk {label} {'any-hit' if any_hit else 'closest'}: {len(t_max)} rays, "
-        f"{live} live, {int(hit.sum())} hit, max |dt| {err:.3e}, plain {plain_ms:.1f} ms")
+        f"{live} live, {int(hit.sum())} hit, max |dt| {err:.3e}, max |db| {db:.3e}, "
+        f"plain {plain_ms:.1f} ms")
     c = counted(counters)
-    k = keys.shape[1]
-    n_bytes = len(t_max) * (32 + 16) + c["node_rows"] * 48 + c["leaf_rows"] * k * 36
+    k, size = keys.shape[1], keys.element_size()
+    # 7 ray columns and the time in; t, b0, b1 and the int32 prim out
+    n_bytes = (len(t_max) * (11 * size + 4) + c["node_rows"] * 48
+               + c["leaf_rows"] * k * 9 * size)
     n_ops = c["slab_tests"] * SLAB_OPS + c["tri_tests"] * (TRI_OPS + blend_ops(k))
-    return err, (n_bytes, n_ops), plain_ms
+    return err, (n_bytes, n_ops), plain_ms, db
 
 
 def eager_ops(r):
@@ -2580,14 +2623,14 @@ def eager_ops(r):
 def phase_motion(card):
     """Phase 16: motion blur, SPPM and the environment and realistic
     cameras through the pbrt command.  (a) config 3 with a turning torus
-    and a moving camera at full width (K7 x 14, every 4th sweep against
-    its plain version on the card, frame seconds, busy share; 32x32 card
+    and a moving camera at full width (K7 x 14, every 5th sweep against
+    its plain version on the card, frame seconds, busy share; 16x16 card
     against CPU); (b) the moving quad under volpath, bdpt, sppm and mlt
     and a moving sphere, card against CPU; (c) config 3 under sppm at full width
     (K2 x 192, every 4th sweep against the plain walk, render seconds,
     eager ops per iteration, peak memory; 32x32 card against CPU); (d)
     config 3 under the environment and realistic cameras (a frame each,
-    K2 x 14, and 32x32 card against CPU)."""
+    K2 x 14, and 16x16 card against CPU)."""
     import os
 
     import numpy as np
@@ -2632,7 +2675,7 @@ def phase_motion(card):
         raise AssertionError(f"the motion frame: recorded {len(calls)} K7 sweeps")
     works, plain, err = [], [], 0.0
     for i, call in enumerate(calls[::MOTION_STRIDE]):
-        e, work, p_ms = check_anim(f"motion sweep {i * MOTION_STRIDE}", call)
+        e, work, p_ms, _ = check_anim(f"motion sweep {i * MOTION_STRIDE}", call)
         err = max(err, e)
         works.append(work)
         plain.append(p_ms)
@@ -2665,7 +2708,7 @@ def phase_motion(card):
     imgs = {dev: cli_render([f"{d}/motion_small.pbrt", "--ray-batch", batch, "-o",
                              f"{d}/motion_small_{dev}.pfm", "-q"], device=dev)[0]["image"]
             for dev in (DEVICE, "cpu")}
-    res["motion"]["parity"] = compare_images("the motion scene at 32x32", imgs[DEVICE],
+    res["motion"]["parity"] = compare_images(f"the motion scene, {MOTION_PARITY}", imgs[DEVICE],
                                              imgs["cpu"])
 
     log("== phase 16 (b): the moving quad under volpath, bdpt, sppm and mlt, and a moving "
@@ -2827,23 +2870,24 @@ def phase_motion(card):
                 for dev in (DEVICE, "cpu")}
         res["cameras"][name] = dict(
             build_s=build_s, launches=launches, frame_s=median, frames_s=times, card=card,
-            parity=compare_images(f"{name} camera at 32x32", imgs[DEVICE], imgs["cpu"]))
+            parity=compare_images(f"{name} camera, {MOTION_PARITY}", imgs[DEVICE],
+                                  imgs["cpu"]))
     return res, k7_res, k2_sppm
 
 
 FUR_CURVES = 4096  # x 96 triangles at tessellation 8 x 6: 393,216 curve triangles
-FUR = dict(xres=256, yres=256, spp=8, maxdepth=8)
-FUR_BATCH = 1 << 18  # 2 chunks
-FUR_SWEEPS = 2 * (8 + 7)  # 2 chunks x (8 closest + 7 shadow) at maxdepth 8
+FUR = dict(xres=256, yres=256, spp=4, maxdepth=8)  # 8 spp before phase 19
+FUR_BATCH = 1 << 18  # one chunk
+FUR_SWEEPS = 8 + 7  # one chunk: 8 closest + 7 shadow at maxdepth 8
 FUR_STRIDE = 4  # every 4th sweep checked against the plain walk
-FUR_PARITY = dict(xres=32, yres=32, spp=1, maxdepth=4)
+FUR_PARITY = dict(xres=16, yres=16, spp=1, maxdepth=4)  # 32x32 before phase 19
 FEATURE_BATCH = 1 << 18  # (b) and (c): 2 chunks of config 3
 FEATURE_SWEEPS = 2 * (4 + 3)  # 2 chunks x (4 closest + 3 shadow) at maxdepth 4
 FOURIER = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
 FOURIER_TABLE = dict(n_mu=64, orders=8)
 SPECTRAL = dict(xres=256, yres=256, spp=8, maxdepth=4)  # phase 4's config 3
 SPECTRAL_BINS = 15  # --sampled-spectrum: Options.n_spectral_bins, 5 passes of 3 bins
-FEATURE_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=3)  # (b) and (c), card against CPU
+FEATURE_PARITY = dict(xres=16, yres=16, spp=2, maxdepth=3)  # (b), (c): card against CPU (32x32 before phase 19)
 BDPT_GRAD = dict(xres=256, yres=256, spp=4, maxdepth=4)  # phase 15's config 3 at 4 spp
 BDPT_GRAD_PROBE = 4096  # pixels of the steps that size the batch
 BDPT_GRAD_MEMORY = 40 * 2**30  # the step's peak must stay below this
@@ -3473,11 +3517,177 @@ def _phase_sharded_worlds(card, default_image, out, k2, k6, tmp):
     return out, k2, k6
 
 
+DOUBLE_RTOL = 1e-12  # K7<double> against its plain version (fma against two roundings)
+DOUBLE_CORNELL_PARITY = dict(xres=32, yres=32, spp=2, maxdepth=5)  # phase 8's Cornell
+REF_BOX = dict(xres=16, yres=16, spp=4, maxdepth=4)  # tests/test_refrender.py's GI box
+# tests/test_torch_refrender.py's bounds on the GI box: (pixels off by more
+# than 0.02, |mean difference|[, pixels off by more than 2e-6])
+REF_BOX_BOUNDS = {False: (0.03, 5e-3), True: (0.01, 1e-3, 0.08)}
+
+
+def phase_double(card):
+    """Phase 19: the float64 policy.  (a) config 3 in double (K2 x 14,
+    every sweep checked, the image against float32's, frames in turns);
+    (b) phase 16 (a)'s config 3 in motion, in double through ``cli.main
+    --double`` (K7's double instance x 14, every 5th sweep against its
+    plain version, every sweep timed, its bound at the FP64 rate); (c)
+    Cornell in double (frame seconds; 32x32 card against CPU); (d) the GI
+    box in float32 and double against ``refrender.py``.
+    Returns (the numbers, K7<double>'s kernel entry)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch import Options
+    from pbrt_tpu_torch.core.api import PbrtAPI
+    from pbrt_tpu_torch.kernels.anim_walk import anim_walk as k7
+    from pbrt_tpu_torch.refrender import RefScene, look_at, render_reference
+    from pbrt_tpu_torch.render import Renderer
+    from pbrt_tpu_torch.testscenes import (config3_scenefile, cornell_renderer,
+                                           mesh_scene_renderer, ref_gi_box, sample_table,
+                                           write_torus_ply)
+
+    res = {}
+    log(f"== phase 19 (a): config 3 in double, {SCENES['config3']}")
+    rd = mesh_scene_renderer(**SCENES["config3"], device=DEVICE, double=True)[0]
+    if rd.compiled.tables["tri"]["p0"].dtype != torch.float64:
+        raise AssertionError("config 3 in double: the tables are not float64")
+    closest, shadow = rd.integrator.queries_per_sample()
+    frame, k2 = k2_frame("config 3 in double", rd, (closest + shadow) * frame_chunks(rd), card)
+    img_d = rd.image(rd.render())
+    rs = mesh_scene_renderer(**SCENES["config3"], device=DEVICE)[0]
+    img_s = rs.image(rs.render())
+    if img_d.dtype != np.float64 or img_s.dtype != np.float32:
+        raise AssertionError(f"image dtypes {img_d.dtype} (double), {img_s.dtype} (float32)")
+    parity = compare_images("config 3: double against float32", img_d, img_s,
+                            sides=("float32", "double"))
+    turns = {"double": [], "float32": []}
+    for _ in range(3):
+        for name, r in (("double", rd), ("float32", rs)):
+            turns[name].append(timed(lambda: r.image(r.render()), reps=1)[0])
+    med = {k: sorted(v)[1] for k, v in turns.items()}
+    log(f"  frames in turns on {card}: double {[round(t, 4) for t in turns['double']]} s, "
+        f"float32 {[round(t, 4) for t in turns['float32']]} s; medians {med['double']:.4f} / "
+        f"{med['float32']:.4f} s")
+    res["config3"] = dict(frame, k2=k2, parity_with_float32=parity, turns_s=turns,
+                          median_double_s=med["double"], median_float32_s=med["float32"])
+    del rd, rs
+    # K5 moves the float64 payload columns (rays, carried radiance) as bytes
+    rb = mesh_scene_renderer(**SCENES["config3"], device=DEVICE, double=True,
+                             sort="bitonic")[0]
+    sorts = record_sorts(rb)
+    if len(sorts) != 2 * (closest - 1) * frame_chunks(rb):
+        raise AssertionError(f"config 3 in double under bitonic: {len(sorts)} co_sorts")
+    for i, ops in enumerate(sorts):
+        if i == 0 and not any(x.dtype == torch.float64 for x in ops):
+            raise AssertionError("config 3 in double: no float64 payload in the co_sort")
+        check_sort(f"config 3 in double, call {i}", ops)
+    res["config3"]["bitonic_sorts_checked"] = len(sorts)
+    del rb, sorts
+
+    log(f"== phase 19 (b): phase 16 (a)'s config 3 in motion, in double through cli.main "
+        f"--double, {MOTION}, ray_batch {MOTION_BATCH}")
+    os.makedirs(SCENEFILE_DIR, exist_ok=True)
+    d = os.path.abspath(SCENEFILE_DIR)
+    ply = f"{d}/torus.ply"
+    write_torus_ply(ply)
+    config3_scenefile(f"{d}/motion_double.pbrt", ply, **MOTION, rotate=MOTION_ROTATE,
+                      shift=MOTION_SHIFT)
+    got, build_s, launches = cli_render([f"{d}/motion_double.pbrt", "--ray-batch",
+                                         str(MOTION_BATCH), "--double", "-o",
+                                         f"{d}/motion_double.pfm", "-q"])
+    r, img, first_s = got["renderer"], got["image"], got["seconds"]
+    log(f"  build {build_s:.2f} s, first frame {first_s:.3f} s, launches {launches}; "
+        f"image {img.dtype} mean {img.mean():.6f}")
+    if launches != {"anim_walk_f64": MOTION_SWEEPS}:
+        raise AssertionError(f"the double motion frame launched {launches}, want "
+                             f"anim_walk_f64 x {MOTION_SWEEPS}")
+    if img.dtype != np.float64 or not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError(f"the double motion image: {img.dtype}, not finite or black")
+    calls = record_anim_walks(r)
+    if len(calls) != MOTION_SWEEPS or calls[0][2].dtype != torch.float64:
+        raise AssertionError(f"the double motion frame: {len(calls)} K7 sweeps, keys "
+                             f"{calls[0][2].dtype}")
+    works, plain, err, db = [], [], 0.0, 0.0
+    for i, call in enumerate(calls[::MOTION_STRIDE]):
+        e, work, p_ms, b = check_anim(f"double sweep {i * MOTION_STRIDE}", call, DOUBLE_RTOL)
+        err, db = max(err, e), max(db, b)
+        works.append(work)
+        plain.append(p_ms)
+    ms = [cuda_ms(lambda: k7(*c[:5], any_hit=c[5]), 20) for c in calls]
+    del calls, got, r
+    b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]),
+                       F64_OPS_PER_S)
+    ms_checked = float(np.mean(ms[::MOTION_STRIDE]))
+    log(f"  anim_walk_f64 per sweep {[round(t, 4) for t in ms]} ms: mean {np.mean(ms):.4f} ms "
+        f"({ms_checked:.4f} over the checked sweeps, bound {b_ms:.5f} ms ({b_by}), "
+        f"{b_ms / ms_checked:.2%} of it); plain on the card {[round(t, 1) for t in plain]} ms; "
+        f"max |dt| {err:.3e}, max |db| {db:.3e}; on {card}")
+    k7_double = dict(max_abs_err=err, max_abs_db=db, ms=float(np.mean(ms)),
+                     plain_ms=float(np.mean(plain)), bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, sweep_ms=ms, ms_at_plain_sweeps=ms_checked,
+                     plain_stride=MOTION_STRIDE, launches_per_frame=launches["anim_walk_f64"])
+    res["motion"] = dict(build_s=build_s, first_frame_s=first_s, image_mean=float(img.mean()),
+                         card=card)
+
+    log(f"== phase 19 (c): Cornell in double, {CORNELL}")
+    rc = cornell_renderer(**CORNELL, device=DEVICE, double=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    img = rc.image(rc.render())
+    first_s = time.time() - t0
+    launches = {k: v for k, v in read_counts().items() if v}
+    if launches or img.dtype != np.float64 or not (np.isfinite(img).all() and img.max() > 0):
+        raise AssertionError(f"Cornell in double: launches {launches}, image {img.dtype}")
+    median, times = timed(lambda: rc.image(rc.render()))
+    log(f"  first frame {first_s:.3f} s; frame {median:.4f} s ({[round(x, 4) for x in times]}) "
+        f"on {card}; image mean {img.mean():.6f}")
+    del rc
+    imgs = {dev: cornell_renderer(**DOUBLE_CORNELL_PARITY, device=dev, double=True)
+            for dev in (DEVICE, "cpu")}
+    imgs = {dev: r.image(r.render(progress=False)) for dev, r in imgs.items()}
+    rel = np.abs(imgs[DEVICE] - imgs["cpu"]) / np.abs(imgs["cpu"]).clip(min=1e-300)
+    log(f"  32x32: {float((rel <= 1e-9).all(axis=-1).mean()):.4f} of pixels within rtol 1e-9")
+    res["cornell"] = dict(first_frame_s=first_s, frame_s=median, frames_s=times, card=card,
+                          parity=compare_images("Cornell in double at 32x32", imgs[DEVICE],
+                                                imgs["cpu"]))
+
+    log(f"== phase 19 (d): tests/test_refrender.py's GI box, {REF_BOX}, on the card against "
+        "refrender.py on the card's sample stream")
+    text, args, (eye, look, up, fov) = ref_gi_box(**REF_BOX)
+    n, spp, depth = REF_BOX["xres"], REF_BOX["spp"], REF_BOX["maxdepth"]
+    res["refrender"] = {}
+    for double in (False, True):
+        api = PbrtAPI(Options(ray_batch=n * n * spp, double=double),
+                      render_on_world_end=False, device=DEVICE)
+        api.init()
+        api.parse_string(text)
+        r = Renderer(api.scene, api.opt, device=DEVICE)
+        dev_img = r.image(r.render(spp=spp, progress=False))
+        table = sample_table(r, n, n, spp, 5 + 7 * depth)
+        ref = render_reference(RefScene(*args), look_at(eye, look, up), fov, n, n, spp, depth,
+                               table)
+        off = np.abs(dev_img - ref).max(axis=-1)
+        got = (float((off > 0.02).mean()), abs(float(dev_img.mean() - ref.mean())),
+               float((off > 2e-6).mean()))
+        label = "double" if double else "float32"
+        log(f"  {label}: {got[0]:.4f} of pixels off by > 0.02, |mean difference| "
+            f"{got[1]:.3e}, {got[2]:.4f} off by > 2e-6")
+        if not all(g < b for g, b in zip(got, REF_BOX_BOUNDS[double])):
+            raise AssertionError(f"the GI box in {label} against refrender.py: {got}")
+        res["refrender"][label] = dict(off_002=got[0], mean_diff=got[1], off_2e6=got[2])
+    if res["refrender"]["double"]["off_2e6"] > res["refrender"]["float32"]["off_2e6"]:
+        raise AssertionError("the GI box: double is further from refrender.py than float32")
+    return res, k7_double
+
+
 # the phases that need nothing but the card, by number: ``--phase N`` runs
 # one of them alone after phases 1 and 2
 ALONE = {12: lambda card: phase_integrators(), 14: phase_volume, 15: phase_bdpt,
          16: phase_motion, 17: phase_features,
-         18: lambda card: phase_sharded(card)[0]}
+         18: lambda card: phase_sharded(card)[0], 19: lambda card: phase_double(card)[0]}
 
 
 def main(argv=None):
@@ -3579,6 +3789,13 @@ def main(argv=None):
     sharded, kern["stream_walk8"]["sharded"], kern["skip_walk"]["sharded"] = phase_sharded(
         card, config3_image)
     print(json.dumps({"sharded": sharded}, default=str))
+    double, kern["anim_walk_f64"] = phase_double(card)
+    launches["anim_walk_f64"] = kern["anim_walk_f64"]["launches_per_frame"]
+    k7_ms = kern["anim_walk"]["ms"], kern["anim_walk_f64"]["ms"]
+    double["motion"]["k7_double_over_float"] = k7_ms[1] / k7_ms[0]
+    log(f"  K7 on phase 16 (a)'s frame: float {k7_ms[0]:.4f} ms, double {k7_ms[1]:.4f} ms a "
+        f"sweep ({k7_ms[1] / k7_ms[0]:.2f}x) on {card}")
+    print(json.dumps({"double": double}, default=str))
 
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": CSRC + src, "replaces": replaces,

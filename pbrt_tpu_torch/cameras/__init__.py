@@ -26,7 +26,7 @@ import logging
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import PI, float_t
+from pbrt_tpu_torch import PI, torch_dtype
 from pbrt_tpu_torch.core.sampling import concentric_sample_disk
 from pbrt_tpu_torch.core.transform import Transform, apply_point, apply_vector
 from pbrt_tpu_torch.ops.animated_intersect import time_weights
@@ -44,8 +44,10 @@ def _screen_window(frame_aspect, screen_window_param=None):
 
 class ProjectiveCamera:
     def __init__(self, camera_to_world: Transform, camera_to_screen: Transform, resolution,
-                 screen_window=None, lens_radius=0.0, focal_distance=1e6, device="cuda"):
+                 screen_window=None, lens_radius=0.0, focal_distance=1e6, device="cuda",
+                 float_t=np.float32):
         aspect = resolution[0] / resolution[1]
+        self.float_t = float_t
         x0, x1, y0, y1 = _screen_window(aspect, screen_window)
         res_x, res_y = resolution
         screen_to_raster = (
@@ -71,14 +73,16 @@ class ProjectiveCamera:
             self.film_area = float(abs((pmax[0] - pmin[0]) * (pmax[1] - pmin[1])))
         else:
             self.film_area = 1.0
-        self.cam_pos_world = np.asarray(camera_to_world.apply_p(np.zeros(3)), dtype=float_t)
+        self.cam_pos_world = np.asarray(camera_to_world.apply_p(np.zeros(3), float_t),
+                                        dtype=float_t)
         self._anim_c2w = None  # [K, 4, 4] keyframes when the camera moves
 
     def set_animation(self, key_transforms):
         """Camera motion blur: the camera-to-world matrices at K shutter
         times (decompose + slerp on the host, ``core/animated.py``)."""
         self._anim_c2w = torch.as_tensor(
-            np.stack([t.m for t in key_transforms]).astype(float_t), device=self._c2w.device)
+            np.stack([t.m for t in key_transforms]).astype(self.float_t),
+            device=self._c2w.device)
 
     def _to_world(self, o, d, u_time=None):
         """Camera-space (o, d) -> world, blended per lane between the
@@ -87,7 +91,7 @@ class ProjectiveCamera:
         if self._anim_c2w is None or u_time is None:
             o_w, d_w = apply_point(self._c2w, o), apply_vector(self._c2w, d)
         else:
-            w = time_weights(torch.broadcast_to(u_time, o.shape[:-1]).to(torch.float32),
+            w = time_weights(torch.broadcast_to(u_time, o.shape[:-1]).to(o.dtype),
                              self._anim_c2w.shape[0])
             m = w[:, 0, None, None] * self._anim_c2w[0]
             for k in range(1, self._anim_c2w.shape[0]):
@@ -100,9 +104,9 @@ class ProjectiveCamera:
 class PerspectiveCamera(ProjectiveCamera):
     def __init__(self, camera_to_world: Transform, fov_deg, resolution,
                  screen_window=None, lens_radius=0.0, focal_distance=1e6,
-                 device="cuda"):
+                 device="cuda", float_t=np.float32):
         super().__init__(camera_to_world, Transform.perspective(fov_deg, 1e-2, 1000.0),
-                         resolution, screen_window, lens_radius, focal_distance, device)
+                         resolution, screen_window, lens_radius, focal_distance, device, float_t)
 
     def generate_rays(self, p_film, u_lens=None, u_time=None):
         """p_film: [N, 2] raster samples, u_lens [N, 2], u_time [N] shutter
@@ -119,7 +123,7 @@ class PerspectiveCamera(ProjectiveCamera):
             d = p_focus - o
             d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
         o_w, d_w = self._to_world(o, d, u_time)
-        return o_w, d_w, torch.ones(n, dtype=torch.float32, device=p_film.device)
+        return o_w, d_w, torch.ones(n, dtype=torch_dtype(self.float_t), device=p_film.device)
 
     # -- camera importance (pinhole only: BDPT's light tracing) -------------
 
@@ -158,16 +162,16 @@ class PerspectiveCamera(ProjectiveCamera):
 
 class OrthographicCamera(ProjectiveCamera):
     def __init__(self, camera_to_world: Transform, resolution, screen_window=None,
-                 lens_radius=0.0, focal_distance=1e6, device="cuda"):
+                 lens_radius=0.0, focal_distance=1e6, device="cuda", float_t=np.float32):
         super().__init__(camera_to_world, Transform.orthographic(0.0, 1.0), resolution,
-                         screen_window, lens_radius, focal_distance, device)
+                         screen_window, lens_radius, focal_distance, device, float_t)
 
     def generate_rays(self, p_film, u_lens=None, u_time=None):
         """p_film: [N, 2] raster samples, u_lens [N, 2], u_time [N] shutter
         times -> (origin, dir [N, 3], weight [N])."""
         n = p_film.shape[0]
         o = apply_point(self._r2c, torch.cat([p_film, torch.zeros_like(p_film[:, :1])], dim=-1))
-        d = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=o.device).expand(n, 3)
+        d = torch.tensor([0.0, 0.0, 1.0], dtype=o.dtype, device=o.device).expand(n, 3)
         if self.lens_radius > 0.0 and u_lens is not None:
             p_lens = self.lens_radius * concentric_sample_disk(u_lens)
             p_focus = o + d * self.focal_distance
@@ -175,13 +179,15 @@ class OrthographicCamera(ProjectiveCamera):
             d = p_focus - o
             d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
         o_w, d_w = self._to_world(o, d, u_time)
-        return o_w, d_w, torch.ones(n, dtype=torch.float32, device=p_film.device)
+        return o_w, d_w, torch.ones(n, dtype=torch_dtype(self.float_t), device=p_film.device)
 
 
 class EnvironmentCamera:
     """Every direction of the sphere in lat-long: x to phi, y to theta."""
 
-    def __init__(self, camera_to_world: Transform, resolution, device="cuda"):
+    def __init__(self, camera_to_world: Transform, resolution, device="cuda",
+                 float_t=np.float32):
+        self.float_t = float_t
         self.resolution = (int(resolution[0]), int(resolution[1]))
         self._c2w = torch.as_tensor(camera_to_world.m.astype(float_t), device=device)
 
@@ -194,12 +200,15 @@ class EnvironmentCamera:
         d = torch.stack([st * torch.cos(phi), ct, -st * torch.sin(phi)], dim=-1)
         o_w = apply_point(self._c2w, torch.zeros_like(d))
         d_w = apply_vector(self._c2w, d)
-        return o_w, d_w, torch.ones(p_film.shape[0], dtype=torch.float32, device=p_film.device)
+        return o_w, d_w, torch.ones(p_film.shape[0], dtype=torch_dtype(self.float_t),
+                                    device=p_film.device)
 
 
 def make_camera(name: str, params, camera_to_world: Transform, film, device="cuda"):
-    """Factory per pbrt-v3 MakeCamera; the film supplies the resolution."""
+    """Factory per pbrt-v3 MakeCamera; the film supplies the resolution,
+    the parameters the policy's float."""
     res = film.full_resolution
+    kw = dict(device=device, float_t=params.float_t)
     params.find_one_float("shutteropen", 0.0)
     params.find_one_float("shutterclose", 1.0)
     lens_radius = params.find_one_float("lensradius", 0.0)
@@ -210,9 +219,9 @@ def make_camera(name: str, params, camera_to_world: Transform, film, device="cud
     if sw_list is not None and len(sw_list) == 4:
         sw = tuple(float(v) for v in sw_list)
     if name == "orthographic":
-        return OrthographicCamera(camera_to_world, res, sw, lens_radius, focal, device=device)
+        return OrthographicCamera(camera_to_world, res, sw, lens_radius, focal, **kw)
     if name == "environment":
-        return EnvironmentCamera(camera_to_world, res, device=device)
+        return EnvironmentCamera(camera_to_world, res, **kw)
     if name == "realistic":
         from pbrt_tpu_torch.cameras.realistic import (
             BUILTIN_LENSES,
@@ -231,15 +240,12 @@ def make_camera(name: str, params, camera_to_world: Transform, film, device="cud
                                    simple_weighting=simple, device=device)
         except (OSError, ValueError) as err:
             log.error("realistic camera: %s; falling back to perspective", err)
-            return PerspectiveCamera(camera_to_world, 45.0, res, sw, lens_radius, focal,
-                                     device=device)
+            return PerspectiveCamera(camera_to_world, 45.0, res, sw, lens_radius, focal, **kw)
     if name != "perspective":
         log.warning("Camera '%s' unknown; using perspective.", name)
-        return PerspectiveCamera(camera_to_world, 90.0, res, sw, lens_radius, focal,
-                                 device=device)
+        return PerspectiveCamera(camera_to_world, 90.0, res, sw, lens_radius, focal, **kw)
     fov = params.find_one_float("fov", 90.0)
     half = params.find_one_float("halffov", -1.0)
     if half > 0:
         fov = 2 * half
-    return PerspectiveCamera(camera_to_world, fov, res, sw, lens_radius, focal,
-                             device=device)
+    return PerspectiveCamera(camera_to_world, fov, res, sw, lens_radius, focal, **kw)

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
+from pbrt_tpu_torch import torch_dtype
 from pbrt_tpu_torch.core.transform import Transform, apply_point, apply_vector
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -231,6 +231,7 @@ class RealisticCamera:
                  focus_distance=10.0, aperture_diameter_m=None,
                  simple_weighting=True, device="cuda"):
         self.device = torch.device(device)
+        self.float_t = float_t = film.float_t
         self._c2w = torch.as_tensor(camera_to_world.m.astype(float_t), device=self.device)
         self.elements = [LensElement(**vars(e)) for e in elements]
         self.simple_weighting = bool(simple_weighting)
@@ -351,6 +352,7 @@ class RealisticCamera:
             mins[b] = lo
             maxs[b] = hi
         self.pupil_bounds = (mins, maxs)  # host float64, per radial bin
+        float_t = self.float_t
         self._pupil_min = torch.as_tensor(mins.astype(float_t), device=self.device)
         self._pupil_max = torch.as_tensor(maxs.astype(float_t), device=self.device)
         self._pupil_area = torch.as_tensor(
@@ -383,27 +385,28 @@ class RealisticCamera:
         [N, 3], weight [N]: 0 where the lens system vignettes the ray)."""
         n = p_film.shape[0]
         dev = p_film.device
-        res = torch.as_tensor(self.resolution, dtype=torch.float32, device=dev)
+        dt = torch_dtype(self.float_t)
+        res = torch.as_tensor(self.resolution, dtype=dt, device=dev)
         s = p_film / res
-        ext_min = torch.as_tensor(self._ext_min, dtype=torch.float32, device=dev)
-        ext_max = torch.as_tensor(self._ext_max, dtype=torch.float32, device=dev)
+        ext_min = torch.as_tensor(self._ext_min, dtype=dt, device=dev)
+        ext_max = torch.as_tensor(self._ext_max, dtype=dt, device=dev)
         p_phys = ext_min + s * (ext_max - ext_min)
         # pbrt flips x on the physical film (the image forms inverted)
         o_film = torch.stack([-p_phys[..., 0], p_phys[..., 1], torch.zeros_like(p_phys[..., 0])],
                              dim=-1)
         if u_lens is None:
-            u_lens = torch.full((n, 2), 0.5, dtype=torch.float32, device=dev)
+            u_lens = torch.full((n, 2), 0.5, dtype=dt, device=dev)
         # exit-pupil sampling: only the rear-plane region that can survive
         # the trace, rotated to the film azimuth
         p_xy, pupil_area = self._sample_exit_pupil(o_film, u_lens)
         # the rear element's vertex sits at z = -rear_z in lens space
-        p_rear = torch.cat([p_xy, torch.full((n, 1), -self.rear_z, dtype=torch.float32,
+        p_rear = torch.cat([p_xy, torch.full((n, 1), -self.rear_z, dtype=dt,
                                              device=dev)], dim=-1)
         d = p_rear - o_film
         d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
         o_l, d_l, alive = trace_from_film(self.elements, o_film, d, _TORCH)
         # lens space -> camera space: flip z (pbrt LensToCamera Scale(1, 1, -1))
-        flip = torch.tensor([1.0, 1.0, -1.0], dtype=torch.float32, device=dev)
+        flip = torch.tensor([1.0, 1.0, -1.0], dtype=dt, device=dev)
         o_c = o_l * flip
         d_c = d_l * flip
         d_c = d_c / torch.linalg.norm(d_c, dim=-1, keepdim=True)
@@ -417,4 +420,4 @@ class RealisticCamera:
             w = cos4 * pupil_area / torch.clamp(self._pupil_area[0], min=1e-20)
         else:
             w = cos4 * pupil_area / (self.rear_z ** 2)
-        return o_w, d_w, torch.where(alive, w, 0.0).to(torch.float32)
+        return o_w, d_w, torch.where(alive, w, 0.0).to(dt)

@@ -2,7 +2,7 @@
 
     python -m pbrt_tpu_torch [-n N] [--quick] [-q] [-v] [-o FILE]
                              [--ray-batch N] [--checkpoint DIR]
-                             [--sampled-spectrum] scene.pbrt ...
+                             [--sampled-spectrum] [--double] scene.pbrt ...
 
 parses the scene files and renders each world block at its ``WorldEnd``
 on the CUDA card, writing the film's image (PNG or PFM by extension).
@@ -40,6 +40,9 @@ def main(argv=None, device="cuda") -> int:
     ap.add_argument("--sampled-spectrum", action="store_true",
                     help="sampled-spectrum transport: five passes of three wavelength bins, "
                          "summed to XYZ (the reference's PBRT_TPU_SAMPLED_SPECTRUM)")
+    ap.add_argument("--double", action="store_true",
+                    help="the float64 policy: parameters, tables, film and gradients in "
+                         "float64 (the reference's PBRT_TPU_DOUBLE=1)")
     ap.add_argument("scenes", nargs="+", help="pbrt scene files")
     args = ap.parse_args(argv)
     device = require_device(device)
@@ -56,6 +59,7 @@ def main(argv=None, device="cuda") -> int:
         ray_batch=args.ray_batch,
         checkpoint_dir=args.checkpoint or None,
         sampled_spectrum=args.sampled_spectrum,
+        double=args.double,
     )
     pbrt = PbrtAPI(opts, device=device)
     pbrt.init()

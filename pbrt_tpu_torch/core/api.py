@@ -29,7 +29,9 @@ import dataclasses
 import logging
 from typing import Any, Callable, Dict, List, Optional
 
-from pbrt_tpu_torch import Options
+import numpy as np
+
+from pbrt_tpu_torch import Options, float_type
 from pbrt_tpu_torch.core import parser as parser_mod
 from pbrt_tpu_torch.core.paramset import ParamSet, TextureParams
 from pbrt_tpu_torch.core.transform import Transform
@@ -145,18 +147,26 @@ class SceneDescription:
     transform_end_time: float = 1.0
     have_scattering_media: bool = False
     camera_medium: str = ""
+    float_t: type = np.float32  # the policy's float of every ParamSet here
+
+    @classmethod
+    def for_float(cls, float_t) -> "SceneDescription":
+        """An empty description whose parameter sets hold ``float_t``."""
+        return cls(**{f.name: ParamSet(float_t) for f in dataclasses.fields(cls)
+                      if f.name.endswith("_params")}, float_t=float_t)
 
 
 class _GraphicsState:
     """World-block attribute state (api.rs:251-289 + pbrt-v3 fields)."""
 
-    def __init__(self):
+    def __init__(self, float_t=np.float32):
+        self.float_t = float_t
         self.current_inside_medium = ""
         self.current_outside_medium = ""
         self.float_textures: Dict[str, Any] = {}
         self.spectrum_textures: Dict[str, Any] = {}
         self.material_name = "matte"
-        self.material_params = ParamSet()
+        self.material_params = ParamSet(float_t)
         self.named_materials: Dict[str, MaterialRecord] = {}
         self.current_named_material: Optional[str] = None
         self.area_light_name = ""
@@ -168,7 +178,7 @@ class _GraphicsState:
         self.material_record: Optional[MaterialRecord] = None
 
     def copy(self) -> "_GraphicsState":
-        gs = _GraphicsState()
+        gs = _GraphicsState(self.float_t)
         gs.current_inside_medium = self.current_inside_medium
         gs.current_outside_medium = self.current_outside_medium
         gs.float_textures = dict(self.float_textures)
@@ -227,6 +237,7 @@ class PbrtAPI:
     def __init__(self, options: Optional[Options] = None, strict: bool = False,
                  render_on_world_end: bool = True, device="cuda"):
         self.opt = options or Options()
+        self.float_t = float_type(self.opt.double)  # every ParamSet's float
         self.device = device
         self.strict = strict
         self.render_on_world_end = render_on_world_end
@@ -234,8 +245,8 @@ class PbrtAPI:
         self.current_transform = TransformSet()
         self.active_transform_bits = ALL_TRANSFORMS_BITS
         self.named_coordinate_systems: Dict[str, TransformSet] = {}
-        self.scene = SceneDescription()
-        self.graphics_state = _GraphicsState()
+        self.scene = SceneDescription.for_float(self.float_t)
+        self.graphics_state = _GraphicsState(self.float_t)
         self.pushed_graphics_states: List[_GraphicsState] = []
         self.pushed_transforms: List[TransformSet] = []
         self.pushed_active_transform_bits: List[int] = []
@@ -280,7 +291,7 @@ class PbrtAPI:
         if self.current_api_state != UNINITIALIZED:
             log.error("init() has already been called.")
         self.current_api_state = OPTIONS_BLOCK
-        self.scene = SceneDescription()
+        self.scene = SceneDescription.for_float(self.float_t)
 
     def cleanup(self) -> None:
         if self.current_api_state == UNINITIALIZED:
@@ -288,7 +299,7 @@ class PbrtAPI:
         elif self.current_api_state == WORLD_BLOCK:
             log.error("cleanup() called while inside world block.")
         self.current_api_state = UNINITIALIZED
-        self.scene = SceneDescription()
+        self.scene = SceneDescription.for_float(self.float_t)
 
     # -- parsing ------------------------------------------------------------
 
@@ -651,7 +662,7 @@ class PbrtAPI:
 
                 log.info("%s", stats.report())
 
-        self.graphics_state = _GraphicsState()
+        self.graphics_state = _GraphicsState(self.float_t)
         self.current_api_state = OPTIONS_BLOCK
         self.current_transform = TransformSet()
         self.active_transform_bits = ALL_TRANSFORMS_BITS

@@ -31,7 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
+from pbrt_tpu_torch import torch_dtype
 from pbrt_tpu_torch.core import spectrum as spec
 from pbrt_tpu_torch.core.filters import FILTER_TABLE_WIDTH, BoxFilter
 from pbrt_tpu_torch.core.geometry import Bounds2f, Bounds2i
@@ -48,6 +48,7 @@ class Film:
         scale: float = 1.0,
         max_sample_luminance: float = float("inf"),
         device="cuda",
+        float_t=np.float32,
     ):
         self.full_resolution = (int(resolution[0]), int(resolution[1]))
         self.crop_window = Bounds2f.from_points(crop_window[0], crop_window[1])
@@ -57,6 +58,8 @@ class Film:
         self.scale = float(scale)
         self.max_sample_luminance = float(max_sample_luminance)
         self.device = torch.device(device)
+        self.float_t = float_t  # the policy's float: the image's and the tables'
+        self.dtype = torch_dtype(float_t)
         fx, fy = self.full_resolution
         self.cropped_pixel_bounds = Bounds2i(
             (
@@ -75,7 +78,7 @@ class Film:
             np.asarray(spec.XYZ_TO_RGB, dtype=float_t), device=self.device
         )
         self.filter_table = torch.as_tensor(
-            self.filter.table(FILTER_TABLE_WIDTH), device=self.device
+            self.filter.table(FILTER_TABLE_WIDTH, float_t), device=self.device
         )
 
     def get_sample_bounds(self) -> Bounds2i:
@@ -96,7 +99,7 @@ class Film:
 
     def initial_state(self) -> Dict[str, torch.Tensor]:
         w, h = self.cropped_pixel_bounds.diagonal()
-        z = dict(dtype=torch.float32, device=self.device)
+        z = dict(dtype=self.dtype, device=self.device)
         return {
             "xyz": torch.zeros((h, w, 3), **z),
             "weight": torch.zeros((h, w), **z),
@@ -139,8 +142,8 @@ class Film:
             for i in range(fw):
                 pxl_x = x0 + i
                 pxl_y = y0 + j
-                dx = torch.abs((pxl_x.to(torch.float32) - px) * inv_rx * FILTER_TABLE_WIDTH)
-                dy = torch.abs((pxl_y.to(torch.float32) - py) * inv_ry * FILTER_TABLE_WIDTH)
+                dx = torch.abs((pxl_x.to(self.dtype) - px) * inv_rx * FILTER_TABLE_WIDTH)
+                dy = torch.abs((pxl_y.to(self.dtype) - py) * inv_ry * FILTER_TABLE_WIDTH)
                 ix = torch.clamp(dx.to(torch.int32), max=last).long()
                 iy = torch.clamp(dy.to(torch.int32), max=last).long()
                 lx = pxl_x - bx

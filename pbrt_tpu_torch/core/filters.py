@@ -11,8 +11,6 @@ import math
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
-
 FILTER_TABLE_WIDTH = 16
 
 
@@ -26,9 +24,9 @@ class Filter:
     def evaluate(self, x, y):
         raise NotImplementedError
 
-    def table(self, width: int = FILTER_TABLE_WIDTH) -> np.ndarray:
-        """[width, width] weights at the positive quadrant's cell centers
-        (row y, column x)."""
+    def table(self, width: int = FILTER_TABLE_WIDTH, float_t=np.float32) -> np.ndarray:
+        """[width, width] weights in ``float_t`` at the positive quadrant's
+        cell centers (row y, column x)."""
         xs = (np.arange(width) + 0.5) * self.radius[0] / width
         ys = (np.arange(width) + 0.5) * self.radius[1] / width
         gx, gy = np.meshgrid(xs, ys)
@@ -39,7 +37,7 @@ class BoxFilter(Filter):
     """Weight 1 everywhere inside the radius."""
 
     def evaluate(self, x, y):
-        return np.ones_like(np.asarray(x, dtype=float_t))
+        return np.ones_like(np.asarray(x, dtype=np.float64))
 
 
 class TriangleFilter(Filter):

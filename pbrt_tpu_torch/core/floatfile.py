@@ -11,14 +11,14 @@ from typing import List
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
-
 
 class FloatFileError(ValueError):
     pass
 
 
-def read_float_file(name: str) -> List[float]:
+def read_float_file(name: str, float_t=np.float32) -> List[float]:
+    """The numbers of a text file (``#`` starts a comment), each rounded to
+    the policy's float ``float_t``."""
     values: List[float] = []
     with open(name, "r") as f:
         for line_no, line in enumerate(f, start=1):

@@ -55,8 +55,12 @@ class Bounds2f:
 
 
 def fma(x, y, z):
-    """float32 x * y + z with one rounding (float64 holds the float32
-    product exactly), where the reference's compiled CPU code fuses it."""
+    """x * y + z where the reference's compiled CPU code fuses it: on
+    float32 tensors with one rounding (float64 holds the float32 product
+    exactly); where an operand is float64 (the double policy) with two,
+    for float64 has no wider type here (PyTorch has no fused multiply-add)."""
+    if torch.float64 in (x.dtype, y.dtype, z.dtype):
+        return x * y + z
     return (x.double() * y.double() + z.double()).float()
 
 

@@ -17,7 +17,7 @@ from pathlib import Path
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t, gamma_correct
+from pbrt_tpu_torch import gamma_correct
 
 
 class ImageIOError(ValueError):
@@ -26,11 +26,11 @@ class ImageIOError(ValueError):
 
 def to_byte(v):
     """Gamma-correct float -> byte, vectorized."""
-    return np.clip(255.0 * gamma_correct(np.asarray(v, dtype=float_t)) + 0.5, 0.0,
+    return np.clip(255.0 * gamma_correct(np.asarray(v, dtype=np.float32)) + 0.5, 0.0,
                    255.0).astype(np.uint8)
 
 
-def _read_pfm(name: str):
+def _read_pfm(name: str, float_t):
     with open(name, "rb") as f:
         data = f.read()
     pos = 0
@@ -61,8 +61,9 @@ def _read_pfm(name: str):
     return img.astype(float_t), (width, height)
 
 
-def read_image(name: str):
-    """Read an image -> ([H, W, 3] float RGB, (width, height))."""
+def read_image(name: str, float_t=np.float32):
+    """Read an image -> ([H, W, 3] RGB in the policy's float ``float_t``,
+    (width, height))."""
     ext = Path(name).suffix.lower()
     if ext == ".png":
         from PIL import Image
@@ -71,7 +72,7 @@ def read_image(name: str):
             arr = np.asarray(im.convert("RGB"), dtype=float_t) / float_t(255.0)
         return arr, (arr.shape[1], arr.shape[0])
     if ext == ".pfm":
-        return _read_pfm(name)
+        return _read_pfm(name, float_t)
     if ext in (".exr", ".tga"):
         raise ImageIOError(f"reading '{ext}' files is not yet implemented")
     raise ImageIOError(f"unknown extension '{ext}'")
@@ -89,7 +90,7 @@ def write_image(name: str, rgb, output_bounds, total_resolution=None) -> None:
     """Write the ``output_bounds`` crop of RGB data (flat [w h 3] or
     [h, w, 3]); the format follows the extension."""
     w, h = output_bounds.diagonal()
-    rgb = np.asarray(rgb, dtype=float_t).reshape(h, w, 3)
+    rgb = np.asarray(rgb, dtype=np.float32).reshape(h, w, 3)
     ext = Path(name).suffix.lower()
     if ext == ".png":
         from PIL import Image

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
+from pbrt_tpu_torch import torch_dtype
 
 WRAP_REPEAT = 0
 WRAP_BLACK = 1
@@ -28,10 +28,11 @@ WRAP_NAMES = {"repeat": WRAP_REPEAT, "black": WRAP_BLACK, "clamp": WRAP_CLAMP}
 
 EWA_LUT_SIZE = 128
 _EWA_ALPHA = 2.0
-# alpha = 2 Gaussian weights of the anisotropic taps
+# alpha = 2 Gaussian weights of the anisotropic taps (rounded to the
+# pyramid's float at use)
 EWA_WEIGHT_LUT = (np.exp(-_EWA_ALPHA * (np.arange(EWA_LUT_SIZE, dtype=np.float64)
                                        / (EWA_LUT_SIZE - 1)))
-                  - np.exp(-_EWA_ALPHA)).astype(float_t)
+                  - np.exp(-_EWA_ALPHA))
 
 
 def _next_pow2(n: int) -> int:
@@ -63,10 +64,11 @@ def _resample_pow2(img: np.ndarray) -> np.ndarray:
 
 
 class MIPMap:
-    """Image pyramid of 1 (float texture) or 3 (spectrum texture) channels."""
+    """Image pyramid of 1 (float texture) or 3 (spectrum texture) channels,
+    its texels in the policy's float ``float_t``."""
 
     def __init__(self, image: np.ndarray, wrap: int = WRAP_REPEAT,
-                 do_trilinear: bool = True, max_anisotropy: float = 8.0):
+                 do_trilinear: bool = True, max_anisotropy: float = 8.0, float_t=np.float32):
         img = np.asarray(image, dtype=np.float64)
         if img.ndim == 2:
             img = img[..., None]
@@ -75,6 +77,7 @@ class MIPMap:
         self.do_trilinear = do_trilinear
         self.max_anisotropy = max_anisotropy
         self.channels = img.shape[-1]
+        self.float_t = float_t
         levels = [img]
         while levels[-1].shape[0] > 1 or levels[-1].shape[1] > 1:
             prev = levels[-1]
@@ -125,8 +128,8 @@ class MIPMap:
 
     def _bilerp(self, tb, level, s, t, src):
         """Bilinear lookup at continuous (s, t) in [0, 1] of levels [N]."""
-        fs = s * tb["widths"][level].to(torch.float32) - 0.5
-        ft = t * tb["heights"][level].to(torch.float32) - 0.5
+        fs = s * tb["widths"][level].to(torch_dtype(self.float_t)) - 0.5
+        ft = t * tb["heights"][level].to(torch_dtype(self.float_t)) - 0.5
         s0 = torch.floor(fs)
         t0 = torch.floor(ft)
         ds = (fs - s0)[..., None]
@@ -178,7 +181,7 @@ class MIPMap:
         for i in range(taps):
             f = (i + 0.5) / taps - 0.5  # fixed offsets in [-0.5, 0.5)
             r2 = min((2.0 * f) ** 2, 1.0)
-            w = float(EWA_WEIGHT_LUT[int(r2 * (EWA_LUT_SIZE - 1))])
+            w = float(self.float_t(EWA_WEIGHT_LUT[int(r2 * (EWA_LUT_SIZE - 1))]))
             ss = s + major[..., 0] * f
             tt = t + major[..., 1] * f
             val = (1 - dl) * self._bilerp(tb, l0, ss, tt, src) + dl * self._bilerp(

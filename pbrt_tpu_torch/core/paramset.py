@@ -22,7 +22,6 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core import spectrum as spec
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -53,8 +52,9 @@ class _Item:
 class ParamSet:
     """Typed parameter set with used-tracking (paramset.rs:109-531)."""
 
-    def __init__(self):
+    def __init__(self, float_t=np.float32):
         self._items: Dict[str, _Item] = {}
+        self.float_t = float_t  # the policy's float (pbrt_tpu_torch.float_type)
 
     # -- adders (paramset.rs:143-215) -------------------------------------
 
@@ -68,22 +68,22 @@ class ParamSet:
         self._add(name, INT, [int(v) for v in values])
 
     def add_float(self, name, values):
-        self._add(name, FLOAT, np.asarray(values, dtype=float_t))
+        self._add(name, FLOAT, np.asarray(values, dtype=self.float_t))
 
     def add_point2f(self, name, values):
-        self._add(name, POINT2, np.asarray(values, dtype=float_t).reshape(-1, 2))
+        self._add(name, POINT2, np.asarray(values, dtype=self.float_t).reshape(-1, 2))
 
     def add_vector2f(self, name, values):
-        self._add(name, VECTOR2, np.asarray(values, dtype=float_t).reshape(-1, 2))
+        self._add(name, VECTOR2, np.asarray(values, dtype=self.float_t).reshape(-1, 2))
 
     def add_point3f(self, name, values):
-        self._add(name, POINT3, np.asarray(values, dtype=float_t).reshape(-1, 3))
+        self._add(name, POINT3, np.asarray(values, dtype=self.float_t).reshape(-1, 3))
 
     def add_vector3f(self, name, values):
-        self._add(name, VECTOR3, np.asarray(values, dtype=float_t).reshape(-1, 3))
+        self._add(name, VECTOR3, np.asarray(values, dtype=self.float_t).reshape(-1, 3))
 
     def add_normal3f(self, name, values):
-        self._add(name, NORMAL3, np.asarray(values, dtype=float_t).reshape(-1, 3))
+        self._add(name, NORMAL3, np.asarray(values, dtype=self.float_t).reshape(-1, 3))
 
     def add_string(self, name, values: List[str]):
         self._add(name, STRING, list(values))
@@ -93,18 +93,18 @@ class ParamSet:
 
     def add_rgb_spectrum(self, name, values):
         """Flat [r,g,b,...] floats -> [N,3] RGB spectra (paramset.rs:175-184)."""
-        self._add(name, SPECTRUM, np.asarray(values, dtype=float_t).reshape(-1, 3))
+        self._add(name, SPECTRUM, np.asarray(values, dtype=self.float_t).reshape(-1, 3))
 
     def add_xyz_spectrum(self, name, values):
-        xyz = np.asarray(values, dtype=float_t).reshape(-1, 3)
-        self._add(name, SPECTRUM, spec.xyz_to_rgb(xyz))
+        xyz = np.asarray(values, dtype=self.float_t).reshape(-1, 3)
+        self._add(name, SPECTRUM, spec.xyz_to_rgb(xyz, self.float_t))
 
     def add_blackbody(self, name, values):
         """Pairs of (temperature K, scale) -> RGB (paramset.rs:197-199 done)."""
         vals = np.asarray(values, dtype=np.float64).reshape(-1, 2)
         rgb = np.stack(
-            [spec.blackbody_to_rgb(t, s) for t, s in vals], axis=0
-        ).astype(float_t)
+            [spec.blackbody_to_rgb(t, s, self.float_t) for t, s in vals], axis=0
+        ).astype(self.float_t)
         self._add(name, SPECTRUM, rgb)
 
     def add_sampled_spectrum(self, name, values):
@@ -115,7 +115,7 @@ class ParamSet:
         wl, v = wl[order], v[order]
         bucket_wl = spec._bucket_wavelengths()
         resampled = np.interp(bucket_wl, wl, v, left=v[0] if len(v) else 0.0, right=v[-1] if len(v) else 0.0)
-        self._add(name, SPECTRUM, spec.sampled_to_rgb(resampled)[None, :])
+        self._add(name, SPECTRUM, spec.sampled_to_rgb(resampled, self.float_t)[None, :])
 
     def add_sampled_spectrum_files(self, name, filenames: List[str]):
         from pbrt_tpu_torch.core.floatfile import read_float_file
@@ -124,7 +124,7 @@ class ParamSet:
         rgbs = []
         for fn in filenames:
             try:
-                vals = read_float_file(str(resolve_filename(fn)))
+                vals = read_float_file(str(resolve_filename(fn)), self.float_t)
             except OSError as e:
                 log.error("Unable to read spectrum file '%s': %s", fn, e)
                 vals = []
@@ -134,14 +134,14 @@ class ParamSet:
                 vals = vals[:-1]
             pairs = vals.reshape(-1, 2)
             if len(pairs) == 0:
-                rgbs.append(np.zeros(3, dtype=float_t))
+                rgbs.append(np.zeros(3, dtype=self.float_t))
                 continue
             order = np.argsort(pairs[:, 0])
             wl, v = pairs[order, 0], pairs[order, 1]
             bucket_wl = spec._bucket_wavelengths()
             resampled = np.interp(bucket_wl, wl, v, left=v[0], right=v[-1])
-            rgbs.append(spec.sampled_to_rgb(resampled))
-        self._add(name, SPECTRUM, np.stack(rgbs, axis=0).astype(float_t))
+            rgbs.append(spec.sampled_to_rgb(resampled, self.float_t))
+        self._add(name, SPECTRUM, np.stack(rgbs, axis=0).astype(self.float_t))
 
     # -- getters (paramset.rs:237-513) ------------------------------------
 
@@ -174,30 +174,30 @@ class ParamSet:
 
     def find_one_point2f(self, name, default):
         v = self._find_one(name, POINT2, None)
-        return np.asarray(default if v is None else v, dtype=float_t)
+        return np.asarray(default if v is None else v, dtype=self.float_t)
 
     def find_one_vector2f(self, name, default):
         v = self._find_one(name, VECTOR2, None)
-        return np.asarray(default if v is None else v, dtype=float_t)
+        return np.asarray(default if v is None else v, dtype=self.float_t)
 
     def find_one_point3f(self, name, default):
         v = self._find_one(name, POINT3, None)
-        return np.asarray(default if v is None else v, dtype=float_t)
+        return np.asarray(default if v is None else v, dtype=self.float_t)
 
     def find_one_vector3f(self, name, default):
         v = self._find_one(name, VECTOR3, None)
-        return np.asarray(default if v is None else v, dtype=float_t)
+        return np.asarray(default if v is None else v, dtype=self.float_t)
 
     def find_one_normal3f(self, name, default):
         v = self._find_one(name, NORMAL3, None)
-        return np.asarray(default if v is None else v, dtype=float_t)
+        return np.asarray(default if v is None else v, dtype=self.float_t)
 
     def find_one_spectrum_raw(self, name, default):
         """RGB value with no spectral-pass promotion — for callers that
         combine several RGB factors (e.g. light L x scale x map) and must
         promote the *product* exactly once."""
         v = self._find_one(name, SPECTRUM, None)
-        return np.asarray(default if v is None else v, dtype=float_t)
+        return np.asarray(default if v is None else v, dtype=self.float_t)
 
     def find_one_spectrum(self, name, default, illuminant: bool = False):
         out = self.find_one_spectrum_raw(name, default)
@@ -206,7 +206,7 @@ class ParamSet:
         # is a reflectance.
         from pbrt_tpu_torch.core.spectrum import promote_rgb
 
-        return promote_rgb(out, illuminant=illuminant)
+        return promote_rgb(out, illuminant=illuminant, float_t=self.float_t)
 
     def find_one_string(self, name, default: str) -> str:
         return str(self._find_one(name, STRING, default))
@@ -261,7 +261,7 @@ class ParamSet:
             return None
         from pbrt_tpu_torch.core.spectrum import promote_rgb
 
-        return promote_rgb(np.asarray(v, dtype=float_t))
+        return promote_rgb(np.asarray(v, dtype=self.float_t), float_t=self.float_t)
 
     def find_string(self, name):
         return self._find(name, STRING)
@@ -322,7 +322,7 @@ class ParamSet:
         return True
 
     def copy(self) -> "ParamSet":
-        ps = ParamSet()
+        ps = ParamSet(self.float_t)
         for k, it in self._items.items():
             ps._items[k] = _Item(it.kind, it.values)
         return ps
@@ -336,6 +336,7 @@ class TextureParams:
                  float_textures: Dict[str, Any], spectrum_textures: Dict[str, Any]):
         self.geom_params = geom_params
         self.material_params = material_params
+        self.float_t = material_params.float_t
         self.float_textures = float_textures
         self.spectrum_textures = spectrum_textures
 
@@ -392,11 +393,11 @@ class TextureParams:
                     return tex
                 log.error("Couldn't find spectrum texture named '%s' for parameter '%s'", tex_name, name)
             if ps.kind_of(name) == SPECTRUM:
-                return ConstantTexture(ps.find_one_spectrum(name, default_rgb))
+                return ConstantTexture(ps.find_one_spectrum(name, default_rgb), self.float_t)
             if ps.kind_of(name) == FLOAT:
                 v = ps.find_one_float(name, 1.0)
-                return ConstantTexture(np.array([v, v, v], dtype=float_t))
-        return ConstantTexture(np.asarray(default_rgb, dtype=float_t))
+                return ConstantTexture(np.array([v, v, v], dtype=self.float_t), self.float_t)
+        return ConstantTexture(np.asarray(default_rgb, dtype=self.float_t), self.float_t)
 
     def get_float_texture(self, name, default: float):
         from pbrt_tpu_torch.textures.constant import ConstantTexture
@@ -409,8 +410,8 @@ class TextureParams:
                     return tex
                 log.error("Couldn't find float texture named '%s' for parameter '%s'", tex_name, name)
             if ps.kind_of(name) == FLOAT:
-                return ConstantTexture(np.asarray(ps.find_one_float(name, default), dtype=float_t))
-        return ConstantTexture(np.asarray(default, dtype=float_t))
+                return ConstantTexture(np.asarray(ps.find_one_float(name, default), dtype=self.float_t), self.float_t)
+        return ConstantTexture(np.asarray(default, dtype=self.float_t), self.float_t)
 
     def get_spectrum_texture_or_none(self, name):
         from pbrt_tpu_torch.textures.constant import ConstantTexture
@@ -424,10 +425,10 @@ class TextureParams:
                 log.error("Couldn't find spectrum texture named '%s' for parameter '%s'", tex_name, name)
                 return None
             if ps.kind_of(name) == SPECTRUM:
-                return ConstantTexture(ps.find_one_spectrum(name, np.zeros(3, dtype=float_t)))
+                return ConstantTexture(ps.find_one_spectrum(name, np.zeros(3, dtype=self.float_t)), self.float_t)
             if ps.kind_of(name) == FLOAT:
                 v = ps.find_one_float(name, 0.0)
-                return ConstantTexture(np.array([v, v, v], dtype=float_t))
+                return ConstantTexture(np.array([v, v, v], dtype=self.float_t), self.float_t)
         return None
 
     def get_float_texture_or_none(self, name):
@@ -442,7 +443,7 @@ class TextureParams:
                 log.error("Couldn't find float texture named '%s' for parameter '%s'", tex_name, name)
                 return None
             if ps.kind_of(name) == FLOAT:
-                return ConstantTexture(np.asarray(ps.find_one_float(name, 0.0), dtype=float_t))
+                return ConstantTexture(np.asarray(ps.find_one_float(name, 0.0), dtype=self.float_t), self.float_t)
         return None
 
     def report_unused(self):

@@ -21,6 +21,8 @@ from __future__ import annotations
 import logging
 from typing import Callable, List, Optional
 
+import numpy as np
+
 from pbrt_tpu_torch.core.fileutil import directory_containing, resolve_filename, set_search_directory
 from pbrt_tpu_torch.core.paramset import ParamSet
 
@@ -275,9 +277,10 @@ class Parser:
     """Recursive-descent parser with one-token pushback and a file stack for
     ``Include`` (parser.rs:205-317, completed to the full directive set)."""
 
-    def __init__(self, tokenizer: Tokenizer):
+    def __init__(self, tokenizer: Tokenizer, float_t=np.float32):
         self.file_stack: List[Tokenizer] = [tokenizer]
         self.unget_token: Optional[str] = None
+        self.float_t = float_t  # of every ParamSet parsed (the API's policy)
 
     # -- token plumbing (parser.rs:323-352) --------------------------------
 
@@ -311,7 +314,7 @@ class Parser:
     def _parse_params(self) -> ParamSet:
         """Parse "type name" value-lists until a non-quoted token
         (parser.rs:354-414)."""
-        ps = ParamSet()
+        ps = ParamSet(self.float_t)
         while True:
             decl = self._next_token(required=False)
             if decl is None:
@@ -528,7 +531,7 @@ _DIRECTIVES = {
 
 def parse(tokenizer: Tokenizer, api) -> None:
     """Parse all tokens, invoking API callbacks (parser.rs:752-754)."""
-    Parser(tokenizer).parse(api)
+    Parser(tokenizer, api.float_t).parse(api)
 
 
 def parse_file(path, api) -> None:

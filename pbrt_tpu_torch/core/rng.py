@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import ONE_MINUS_EPSILON
+from pbrt_tpu_torch import one_minus_epsilon
 
 MASK32 = 0xFFFFFFFF
 
@@ -74,10 +74,14 @@ class Rng:
                 return r % b
 
 
-def u32_to_float(bits):
-    """uint32 (in int64) -> [0, 1) float32, as ``rng.rs:89-93``."""
+def u32_to_float(bits, float_t=np.float32):
+    """uint32 (in int64) -> float32 in [0, 1), as ``rng.rs:89-93``, capped
+    at the policy's ``one_minus_epsilon(float_t)`` rounded to float32
+    (``pbrt_tpu/core/rng.py:191-192``): under the double policy that cap
+    is 1 - 2^-53, which rounds to 1, so the top 128 bit patterns give 1.0
+    there and 0.99999994 under float32."""
     f = bits.to(torch.float32) * 2.3283064365386963e-10
-    return torch.clamp(f, max=ONE_MINUS_EPSILON)
+    return torch.clamp(f, max=float(np.float32(one_minus_epsilon(float_t))))
 
 
 def hash_u32(x):

@@ -5,7 +5,7 @@ over tensors.
 The warps keep the reference's polynomial sin/cos (``fast_sincos``) so
 that sampled directions agree with it to float32 rounding.  The
 distributions' tables are built on the host in float64 and live on the
-device as float32, as in the reference.
+device in the policy's float (``float_t``), as in the reference.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import PI, PI_OVER_2, PI_OVER_4, float_t
+from pbrt_tpu_torch import PI, PI_OVER_2, PI_OVER_4
 
 # Cephes sinf/cosf quarter-wave kernels (|r| <= pi/4, abs err ~1e-7)
 _S3, _S5, _S7 = -1.6666654611e-1, 8.3321608736e-3, -1.9515295891e-4
@@ -99,7 +99,7 @@ class Distribution1D:
     """Piecewise-constant 1D distribution over [0, 1]; the CDF table lives
     on ``device``."""
 
-    def __init__(self, func, device):
+    def __init__(self, func, device, float_t=np.float32):
         f = np.maximum(np.asarray(func, dtype=np.float64), 0.0)
         n = len(f)
         cdf = np.concatenate([[0.0], np.cumsum(f)])
@@ -125,7 +125,7 @@ class Distribution1D:
         pdf = self.func[offset] / max(self.func_int, 1e-20)
         width = torch.where(c1 == c0, torch.ones_like(c0), c1 - c0)
         du = torch.where(c1 > c0, (u - c0) / width, torch.zeros_like(u))
-        x = (offset.to(torch.float32) + du) / self.n
+        x = (offset.to(self.cdf.dtype) + du) / self.n
         return x, pdf, offset
 
 
@@ -134,7 +134,7 @@ class Distribution2D:
     function: a marginal over rows and a conditional CDF per row (rows of
     zero sum fall back to a uniform CDF)."""
 
-    def __init__(self, func2d, device):
+    def __init__(self, func2d, device, float_t=np.float32):
         f = np.maximum(np.asarray(func2d, dtype=np.float64), 0.0)
         h, w = f.shape
         self.h, self.w = h, w
@@ -176,7 +176,7 @@ class Distribution2D:
         mc1 = self.marg_cdf[row + 1]
         dv = torch.where(mc1 > mc0, (u1 - mc0) / torch.where(mc1 == mc0, 1.0, mc1 - mc0), 0.0)
         pdf_v = self.marg_func[row] / max(self.func_int, 1e-20)
-        v = (row.to(torch.float32) + dv) / self.h
+        v = (row.to(self.marg_cdf.dtype) + dv) / self.h
         # per-lane bisection into the lane's row CDF: [N] gathers per
         # step, never an [N, W] matrix
         base = row * (self.w + 1)
@@ -192,7 +192,7 @@ class Distribution2D:
         cc1 = self.cond_cdf[base + col + 1]
         du = torch.where(cc1 > cc0, (u0 - cc0) / torch.where(cc1 == cc0, 1.0, cc1 - cc0), 0.0)
         pdf_u = self.func[row * self.w + col] / torch.clamp(self.row_int[row], min=1e-20)
-        uu = (col.to(torch.float32) + du) / self.w
+        uu = (col.to(self.marg_cdf.dtype) + du) / self.w
         return torch.stack([uu, v], dim=-1), pdf_u * pdf_v
 
     def pdf_at(self, uv):

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
 
 # sRGB <-> CIE XYZ matrices (identical to pbrt-v3 and the reference).
 XYZ_TO_RGB = np.array(
@@ -39,10 +38,16 @@ RGB_TO_XYZ = np.array(
 )
 
 
-def xyz_to_rgb(xyz):
-    """XYZ -> sRGB-linear over the trailing axis of size 3."""
+def xyz_to_rgb(xyz, float_t=np.float32):
+    """XYZ -> sRGB-linear over the trailing axis of size 3, in ``float_t``."""
     xyz = np.asarray(xyz, dtype=float_t)
     return (xyz @ np.asarray(XYZ_TO_RGB, dtype=float_t).T).astype(float_t)
+
+
+def rgb_to_xyz(rgb, float_t=np.float32):
+    """sRGB-linear -> XYZ over the trailing axis of size 3, in ``float_t``."""
+    rgb = np.asarray(rgb, dtype=float_t)
+    return (rgb @ np.asarray(RGB_TO_XYZ, dtype=float_t).T).astype(float_t)
 
 
 N_SPECTRAL_SAMPLES = 60
@@ -90,7 +95,7 @@ _CIE_Z = _cie_z(_WL)
 _CIE_Y_INTEGRAL = float(np.sum(_CIE_Y))
 
 
-def sampled_to_xyz(samples):
+def sampled_to_xyz(samples, float_t=np.float32):
     """Integrate a sampled spectrum [..., 60] against the CIE fits -> XYZ."""
     s = np.asarray(samples, dtype=np.float64)
     scale = 1.0 / _CIE_Y_INTEGRAL
@@ -100,8 +105,8 @@ def sampled_to_xyz(samples):
     return np.stack([x, y, z], axis=-1).astype(float_t)
 
 
-def sampled_to_rgb(samples):
-    return xyz_to_rgb(sampled_to_xyz(samples))
+def sampled_to_rgb(samples, float_t=np.float32):
+    return xyz_to_rgb(sampled_to_xyz(samples, float_t), float_t)
 
 
 def _smits_basis(reflectance: bool = False):
@@ -178,16 +183,16 @@ def get_spectral_bins():
     return _SPECTRAL_BINS
 
 
-def promote_rgb(rgb, illuminant: bool = False):
-    """RGB [..., 3] -> the active pass's 3 spectral-bin samples (RGB
-    unchanged when no pass is active)."""
+def promote_rgb(rgb, illuminant: bool = False, float_t=np.float32):
+    """RGB [..., 3] -> the active pass's 3 spectral-bin samples in
+    ``float_t`` (RGB unchanged when no pass is active)."""
     if _SPECTRAL_BINS is None:
         return np.asarray(rgb, dtype=float_t)
-    s = rgb_to_sampled(rgb, illuminant=illuminant)
+    s = rgb_to_sampled(rgb, illuminant=illuminant, float_t=float_t)
     return np.ascontiguousarray(s[..., _SPECTRAL_BINS]).astype(float_t)
 
 
-def rgb_to_sampled(rgb, illuminant: bool = False):
+def rgb_to_sampled(rgb, illuminant: bool = False, float_t=np.float32):
     """Promote RGB [..., 3] to a sampled spectrum [..., 60] (Smits 1999).
 
     Vectorized over leading axes; the six min/mid/max cases of Smits'
@@ -246,8 +251,8 @@ def blackbody(wavelengths_nm, temperature_k):
     return 2.0 * h * c * c / (wl ** 5 * np.expm1(h * c / (wl * kb * t)))
 
 
-def blackbody_to_rgb(temperature_k, scale=1.0):
+def blackbody_to_rgb(temperature_k, scale=1.0, float_t=np.float32):
     """RGB of a peak-normalized blackbody emitter (``"blackbody L" [T s]``)."""
     lambda_max = 2.8977721e-3 / max(float(temperature_k), 1e-6)
     max_l = blackbody(np.array([lambda_max * 1e9]), temperature_k)[0]
-    return sampled_to_rgb(blackbody(_WL, temperature_k) / max_l * scale)
+    return sampled_to_rgb(blackbody(_WL, temperature_k) / max_l * scale, float_t)

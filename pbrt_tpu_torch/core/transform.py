@@ -4,7 +4,7 @@
 Host matrices are float64 numpy with a cached inverse; composition is
 ``(A*B)^-1 = B^-1 * A^-1`` (pbrt-v3, not the Rust reference's inverted
 order).  :func:`apply_point` and :func:`apply_vector` apply one (4, 4)
-float32 tensor to ``[..., 3]`` tensors on its device.
+tensor to ``[..., 3]`` tensors on its device.
 """
 
 from __future__ import annotations
@@ -12,7 +12,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
 
 
 class Transform:
@@ -130,25 +129,34 @@ class Transform:
     def __repr__(self) -> str:
         return f"Transform({self.m.tolist()})"
 
-    def apply_p(self, pts):
-        """Apply to host points [..., 3] (with homogeneous divide)."""
+    def apply_p(self, pts, float_t=np.float32):
+        """Apply to host points [..., 3] (with homogeneous divide), in
+        float64, rounded to the policy's float ``float_t``."""
         pts = np.asarray(pts, dtype=np.float64)
         xyz = pts @ self.m[:3, :3].T + self.m[:3, 3]
         w = pts @ self.m[3, :3].T + self.m[3, 3]
         w = np.where(w == 0.0, 1.0, w)
         return (xyz / w[..., None]).astype(float_t)
 
-    def apply_v(self, vecs):
+    def apply_v(self, vecs, float_t=np.float32):
         vecs = np.asarray(vecs, dtype=np.float64)
         return (vecs @ self.m[:3, :3].T).astype(float_t)
 
-    def apply_n(self, normals):
+    def apply_n(self, normals, float_t=np.float32):
         normals = np.asarray(normals, dtype=np.float64)
         return (normals @ self.m_inv[:3, :3]).astype(float_t)
 
 
+def _common(m, x):
+    """m and x in their promoted float (a float32 sample direction meets a
+    float64 matrix under the double policy, as the reference promotes)."""
+    dt = torch.promote_types(m.dtype, x.dtype)
+    return m.to(dt), x.to(dt)
+
+
 def apply_point(m, p):
     """m: (4, 4) tensor; p: [..., 3] points."""
+    m, p = _common(m, p)
     xyz = p @ m[:3, :3].T + m[:3, 3]
     w = p @ m[3, :3] + m[3, 3]
     w = torch.where(w == 0.0, torch.ones_like(w), w)
@@ -156,5 +164,6 @@ def apply_point(m, p):
 
 
 def apply_vector(m, v):
+    m, v = _common(m, v)
     return v @ m[:3, :3].T
 

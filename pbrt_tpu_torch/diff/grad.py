@@ -44,7 +44,7 @@ def make_radiance_fn(renderer, remat: bool = True):
     integrator.remat = remat
 
     def radiance(theta, pixel_xy, sample_index):
-        p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sample_index, 0)
+        p_film = pixel_xy.to(renderer.dtype) + sampler.get2(pixel_xy, sample_index, 0)
         u_lens = sampler.get2(pixel_xy, sample_index, 2)
         o, d, w = camera.generate_rays(p_film, u_lens)
         L = integrator.li(sampler, pixel_xy, sample_index, o, d, theta=theta)
@@ -57,15 +57,17 @@ def make_loss_fn(renderer, target_image, spp: int = 4, remat: bool = True):
     """Mean-squared inverse-rendering loss over a pixel batch.
 
     target_image: [H, W, 3] in cropped-film coordinates.  Returns
-    loss(theta, pixel_xy) averaging ``spp`` samples per pixel."""
+    loss(theta, pixel_xy) averaging ``spp`` samples per pixel, in the
+    renderer's float (``Renderer.dtype``: float64 under the double
+    policy, theta's leaves then float64 too)."""
     radiance = make_radiance_fn(renderer, remat)
-    target = torch.as_tensor(np.asarray(target_image, dtype=np.float32),
+    target = torch.as_tensor(np.asarray(target_image), dtype=renderer.dtype,
                              device=renderer.device)
     bx, by = renderer.film.cropped_pixel_bounds.p_min
 
     def loss(theta, pixel_xy):
         n = pixel_xy.shape[0]
-        acc = torch.zeros((n, 3), dtype=torch.float32, device=pixel_xy.device)
+        acc = torch.zeros((n, 3), dtype=renderer.dtype, device=pixel_xy.device)
         for s in range(spp):
             sidx = torch.full((n,), s, dtype=torch.int64, device=pixel_xy.device)
             acc = acc + radiance(theta, pixel_xy, sidx)
@@ -89,10 +91,10 @@ def render_image_diff(renderer, theta, spp: int = 4, batch: int = 4096):
     if pad:
         pixels = np.concatenate([pixels, np.repeat(pixels[-1:], pad, axis=0)])
     pixels = torch.as_tensor(pixels, device=dev)
-    img = torch.zeros((h * wdt, 3), dtype=torch.float32, device=dev)
+    img = torch.zeros((h * wdt, 3), dtype=renderer.dtype, device=dev)
     for ci in range(n_chunks):
         chunk = pixels[ci * batch:(ci + 1) * batch]
-        acc = torch.zeros((batch, 3), dtype=torch.float32, device=dev)
+        acc = torch.zeros((batch, 3), dtype=renderer.dtype, device=dev)
         for s in range(spp):
             acc = acc + radiance(theta, chunk,
                                  torch.full((batch,), s, dtype=torch.int64, device=dev))

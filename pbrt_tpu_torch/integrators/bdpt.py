@@ -105,9 +105,9 @@ class _Vertex:
     __slots__ = ("p", "ns", "ss", "ts", "wo", "beta", "pdf_fwd", "pdf_rev", "delta",
                  "valid", "params", "is_light", "light_id")
 
-    def __init__(self, n, device):
-        z3 = torch.zeros((n, 3), dtype=torch.float32, device=device)
-        z1 = torch.zeros((n,), dtype=torch.float32, device=device)
+    def __init__(self, n, device, dtype):
+        z3 = torch.zeros((n, 3), dtype=dtype, device=device)
+        z1 = torch.zeros((n,), dtype=dtype, device=device)
         self.p = self.ns = self.ss = self.ts = self.wo = self.beta = z3
         self.pdf_fwd = self.pdf_rev = z1
         self.delta = self.valid = self.is_light = torch.zeros(n, dtype=torch.bool,
@@ -158,18 +158,18 @@ class BDPTIntegrator(PathIntegrator):
         (pbrt's qs[0].pdfRev of the light subpath)."""
         c = self.c
         n = o.shape[0]
-        dev = o.device
+        dev, dt = o.device, o.dtype  # the subpath's float, from its origin (the reference's)
         verts = []
         beta = beta0
         alive = torch.ones(n, dtype=torch.bool, device=dev)
         pdf_dir = pdf_dir0
         prev_p = o
         esc_mask = torch.zeros(n, dtype=torch.bool, device=dev)
-        esc_beta = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        esc_beta = torch.zeros((n, 3), dtype=dt, device=dev)
         esc_d = d
-        esc_pdf = torch.zeros(n, dtype=torch.float32, device=dev)
+        esc_pdf = torch.zeros(n, dtype=dt, device=dev)
         esc_first = torch.zeros(n, dtype=torch.bool, device=dev)
-        origin_rev = torch.zeros(n, dtype=torch.float32, device=dev)
+        origin_rev = torch.zeros(n, dtype=dt, device=dev)
 
         for k in range(n_verts):
             base = dim_base + 7 * k
@@ -189,7 +189,7 @@ class BDPTIntegrator(PathIntegrator):
             params = eval_material_params(c.materials, si["mat"], si, theta)
             params["outside"] = torch.sum(si["ns"] * wo, dim=-1) > 0.0
 
-            v = _Vertex(n, dev)
+            v = _Vertex(n, dev, dt)
             v.p, v.ns, v.ss, v.ts, v.wo, v.beta = si["p"], ns, ss, ts, wo, beta
             v.valid = alive & (si["mat"] >= 0)
             v.params = params
@@ -314,7 +314,7 @@ class BDPTIntegrator(PathIntegrator):
         c = self.c
         n = o.shape[0]
         dev = o.device
-        L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        L = torch.zeros((n, 3), dtype=o.dtype, device=dev)
         splats = []
         enable_t0 = self.enable_t0 if enable_t0 is None else (enable_t0 and self.enable_t0)
         # one shutter time per path: both subpaths and every connection
@@ -323,12 +323,12 @@ class BDPTIntegrator(PathIntegrator):
         if enable_t0:
             cam_pdf_dir0 = cam.pdf_we_dir(d)
         else:
-            cam_pdf_dir0 = torch.ones(n, dtype=torch.float32, device=dev)
+            cam_pdf_dir0 = torch.ones(n, dtype=o.dtype, device=dev)
 
         # ---- camera subpath -------------------------------------------------
         cam_verts, (esc, esc_beta, esc_d, esc_pdf, esc_first), _ = self._walk(
             sampler, pixel_xy, sample_index, o, d,
-            torch.ones((n, 3), dtype=torch.float32, device=dev), cam_pdf_dir0,
+            torch.ones((n, 3), dtype=o.dtype, device=dev), cam_pdf_dir0,
             self.t_max, 5, theta, time=time)
 
         # ---- s = 0: escaped rays see the infinite lights ---------------------
@@ -346,7 +346,7 @@ class BDPTIntegrator(PathIntegrator):
                 le = self._emitted({"light": v.light_id, "ng": v.ns}, v.wo, theta)
                 mask = v.valid & v.is_light
                 if t == 1:
-                    w = torch.ones(n, dtype=torch.float32, device=dev)
+                    w = torch.ones(n, dtype=o.dtype, device=dev)
                 else:
                     prev = cam_verts[tci - 1]
                     # rc1: the light-subpath origin's area density here (the
@@ -390,7 +390,7 @@ class BDPTIntegrator(PathIntegrator):
                     rc2 = _dir_pdf_to_area(B.bsdf_pdf(v.params, wi_l, wo_l), v.p, prev.p,
                                            prev.ns)
                 else:
-                    rc2 = torch.zeros(n, dtype=torch.float32, device=dev)
+                    rc2 = torch.zeros(n, dtype=o.dtype, device=dev)
                 cam_sum = self._cam_side_sum(1, t, cam_verts[:t], rc1, rc2,
                                              l_info["traceable"], enable_t0)
                 # delta lights that are no subpath origin (spot, distant, ...)
@@ -467,7 +467,7 @@ class BDPTIntegrator(PathIntegrator):
                     rc2 = _dir_pdf_to_area(B.bsdf_pdf(cv.params, wi_c, wo_c), cv.p, pc.p,
                                            pc.ns)
                 else:
-                    rc2 = torch.zeros(n, dtype=torch.float32, device=dev)
+                    rc2 = torch.zeros(n, dtype=o.dtype, device=dev)
                 rl2 = _dir_pdf_to_area(B.bsdf_pdf(lv.params, wi_lv, wo_lv), lv.p, lv_prev_p,
                                        lv_prev_ns)
                 w = 1.0 / (1.0 + self._cam_side_sum(s, t, cam_verts[:t], rc1, rc2, None,

@@ -192,8 +192,8 @@ class PathIntegrator:
         n_lights = len(self.c.lights)
         wi = torch.zeros_like(p)
         li = torch.zeros_like(p)
-        pdf = torch.zeros_like(u_sel)
-        dist = torch.full_like(u_sel, INF_T)
+        pdf = torch.zeros(u_sel.shape, dtype=p.dtype, device=p.device)
+        dist = torch.full(u_sel.shape, INF_T, dtype=p.dtype, device=p.device)
         delta = torch.zeros(u_sel.shape, dtype=torch.bool, device=p.device)
         pick = torch.clamp((u_sel * n_lights).to(torch.int32), max=n_lights - 1)
         env_i = area_i = 0
@@ -219,14 +219,14 @@ class PathIntegrator:
         sample_index [N] int64, o, d [N, 3] -> L [N, 3] in lane order.
         ``theta``: the scene parameters to read (and differentiate)."""
         n = o.shape[0]
-        dev = o.device
+        dev, dt = o.device, o.dtype
         carry = (
-            torch.zeros((n, 3), dtype=torch.float32, device=dev),  # L
-            torch.ones((n, 3), dtype=torch.float32, device=dev),  # beta
+            torch.zeros((n, 3), dtype=dt, device=dev),  # L
+            torch.ones((n, 3), dtype=dt, device=dev),  # beta
             torch.ones(n, dtype=torch.bool, device=dev),  # alive
             torch.ones(n, dtype=torch.bool, device=dev),  # specular_bounce
             torch.zeros(n, dtype=torch.bool, device=dev),  # gather_only (emission only)
-            torch.ones(n, dtype=torch.float32, device=dev),  # prev_bsdf_pdf
+            torch.ones(n, dtype=dt, device=dev),  # prev_bsdf_pdf
             o,  # prev_p
             o,
             d,
@@ -273,10 +273,10 @@ class PathIntegrator:
         if bounce == 0 and c.tables["_flags"]["tex_width"]:
             # camera ray differentials: regenerate the +1px neighbours from
             # the same film/lens samples
-            p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sample_index, 0)
+            p_film = pixel_xy.to(o.dtype) + sampler.get2(pixel_xy, sample_index, 0)
             u_lens = sampler.get2(pixel_xy, sample_index, 2)
-            off_x = torch.tensor([1.0, 0.0], device=o.device)
-            off_y = torch.tensor([0.0, 1.0], device=o.device)
+            off_x = torch.tensor([1.0, 0.0], dtype=o.dtype, device=o.device)
+            off_y = torch.tensor([0.0, 1.0], dtype=o.dtype, device=o.device)
             _, dxd, _ = c.camera.generate_rays(p_film + off_x, u_lens)
             _, dyd, _ = c.camera.generate_rays(p_film + off_y, u_lens)
             ray_diff = (dxd, dyd)

@@ -116,9 +116,9 @@ class SPPMIntegrator(PathIntegrator):
         c = self.c
         n = o.shape[0]
         dev = o.device
-        z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        z3 = torch.zeros((n, 3), dtype=o.dtype, device=dev)
         L = z3
-        beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        beta = torch.ones((n, 3), dtype=o.dtype, device=dev)
         alive = torch.ones(n, dtype=torch.bool, device=dev)
         found = torch.zeros(n, dtype=torch.bool, device=dev)
         time_ = self._time(sampler, pixel_xy, sidx)
@@ -360,7 +360,7 @@ class SPPMIntegrator(PathIntegrator):
         t0 = time.time()
         for it in range(n_iters):
             sidx = torch.full((n_pix,), it, dtype=torch.int64, device=dev)
-            p_film = pix.to(torch.float32) + sampler.get2(pix, sidx, 0)
+            p_film = pix.to(renderer.dtype) + sampler.get2(pix, sidx, 0)
             o, d, _ = camera.generate_rays(p_film, sampler.get2(pix, sidx, 2))
             vp, L_dir = self._camera_pass(sampler, pix, sidx, o, d)
             L_direct = L_direct + L_dir

@@ -102,7 +102,7 @@ class VolPathIntegrator(PathIntegrator):
         (tr [N, 3], occluded [N])."""
         c = self.c
         n = wi_w.shape[0]
-        tr = torch.ones((n, 3), dtype=torch.float32, device=wi_w.device)
+        tr = torch.ones((n, 3), dtype=wi_w.dtype, device=wi_w.device)
         cur_o = shadow_o
         cur_med = med
         remaining = torch.clamp(torch.clamp(l_dist, max=1e6) - 2 * SHADOW_EPS, min=0.0)
@@ -170,11 +170,11 @@ class VolPathIntegrator(PathIntegrator):
         n = o.shape[0]
         dev = o.device
         carry = (
-            torch.zeros((n, 3), dtype=torch.float32, device=dev),  # L
-            torch.ones((n, 3), dtype=torch.float32, device=dev),  # beta
+            torch.zeros((n, 3), dtype=o.dtype, device=dev),  # L
+            torch.ones((n, 3), dtype=o.dtype, device=dev),  # beta
             torch.ones(n, dtype=torch.bool, device=dev),  # alive
             torch.ones(n, dtype=torch.bool, device=dev),  # specular_bounce
-            torch.ones(n, dtype=torch.float32, device=dev),  # prev_bsdf_pdf
+            torch.ones(n, dtype=o.dtype, device=dev),  # prev_bsdf_pdf
             o,  # prev_p
             torch.full((n,), self.c.camera_medium, dtype=torch.int32, device=dev),  # medium
             o,

@@ -10,6 +10,12 @@ thread per ray walks the skip-link BVH of shutter-union boxes
 (skip, first, count) rows [M, 4] i32) and tests each leaf triangle
 blended from its [K, 9] keyframe row with the lane's hat weights.
 
+The kernel has two instances (``anim_walk_kernel<T>``): float for the
+default policy, double for the double policy, where the keyframe rows, the
+rays and the shutter times are float64 (the reference takes the hat
+weights, blends and tests in float64 there); the node boxes are float32
+in both.  The wrapper picks the instance from the keyframe rows' dtype.
+
 The wrapper runs :func:`anim_walk_plain` only because its tensors lie on
 the CPU; on CUDA tensors it launches the kernel or raises.  The plain
 version is the reference's walk step by step.  Its blend and its
@@ -21,8 +27,11 @@ roundings against fused ones, tests/test_torch_motion.py's soup).  The
 plain version fuses in float64 (``core/geometry.fma``), the kernel with
 ``fmaf``, over the keys of non-zero weight only (a zero weight adds an
 exact zero), so the two agree but where float64's double rounding of a
-fused result differs from ``fmaf``'s single one.  ``LAUNCHES`` counts
-wrapper calls that launched the kernel.
+fused result differs from ``fmaf``'s single one.  In double the plain
+version cannot fuse (no wider type) and the kernel fuses with ``fma``:
+they agree to the last bits of a double (:func:`anim_disagreement` with
+``rtol`` 1e-12, b0 and b1 within 1e-9).  ``LAUNCHES`` counts wrapper calls that launched each
+instance.
 """
 
 from __future__ import annotations
@@ -36,13 +45,14 @@ from pbrt_tpu_torch.core.geometry import fma
 from pbrt_tpu_torch.kernels import build
 from pbrt_tpu_torch.kernels.bvh8_walk import RAY_EPS, check_rays, init_counters, safe_inv
 
-LAUNCHES = {"anim_walk": 0}
+LAUNCHES = {"anim_walk": 0, "anim_walk_f64": 0}  # K7<float>, K7<double>
 
 _lib = None
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["anim_walk"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def load_library():
@@ -51,8 +61,9 @@ def load_library():
     if _lib is None:
         lib = build.load("anim_walk")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.launch_anim_walk.argtypes = [p] * 15 + [i] * 5 + [p]
-        lib.launch_anim_walk.restype = i
+        for fn in (lib.launch_anim_walk, lib.launch_anim_walk_f64):
+            fn.argtypes = [p] * 15 + [i] * 5 + [p]
+            fn.restype = i
         _lib = lib
     return _lib
 
@@ -67,22 +78,27 @@ def time_weights(time_norm, n_keys: int):
 
 def anim_walk(nodes_f, nodes_i, keys, comps, time, any_hit=False):
     """Keyframed skip-link walk (K7): nodes_f [M, 8] f32, nodes_i [M, 4]
-    i32 (skip, first, count), keys [T, K, 9] f32 (each triangle's p0 p1 p2
-    at the K keyframes, in the tree's order), comps = 7 [N] f32 ray
-    columns (ox oy oz dx dy dz t_max), time [N] f32 in [0, 1].  Returns
-    (t, prim, b0, b1) [N]: prim the triangle's index in the tree's order,
-    -1 = miss; a miss keeps its t_max.  ``any_hit``: stop at the first
-    hit (only the mask is then meaningful)."""
+    i32 (skip, first, count), keys [T, K, 9] f32 or f64 (each triangle's
+    p0 p1 p2 at the K keyframes, in the tree's order), comps = 7 [N] ray
+    columns (ox oy oz dx dy dz t_max) and time [N] in [0, 1], all of the
+    keys' dtype.  Returns (t, prim, b0, b1) [N] (t, b0, b1 in the keys'
+    dtype): prim the triangle's index in the tree's order, -1 = miss; a
+    miss keeps its t_max.  ``any_hit``: stop at the first hit (only the
+    mask is then meaningful).  f64 keys take the kernel's double
+    instance."""
     if nodes_f.device.type == "cpu":
         return anim_walk_plain(nodes_f, nodes_i, keys, comps, time, any_hit)
     dev = nodes_f.device
     if dev.type != "cuda":
         raise ValueError(f"anim_walk: unsupported device {dev}")
+    dt = keys.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"keys: expected torch.float32 or torch.float64, got {dt}")
     build.check_tensor("nodes_f", nodes_f, torch.float32, dev, 2)
     build.check_tensor("nodes_i", nodes_i, torch.int32, dev, 2)
-    build.check_tensor("keys", keys, torch.float32, dev, 3)
-    build.check_tensor("time", time, torch.float32, dev, 1)
-    n = check_rays(comps, dev)
+    build.check_tensor("keys", keys, dt, dev, 3)
+    build.check_tensor("time", time, dt, dev, 1)
+    n = check_rays(comps, dev, dt)
     m, (t, k, nine) = nodes_f.shape[0], keys.shape
     if nodes_f.shape[1] != 8 or nodes_i.shape != (m, 4) or nine != 9 or t == 0:
         raise ValueError("anim_walk: expected [M,8] nodes_f, [M,4] nodes_i, [T,K,9] keys")
@@ -93,18 +109,19 @@ def anim_walk(nodes_f, nodes_i, keys, comps, time, any_hit=False):
     for name, x in (("nodes_f", nodes_f), ("nodes_i", nodes_i)):
         build.check_aligned(name, x)
     lib = load_library()
-    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+    double = dt == torch.float64
+    t_out = torch.empty(n, dtype=dt, device=dev)
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
-    b0_out = torch.empty(n, dtype=torch.float32, device=dev)
-    b1_out = torch.empty(n, dtype=torch.float32, device=dev)
+    b0_out = torch.empty(n, dtype=dt, device=dev)
+    b1_out = torch.empty(n, dtype=dt, device=dev)
     build.launch_checked(
-        lib, lib.launch_anim_walk,
+        lib, lib.launch_anim_walk_f64 if double else lib.launch_anim_walk,
         nodes_f.data_ptr(), nodes_i.data_ptr(), keys.data_ptr(),
         *[c.data_ptr() for c in comps], time.data_ptr(), t_out.data_ptr(),
         prim_out.data_ptr(), b0_out.data_ptr(), b1_out.data_ptr(), n, m, t, k, int(any_hit),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    LAUNCHES["anim_walk"] += 1
+    LAUNCHES["anim_walk_f64" if double else "anim_walk"] += 1
     return t_out, prim_out, b0_out, b1_out
 
 
@@ -168,8 +185,8 @@ def anim_walk_plain(nodes_f, nodes_i, keys, comps, time, any_hit=False, counters
     w_all = time_weights(time, n_keys)
     best_t = t_max.clone()
     best_prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    b0a = torch.zeros(n, dtype=torch.float32, device=dev)
-    b1a = torch.zeros(n, dtype=torch.float32, device=dev)
+    b0a = torch.zeros(n, dtype=t_max.dtype, device=dev)
+    b1a = torch.zeros(n, dtype=t_max.dtype, device=dev)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     # a lane with t_max <= RAY_EPS cannot hit: its walk changes nothing
     live = t_max > RAY_EPS
@@ -208,7 +225,7 @@ def anim_walk_plain(nodes_f, nodes_i, keys, comps, time, any_hit=False, counters
                 x.reshape(-1, nk) for x in tri_test(
                     blend(keys[flat], w.repeat_interleave(nk, dim=0)),
                     lo.repeat_interleave(nk, dim=0), ld.repeat_interleave(nk, dim=0),
-                    torch.full((len(flat),), torch.inf, device=dev)))
+                    torch.full((len(flat),), torch.inf, dtype=t_max.dtype, device=dev)))
             if counters is not None:
                 counters["tri_tests"] += int(in_leaf.sum())
                 counters["leaf_seen"][pids[in_leaf]] = True
@@ -228,14 +245,21 @@ def anim_walk_plain(nodes_f, nodes_i, keys, comps, time, any_hit=False, counters
     return best_t, best_prim.to(torch.int32), b0a, b1a
 
 
+# how far b0 and b1 may part where two K7 results hit the same prim, by
+# the float of t: float32's bound admits a few hundred ulps of float32; a
+# double walk whose barycentrics were taken in float32 (errors ~1e-7)
+# fails float64's
+B_ATOL = {np.dtype(np.float32): 2e-5, np.dtype(np.float64): 1e-9}
+
+
 def anim_disagreement(got, want, keys, o, d, time, any_hit, rtol=1e-6):
     """How two K7 results (t, prim, b0, b1 as numpy arrays; prims in the
     tree's order) may differ: hit masks equal (any hit: nothing else is
     compared); t within ``rtol`` on hits and equal on misses; prims equal
     wherever the other prim, blended at the lane's time, does not hit
-    within ``rtol`` of t (an exact t tie); b0 and b1 within 2e-5 absolute
-    where the prims agree.  Returns None when they agree, else a
-    description."""
+    within ``rtol`` of t (an exact t tie); b0 and b1 within
+    ``B_ATOL[t.dtype]`` absolute where the prims agree.  Returns None when
+    they agree, else a description."""
     t_a, p_a, b0_a, b1_a = got
     t_b, p_b, b0_b, b1_b = want
     hit = p_b >= 0
@@ -257,7 +281,17 @@ def anim_disagreement(got, want, keys, o, d, time, any_hit, rtol=1e-6):
         if not tie.all():
             return f"prims differ on {int((~tie).sum())} lanes that are not exact t ties"
     same = hit & (p_a == p_b)
+    b_atol = B_ATOL[np.dtype(t_b.dtype)]
     for name, a, b in (("b0", b0_a, b0_b), ("b1", b1_a, b1_b)):
-        if same.any() and np.abs(a[same] - b[same]).max() > 2e-5:
-            return f"{name} differs beyond 2e-5"
+        if same.any() and np.abs(a[same] - b[same]).max() > b_atol:
+            return f"{name} differs beyond {b_atol}"
     return None
+
+
+def max_b_diff(got, want):
+    """max |b0|, |b1| difference of two K7 results over the lanes where
+    both hit the same prim (0.0 where there are none)."""
+    same = (want[1] >= 0) & (got[1] == want[1])
+    if not same.any():
+        return 0.0
+    return float(max(np.abs(got[i][same] - want[i][same]).max() for i in (2, 3)))

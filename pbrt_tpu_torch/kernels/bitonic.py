@@ -221,7 +221,8 @@ def _refuse_grad(payloads):
 
 def bitonic_co_sort(keys, payloads):
     """The whole co-sort: keys [n] int64 (uint32 values), payloads with
-    leading dim n (f32, i32, i64; rows a multiple of 4 bytes).  Returns
+    leading dim n (f32, f64 under the double policy, i32, i64; rows a
+    multiple of 4 bytes, each moved bit for bit).  Returns
     (sorted keys [n], lane permutation [n] int64, gathered payloads).  On
     the card: one call into the library, which makes the launches of
     ``schedule(padded_size(n))``, handed to it as a step table, and one

@@ -85,10 +85,10 @@ def segment_stats():
     return {"live_rays": header[0], "live_groups": header[1], "segments": header[3]}
 
 
-def check_rays(comps, device):
+def check_rays(comps, device, dtype=torch.float32):
     n = comps[0].shape[0]
     for name, c in zip(("ox", "oy", "oz", "dx", "dy", "dz", "t_max"), comps):
-        build.check_tensor(name, c, torch.float32, device, 1)
+        build.check_tensor(name, c, dtype, device, 1)
         if c.shape[0] != n:
             raise ValueError(f"{name}: expected {n} lanes, got {c.shape[0]}")
     return n

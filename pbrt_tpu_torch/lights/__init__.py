@@ -26,7 +26,7 @@ import logging
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import INV_2PI, INV_PI, PI, float_t
+from pbrt_tpu_torch import INV_2PI, INV_PI, PI, torch_dtype
 from pbrt_tpu_torch.core.geometry import arccos0
 from pbrt_tpu_torch.core.imageio import read_image
 from pbrt_tpu_torch.core.mipmap import MIPMap
@@ -56,9 +56,9 @@ class PointLight(Light):
 
     is_delta = True
 
-    def __init__(self, light_to_world: Transform, intensity, device="cuda"):
+    def __init__(self, light_to_world: Transform, intensity, device="cuda", float_t=np.float32):
         self.intensity = np.asarray(intensity, dtype=float_t)
-        self._pd = torch.as_tensor(light_to_world.apply_p(np.zeros(3)), device=device)
+        self._pd = torch.as_tensor(light_to_world.apply_p(np.zeros(3), float_t), device=device)
         self._id = torch.as_tensor(self.intensity, device=device)
         self._w2l = torch.as_tensor(light_to_world.m_inv.astype(float_t), device=device)
 
@@ -94,8 +94,8 @@ class SpotLight(PointLight):
     ``cone_angle`` degrees."""
 
     def __init__(self, light_to_world: Transform, intensity, cone_angle_deg, cone_delta_deg,
-                 device="cuda"):
-        super().__init__(light_to_world, intensity, device)
+                 device="cuda", float_t=np.float32):
+        super().__init__(light_to_world, intensity, device, float_t)
         self.cos_total = float(np.cos(np.deg2rad(cone_angle_deg)))
         self.cos_falloff = float(np.cos(np.deg2rad(cone_angle_deg - cone_delta_deg)))
 
@@ -113,11 +113,13 @@ class SpotLight(PointLight):
 
 
 def _read_map(kind, mapname, raw):
-    """(MIPMap of the tint x the image, promoted once; (width, height)), or
-    None where the file cannot be read (logged, as in the reference)."""
+    """(MIPMap of the tint x the image, promoted once, in the tint's float;
+    (width, height)), or None where the file cannot be read (logged, as in
+    the reference)."""
     try:
-        img, size = read_image(mapname)
-        return MIPMap(promote_rgb(np.asarray(img) * raw, illuminant=True)), size
+        img, size = read_image(mapname, raw.dtype.type)
+        return MIPMap(promote_rgb(np.asarray(img) * raw, illuminant=True, float_t=raw.dtype.type),
+                      float_t=raw.dtype.type), size
     except (OSError, ValueError) as e:
         log.error("%s: cannot read '%s': %s", kind, mapname, e)
         return None
@@ -127,15 +129,17 @@ class GonioPhotometricLight(PointLight):
     """A point light whose intensity is scaled by a lat-long map (phi
     along s, theta from the light's +z along t), averaged over RGB."""
 
-    def __init__(self, light_to_world: Transform, intensity, mapname: str, device="cuda"):
+    def __init__(self, light_to_world: Transform, intensity, mapname: str, device="cuda",
+                 float_t=np.float32):
         raw = np.asarray(intensity, dtype=float_t)
-        super().__init__(light_to_world, promote_rgb(raw, illuminant=True), device)
+        super().__init__(light_to_world, promote_rgb(raw, illuminant=True, float_t=float_t),
+                         device, float_t)
         self.mipmap = None
         got = _read_map("goniometric", mapname, raw) if mapname else None
         if got is not None:
             # the map carries the tint: the intensity becomes 1
             self.mipmap = got[0]
-            self._id = torch.ones(3, dtype=torch.float32, device=device)
+            self._id = torch.ones(3, dtype=torch_dtype(float_t), device=device)
 
     def _scale(self, wi):
         if self.mipmap is None:
@@ -153,15 +157,16 @@ class ProjectionLight(PointLight):
     screen window."""
 
     def __init__(self, light_to_world: Transform, intensity, mapname: str, fov_deg=45.0,
-                 device="cuda"):
+                 device="cuda", float_t=np.float32):
         raw = np.asarray(intensity, dtype=float_t)
-        super().__init__(light_to_world, promote_rgb(raw, illuminant=True), device)
+        super().__init__(light_to_world, promote_rgb(raw, illuminant=True, float_t=float_t),
+                         device, float_t)
         self.mipmap = None
         aspect = 1.0
         got = _read_map("projection", mapname, raw) if mapname else None
         if got is not None:
             self.mipmap, (w, h) = got
-            self._id = torch.ones(3, dtype=torch.float32, device=device)
+            self._id = torch.ones(3, dtype=torch_dtype(float_t), device=device)
             aspect = w / h
         if aspect > 1:
             self.screen = (-aspect, aspect, -1.0, 1.0)
@@ -191,8 +196,10 @@ class ProjectionLight(PointLight):
 class DistantLight(Light):
     is_delta = True
 
-    def __init__(self, light_to_world: Transform, radiance, from_p, to_p, device="cuda"):
-        w = light_to_world.apply_v(np.asarray(from_p, np.float64) - np.asarray(to_p, np.float64))
+    def __init__(self, light_to_world: Transform, radiance, from_p, to_p, device="cuda",
+                 float_t=np.float32):
+        w = light_to_world.apply_v(np.asarray(from_p, np.float64) - np.asarray(to_p, np.float64),
+                                   float_t)
         self.w_light = (w / np.linalg.norm(w)).astype(float_t)  # toward the light
         self._wd = torch.as_tensor(self.w_light, device=device)
         self._ld = torch.as_tensor(np.asarray(radiance, dtype=float_t), device=device)
@@ -212,11 +219,12 @@ class InfiniteAreaLight(Light):
 
     is_infinite = True
 
-    def __init__(self, light_to_world: Transform, l_rgb, mapname: str = "", device="cuda"):
+    def __init__(self, light_to_world: Transform, l_rgb, mapname: str = "", device="cuda",
+                 float_t=np.float32):
         self._l2wm = torch.as_tensor(light_to_world.m.astype(float_t), device=device)
         self._w2lm = torch.as_tensor(light_to_world.m_inv.astype(float_t), device=device)
         raw = np.asarray(l_rgb, dtype=float_t)  # the raw RGB tint
-        self.l_rgb = promote_rgb(raw, illuminant=True)
+        self.l_rgb = promote_rgb(raw, illuminant=True, float_t=float_t)
         self._ld = torch.as_tensor(np.asarray(self.l_rgb, dtype=float_t), device=device)
         self.mipmap = None
         self.distribution = None
@@ -225,14 +233,14 @@ class InfiniteAreaLight(Light):
             # pyramid cannot be built (MIPMap raises ValueError for a
             # non-square image), leaves a constant light of the tint
             try:
-                img, (w, h) = read_image(mapname)
+                img, (w, h) = read_image(mapname, float_t)
                 # (tint x map) promoted once, illuminant basis
                 img = np.asarray(promote_rgb(np.asarray(img, dtype=np.float64) * raw[None, None],
-                                             illuminant=True), dtype=np.float64)
-                self.mipmap = MIPMap(img.astype(float_t))
+                                             illuminant=True, float_t=float_t), dtype=np.float64)
+                self.mipmap = MIPMap(img.astype(float_t), float_t=float_t)
                 lum = 0.212671 * img[..., 0] + 0.715160 * img[..., 1] + 0.072169 * img[..., 2]
                 sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h)
-                self.distribution = Distribution2D(lum * sin_theta[:, None], device)
+                self.distribution = Distribution2D(lum * sin_theta[:, None], device, float_t)
             except (OSError, ValueError) as e:
                 log.error("infinite light: cannot read '%s': %s", mapname, e)
 
@@ -296,14 +304,15 @@ class DiffuseAreaLight(Light):
     """Emissive triangles; NEE samples area-uniformly through a
     Distribution1D over triangle areas."""
 
-    def __init__(self, l_emit, two_sided, tri_p0, tri_p1, tri_p2, device="cuda"):
+    def __init__(self, l_emit, two_sided, tri_p0, tri_p1, tri_p2, device="cuda",
+                 float_t=np.float32):
         self.l_emit = np.asarray(l_emit, dtype=float_t)
         self._ld = torch.as_tensor(self.l_emit, device=device)
         self.two_sided = bool(two_sided)
         cr = np.cross(tri_p1 - tri_p0, tri_p2 - tri_p0)
         areas = 0.5 * np.linalg.norm(cr, axis=-1)
         self.total_area = float(areas.sum())
-        self.area_dist = Distribution1D(areas, device)
+        self.area_dist = Distribution1D(areas, device, float_t)
         n = cr / np.maximum(np.linalg.norm(cr, axis=-1, keepdims=True), 1e-12)
         # packed [T, 12] p0|p1|p2|n rows
         self._tri_cols = torch.as_tensor(
@@ -349,27 +358,29 @@ class DiffuseAreaLight(Light):
 def make_light(record, device="cuda"):
     """LightRecord (core/api.py) -> Light."""
     name, params, l2w = record.name, record.params, record.light_to_world
+    float_t = params.float_t
     one = np.ones(3, dtype=float_t)
+    kw = dict(device=device, float_t=float_t)
     if name in ("infinite", "exinfinite"):
         l_rgb = params.find_one_spectrum_raw("L", one)
         scale = params.find_one_spectrum_raw("scale", one)
         mapname = params.find_one_filename("mapname", "")
         params.find_one_int("samples", params.find_one_int("nsamples", 1))
         # the raw tint: a mapped light promotes (tint x map) once
-        return InfiniteAreaLight(l2w, l_rgb * scale, mapname, device=device)
+        return InfiniteAreaLight(l2w, l_rgb * scale, mapname, **kw)
     if name == "point":
         i = promote_rgb(
             params.find_one_spectrum_raw("I", one)
             * params.find_one_spectrum_raw("scale", one),
-            illuminant=True,
+            illuminant=True, float_t=float_t,
         )
         from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
-        return PointLight(l2w * Transform.translate(from_p), i, device=device)
+        return PointLight(l2w * Transform.translate(from_p), i, **kw)
     if name == "spot":
         i = promote_rgb(
             params.find_one_spectrum_raw("I", one)
             * params.find_one_spectrum_raw("scale", one),
-            illuminant=True,
+            illuminant=True, float_t=float_t,
         )
         cone = params.find_one_float("coneangle", 30.0)
         delta = params.find_one_float("conedeltaangle", 5.0)
@@ -387,25 +398,23 @@ def make_light(record, device="cuda"):
             l2w = l2w * Transform(m)
         else:
             l2w = l2w * Transform.translate(from_p)
-        return SpotLight(l2w, i, cone, delta, device=device)
+        return SpotLight(l2w, i, cone, delta, **kw)
     if name == "distant":
         l_rgb = promote_rgb(
             params.find_one_spectrum_raw("L", one)
             * params.find_one_spectrum_raw("scale", one),
-            illuminant=True,
+            illuminant=True, float_t=float_t,
         )
         from_p = params.find_one_point3f("from", np.zeros(3, dtype=float_t))
         to_p = params.find_one_point3f("to", np.array([0, 0, 1], dtype=float_t))
-        return DistantLight(l2w, l_rgb, from_p, to_p, device=device)
+        return DistantLight(l2w, l_rgb, from_p, to_p, **kw)
     if name == "goniometric":
         i = params.find_one_spectrum_raw("I", one) * params.find_one_spectrum_raw("scale", one)
-        return GonioPhotometricLight(l2w, i, params.find_one_filename("mapname", ""),
-                                     device=device)
+        return GonioPhotometricLight(l2w, i, params.find_one_filename("mapname", ""), **kw)
     if name == "projection":
         i = params.find_one_spectrum_raw("I", one) * params.find_one_spectrum_raw("scale", one)
         fov = params.find_one_float("fov", 45.0)
-        return ProjectionLight(l2w, i, params.find_one_filename("mapname", ""), fov,
-                               device=device)
+        return ProjectionLight(l2w, i, params.find_one_filename("mapname", ""), fov, **kw)
     log.warning("Light '%s' unknown.", name)
     params.report_unused()
     return None

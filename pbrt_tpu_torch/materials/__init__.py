@@ -31,7 +31,6 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core.paramset import TextureParams
 from pbrt_tpu_torch.materials import bsdf as B
 from pbrt_tpu_torch.textures.constant import ConstantTexture
@@ -70,6 +69,8 @@ def build_material(record) -> MaterialEntry:
         record.params, record.params, record.float_textures, record.spectrum_textures
     )
     name = record.name
+
+    float_t = tp.float_t
 
     def spec_tex(pname, default):
         return tp.get_spectrum_texture(pname, np.full(3, default, dtype=float_t))
@@ -237,19 +238,20 @@ def _split(entries, half):
     return [e.mix_children[half] if e.mix_children is not None else e for e in entries]
 
 
-def material_theta(entries, device):
+def material_theta(entries, device, float_t=np.float32):
     """The differentiable constant-parameter dict of ``entries``: [M, 3]
     kd/ks/kr/kt and [M] roughness/sigma rows on ``device``; rows of
     slots without a constant texture hold defaults and are not read.  A
     list holding mix entries gives ``{"a": ..., "b": ...}``, one half per
-    child list, nesting as the mixes nest."""
+    child list, nesting as the mixes nest; every row in the policy's float
+    ``float_t``."""
     if any(e.mix_children is not None for e in entries):
-        return {"a": material_theta(_split(entries, 0), device),
-                "b": material_theta(_split(entries, 1), device)}
-    return _material_theta_flat(entries, device)
+        return {"a": material_theta(_split(entries, 0), device, float_t),
+                "b": material_theta(_split(entries, 1), device, float_t)}
+    return _material_theta_flat(entries, device, float_t)
 
 
-def _material_theta_flat(entries, device):
+def _material_theta_flat(entries, device, float_t):
     m = len(entries)
     out = {slot: np.zeros((m, 3), dtype=float_t) for slot in _SPECTRUM_SLOTS}
     out["roughness"] = np.full((m,), 0.1, dtype=float_t)
@@ -318,15 +320,16 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
     """One entry list over the wavefront -> SoA params."""
     n = mat_id.shape[0]
     dev = mat_id.device
-    zeros1 = torch.zeros((n,), dtype=torch.float32, device=dev)
+    # the scene's float (the reference's fallback where no point is given)
+    dt = si["p"].dtype if "p" in si else torch.float32
+    zeros1 = torch.zeros((n,), dtype=dt, device=dev)
     params = {
         "type": torch.full((n,), B.NONE, dtype=torch.int32, device=dev),
-        **{slot: torch.zeros((n, 3), dtype=torch.float32, device=dev)
-           for slot in _SPECTRUM_SLOTS},
+        **{slot: torch.zeros((n, 3), dtype=dt, device=dev) for slot in _SPECTRUM_SLOTS},
         "roughness": zeros1 + 1e-3,
         "eta": zeros1 + 1.5,
-        "metal_eta": torch.as_tensor(COPPER_ETA.astype(float_t), device=dev).expand(n, 3),
-        "metal_k": torch.as_tensor(COPPER_K.astype(float_t), device=dev).expand(n, 3),
+        "metal_eta": torch.as_tensor(COPPER_ETA, dtype=dt, device=dev).expand(n, 3),
+        "metal_k": torch.as_tensor(COPPER_K, dtype=dt, device=dev).expand(n, 3),
         "sigma": zeros1,
         # static set of present material types: lobe code for absent
         # types is skipped
@@ -377,16 +380,17 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
                 if s.dim() > 1:
                     s = s.mean(dim=-1)
             put("sigma", mask, s)
-        put("eta", mask, torch.tensor(e.eta_const, dtype=torch.float32, device=dev))
+        put("eta", mask, torch.tensor(e.eta_const, dtype=dt, device=dev))
         if e.metal_eta is not None:
-            put("metal_eta", mask, torch.as_tensor(e.metal_eta.astype(float_t), device=dev))
-            put("metal_k", mask, torch.as_tensor(e.metal_k.astype(float_t), device=dev))
+            # float32 in either policy, as in the reference
+            put("metal_eta", mask, torch.as_tensor(e.metal_eta.astype(np.float32), device=dev))
+            put("metal_k", mask, torch.as_tensor(e.metal_k.astype(np.float32), device=dev))
 
     # the hair parameter block, present only when the scene has hair
     if any(e.type_id == B.HAIR for e in entries):
         from pbrt_tpu_torch.materials.hair import sigma_a_from_reflectance
 
-        params["sigma_a"] = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        params["sigma_a"] = torch.zeros((n, 3), dtype=dt, device=dev)
         params["beta_m"] = zeros1 + 0.3
         params["beta_n"] = zeros1 + 0.3
         params["hair_alpha"] = zeros1 + 2.0
@@ -397,7 +401,7 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
             def fval(slot, default):
                 tex = e.textures.get(slot)
                 if tex is None:
-                    return torch.full((n,), default, dtype=torch.float32, device=dev)
+                    return torch.full((n,), default, dtype=dt, device=dev)
                 v = tex.eval(si)
                 return v.mean(dim=-1) if v.dim() > 1 else v
 
@@ -405,7 +409,7 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
             beta_n = fval("beta_n", 0.3)
             put("beta_m", mask, beta_m)
             put("beta_n", mask, beta_n)
-            put("hair_alpha", mask, torch.tensor(e.hair_alpha, dtype=torch.float32, device=dev))
+            put("hair_alpha", mask, torch.tensor(e.hair_alpha, dtype=dt, device=dev))
             if e.hair_mode == "melanin":
                 sig = torch.as_tensor(e.hair_sigma_a, device=dev).expand(n, 3)
             else:
@@ -418,6 +422,7 @@ def _eval_material_params_single(entries, mat_id, si, theta=None):
 
     # fourier tables: one device bundle per fourier entry
     if any(e.type_id == B.FOURIER for e in entries):
-        params["fourier"] = [{**e.fourier_table.device_arrays(dev), "mask": mask}
+        float_t = np.float64 if dt == torch.float64 else np.float32
+        params["fourier"] = [{**e.fourier_table.device_arrays(dev, float_t), "mask": mask}
                              for e, mask in masks if e.type_id == B.FOURIER]
     return params

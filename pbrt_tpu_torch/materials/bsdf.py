@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from pbrt_tpu_torch import INV_PI, ONE_MINUS_EPSILON, PI
+from pbrt_tpu_torch import INV_PI, PI
 from pbrt_tpu_torch.core.geometry import sqrt0
 from pbrt_tpu_torch.core.sampling import cosine_sample_hemisphere, sincos_2pi
 
@@ -57,6 +57,9 @@ NONE = 15  # pure emitter
 
 # glass with alpha above this takes the rough dielectric lobes
 ROUGH_GLASS_MIN_ALPHA = 5e-3
+
+# the reference's literal (``pbrt_tpu/materials/bsdf.py:37``) under either policy
+ONE_MINUS_EPS = 0.99999994
 
 
 def same_hemisphere(a, b):
@@ -527,8 +530,8 @@ def bsdf_sample(params, wo, u_lobe, u2):
         return _bsdf_sample_one(params, wo, u_lobe, u2)
     pa = params["mix_pa"]
     choose_a = u_lobe < pa
-    u_a = torch.clamp(u_lobe / torch.clamp(pa, min=1e-6), 0.0, ONE_MINUS_EPSILON)
-    u_b = torch.clamp((u_lobe - pa) / torch.clamp(1.0 - pa, min=1e-6), 0.0, ONE_MINUS_EPSILON)
+    u_a = torch.clamp(u_lobe / torch.clamp(pa, min=1e-6), 0.0, ONE_MINUS_EPS)
+    u_b = torch.clamp((u_lobe - pa) / torch.clamp(1.0 - pa, min=1e-6), 0.0, ONE_MINUS_EPS)
     wi_a, f_a, _, spec_a = _bsdf_sample_one(params, wo, u_a, u2)
     wi_b, f_b, _, spec_b = bsdf_sample(pb, wo, u_b, u2)
     wi = torch.where(choose_a[..., None], wi_a, wi_b)

@@ -31,7 +31,7 @@ import struct
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import INV_PI, PI, float_t
+from pbrt_tpu_torch import INV_PI, PI
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -186,10 +186,12 @@ class FourierTable:
 
     # -- device bundle --------------------------------------------------------
 
-    def device_arrays(self, device):
-        """The table's tensors on ``device`` (made once per device)."""
+    def device_arrays(self, device, float_t=np.float32):
+        """The table's tensors on ``device`` (made once per device and
+        policy; the knots ``mu`` in the policy's float ``float_t``, the rest
+        float32, as in the reference)."""
         device = torch.device(device)
-        key = str(device)
+        key = (str(device), np.dtype(float_t).name)
         if key not in self._device_cache:
             dense = self.a_dense
             if self.n_channels == 1:

@@ -26,7 +26,7 @@ import logging
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import INV_4PI, float_t
+from pbrt_tpu_torch import INV_4PI
 from pbrt_tpu_torch.core.geometry import coordinate_system, fma
 from pbrt_tpu_torch.core.rng import MASK32, hash_u32, mul32, u32_to_float
 from pbrt_tpu_torch.core.sampling import sincos_2pi
@@ -67,7 +67,7 @@ def make_track_rng(pixel_xy, sample_index, salt: int):
 
 
 class HomogeneousMedium:
-    def __init__(self, sigma_a, sigma_s, g=0.0, scale=1.0, device="cuda"):
+    def __init__(self, sigma_a, sigma_s, g=0.0, scale=1.0, device="cuda", float_t=np.float32):
         self.sigma_a = np.asarray(sigma_a, dtype=float_t) * scale
         self.sigma_s = np.asarray(sigma_s, dtype=float_t) * scale
         self.sigma_t = self.sigma_a + self.sigma_s
@@ -111,8 +111,8 @@ class GridDensityMedium(HomogeneousMedium):
     space (``world_to_medium``, a host 4x4)."""
 
     def __init__(self, sigma_a, sigma_s, g, density, world_to_medium, scale=1.0,
-                 device="cuda"):
-        super().__init__(sigma_a, sigma_s, g, scale, device)
+                 device="cuda", float_t=np.float32):
+        super().__init__(sigma_a, sigma_s, g, scale, device, float_t)
         density = np.asarray(density, dtype=float_t)
         self.density = torch.as_tensor(density, device=device)
         # the far corners' values, gathered straight into the fused lerps
@@ -254,12 +254,13 @@ def make_medium(name, params, device="cuda"):
     """MakeNamedMedium: ``homogeneous`` or ``heterogeneous`` (a grid of
     nx x ny x nz ``density`` values over the box p0..p1); a missing
     density or an unknown type falls back to homogeneous, logged."""
+    float_t = params.float_t
     sigma_a = params.find_one_spectrum("sigma_a", np.array([1.0, 1.0, 1.0], dtype=float_t))
     sigma_s = params.find_one_spectrum("sigma_s", np.array([2.55, 3.21, 3.77], dtype=float_t))
     scale = params.find_one_float("scale", 1.0)
     g = params.find_one_float("g", 0.0)
     if name == "homogeneous":
-        return HomogeneousMedium(sigma_a, sigma_s, g, scale, device)
+        return HomogeneousMedium(sigma_a, sigma_s, g, scale, device, float_t)
     if name == "heterogeneous":
         nx = params.find_one_int("nx", 1)
         ny = params.find_one_int("ny", 1)
@@ -267,11 +268,12 @@ def make_medium(name, params, device="cuda"):
         density = params.find_float("density")
         if density is None:
             log.error("heterogeneous medium missing 'density'; using homogeneous")
-            return HomogeneousMedium(sigma_a, sigma_s, g, scale, device)
+            return HomogeneousMedium(sigma_a, sigma_s, g, scale, device, float_t)
         grid = np.asarray(density, dtype=float_t).reshape(nz, ny, nx)
         p0 = params.find_one_point3f("p0", np.zeros(3, dtype=float_t))
         p1 = params.find_one_point3f("p1", np.ones(3, dtype=float_t))
         m2w = Transform.translate(p0) * Transform.scale(*np.maximum(p1 - p0, 1e-9))
-        return GridDensityMedium(sigma_a, sigma_s, g, grid, m2w.m_inv, scale, device=device)
+        return GridDensityMedium(sigma_a, sigma_s, g, grid, m2w.m_inv, scale, device=device,
+                                 float_t=float_t)
     log.error("Medium '%s' unknown; using homogeneous.", name)
-    return HomogeneousMedium(sigma_a, sigma_s, g, scale, device)
+    return HomogeneousMedium(sigma_a, sigma_s, g, scale, device, float_t)

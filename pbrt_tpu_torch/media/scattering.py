@@ -138,4 +138,5 @@ def make_subsurface_medium(record, device="cuda"):
         )
         mfp = p.find_one_float("mfp", 1.0)
         sigma_a, sigma_s = subsurface_from_diffuse(kd, mfp, eta=eta, g=g)
-    return HomogeneousMedium(sigma_a, sigma_s, g=g, scale=scale, device=device)
+    return HomogeneousMedium(sigma_a, sigma_s, g=g, scale=scale, device=device,
+                             float_t=p.float_t)

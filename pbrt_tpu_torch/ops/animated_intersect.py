@@ -24,6 +24,10 @@ Both blend and test with ``kernels/anim_walk``'s ``blend`` and
 ``tri_test``, whose products fuse into their sums as the reference's
 compiled code fuses them.  ``AnimatedIntersector`` merges the static analytic spheres (the
 brute-force sphere sweep) with the keyframed triangles.
+
+The keyframe rows take the policy's float (that of the host keyframes:
+float64 under the double policy, where K7 runs its double instance); the
+shutter-union boxes stay float32, as the reference's BVH build gives them.
 """
 
 from __future__ import annotations
@@ -31,7 +35,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.kernels.anim_walk import anim_walk, blend, time_weights, tri_test
 from pbrt_tpu_torch.ops.intersect import KIND_NONE, KIND_SPHERE, KIND_TRI
 from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
@@ -50,7 +53,8 @@ class AnimatedTriIntersector:
 
         self.n_keys = len(key_tris)
         self.n_tri = key_tris[0].count
-        # [T, K, 9] per-triangle, per-key vertex scalars
+        # [T, K, 9] per-triangle, per-key vertex scalars in the policy's float
+        float_t = key_tris[0].p0.dtype
         cols = np.stack([np.concatenate([kt.p0.astype(float_t), kt.p1.astype(float_t),
                                          kt.p2.astype(float_t)], axis=1)
                          for kt in key_tris], axis=1)
@@ -70,27 +74,30 @@ class AnimatedTriIntersector:
                         "perm": torch.as_tensor(perm.astype(np.int64), device=device)}
         self.cols = torch.as_tensor(np.ascontiguousarray(cols), device=device)
 
-    def _weights(self, time, n, dev):
+    def _weights(self, time, n, dt, dev):
+        """Hat weights of the lanes' times, in the rays' float ``dt`` (the
+        reference casts the times to it)."""
         if time is None:
-            time = torch.zeros(n, dtype=torch.float32, device=dev)
-        return time_weights(torch.broadcast_to(time, (n,)).to(torch.float32), self.n_keys)
+            time = torch.zeros(n, dtype=dt, device=dev)
+        return time_weights(torch.broadcast_to(time, (n,)).to(dt), self.n_keys)
 
     def walk(self, o, d, t_max, time, any_hit=False):
         """The shutter-union BVH walk (K7) -> (t, prim in the tree's order,
         -1 = miss, b0, b1)."""
         n = o.shape[0]
+        dt = self.cols.dtype
         if time is None:
-            time = torch.zeros(n, dtype=torch.float32, device=o.device)
-        comps = tuple(c.contiguous() for c in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                                               d[:, 2], t_max))
-        time = torch.broadcast_to(time, (n,)).to(torch.float32).contiguous()
+            time = torch.zeros(n, dtype=dt, device=o.device)
+        comps = tuple(c.to(dt).contiguous()
+                      for c in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max))
+        time = torch.broadcast_to(time, (n,)).to(dt).contiguous()
         return anim_walk(self.bvh["nodes_f"], self.bvh["nodes_i"], self.cols, comps, time,
                          any_hit)
 
     def intersect(self, o, d, t_max, time=None):
         n = o.shape[0]
         dev = o.device
-        t_max = torch.broadcast_to(t_max, (n,)).to(torch.float32)
+        t_max = torch.broadcast_to(t_max, (n,)).to(o.dtype)
         if self.bvh is not None:
             bt, bp, b0a, b1a = self.walk(o, d, t_max, time)
             got = bp >= 0
@@ -98,11 +105,11 @@ class AnimatedTriIntersector:
             return {"t": bt, "hit": got,
                     "kind": torch.where(got, KIND_TRI, KIND_NONE).to(torch.int32),
                     "prim": prim.to(torch.int32), "b0": b0a, "b1": b1a}
-        w = self._weights(time, n, dev)
+        w = self._weights(time, n, o.dtype, dev)
         bt = t_max.clone()
         bp = torch.full((n,), -1, dtype=torch.int32, device=dev)
-        b0a = torch.zeros(n, dtype=torch.float32, device=dev)
-        b1a = torch.zeros(n, dtype=torch.float32, device=dev)
+        b0a = torch.zeros(n, dtype=o.dtype, device=dev)
+        b1a = torch.zeros(n, dtype=o.dtype, device=dev)
         for k in range(self.n_tri):
             v = blend(self.cols[k].expand(n, self.n_keys, 9), w)
             ok, tt, b0, b1 = tri_test(v, o, d, bt)
@@ -118,7 +125,7 @@ class AnimatedTriIntersector:
     def occluded(self, o, d, t_max, time=None):
         if self.bvh is not None:
             n = o.shape[0]
-            t_max = torch.broadcast_to(t_max, (n,)).to(torch.float32)
+            t_max = torch.broadcast_to(t_max, (n,)).to(o.dtype)
             return self.walk(o, d, t_max, time, any_hit=True)[1] >= 0
         return self.intersect(o, d, t_max, time)["hit"]
 
@@ -140,12 +147,12 @@ class AnimatedIntersector:
         if self.tris is not None:
             out = self.tris.intersect(o, d, t_max, time)
         else:
-            out = {"t": torch.broadcast_to(t_max, (n,)).to(torch.float32),
+            out = {"t": torch.broadcast_to(t_max, (n,)).to(o.dtype),
                    "hit": torch.zeros(n, dtype=torch.bool, device=dev),
                    "kind": torch.full((n,), KIND_NONE, dtype=torch.int32, device=dev),
                    "prim": torch.zeros(n, dtype=torch.int32, device=dev),
-                   "b0": torch.zeros(n, dtype=torch.float32, device=dev),
-                   "b1": torch.zeros(n, dtype=torch.float32, device=dev)}
+                   "b0": torch.zeros(n, dtype=o.dtype, device=dev),
+                   "b1": torch.zeros(n, dtype=o.dtype, device=dev)}
         if self._sph is not None:
             sph = self._sph.intersect(o, d, out["t"])
             closer = sph["hit"] & (sph["t"] < out["t"])

@@ -12,14 +12,17 @@ Two arithmetic paths, as in the reference:
 
 * at most ``UNROLL_MAX`` primitives (the reference bakes them into the
   trace as float64 host constants): triangle edges are differenced in
-  float64 and rounded once to float32; a sphere's ``radius * radius``,
-  ``z_min - 1e-6``, ``z_max + 1e-6`` and ``phi_max + 1e-6`` are float64
-  and rounded once; translate-only spheres skip the rotation and full
-  spheres skip the z and phi clip (its ``atan2`` is not evaluated for
-  them);
-* above it (the reference's ``lax.scan`` over float32 columns): edges
-  are float32 differences, the sphere constants float32 arithmetic, and
-  every sphere takes the rotation and the clip.
+  float64 and rounded once to the policy's float; a sphere's
+  ``radius * radius``, ``z_min - 1e-6``, ``z_max + 1e-6`` and
+  ``phi_max + 1e-6`` are float64 and rounded once; translate-only
+  spheres skip the rotation and full spheres skip the z and phi clip
+  (its ``atan2`` is not evaluated for them);
+* above it (the reference's ``lax.scan`` over columns of the policy's
+  float): edges are differences in that float, the sphere constants its
+  arithmetic, and every sphere takes the rotation and the clip.
+
+The policy's float is that of the host tables (``float_t`` of the
+scene: float32, or float64 under the double policy).
 
 Triangles are swept first; a sphere replaces a triangle hit only when
 strictly nearer.  Any-hit sweeps test against ``t_max``.
@@ -35,7 +38,10 @@ hit distances move by up to 1.4e-4 relative), and which side of the
 surface a hit lands on decides whether its shadow ray leaves or hits the
 sphere again; so these sums are
 rounded as the reference's compiled code rounds them (:func:`fma`,
-float64 holding the float32 product exactly).  Where XLA merges equal
+float64 holding the float32 product exactly).  Under the double policy
+the same sums round twice, for float64 has no wider type here: there
+the port's images differ from the reference's in the last bits
+(``tests/test_torch_double.py`` bounds by how much).  Where XLA merges equal
 products of the unrolled sweep (repeated coordinates), its code fuses
 other products and last bits can still differ
 (``scripts/xla_rounding.py`` measures how often).
@@ -96,14 +102,18 @@ class SoABruteForceIntersector:
         self.n_sph = sph_data.count if sph_data is not None else 0
         self.unroll = (self.n_tri + self.n_sph) <= UNROLL_MAX
         dev = torch.device(device)
+        # the policy's float, from the host tables
+        self.float_t = float_t = (tri_data.p0 if self.n_tri else
+                                  sph_data.radius if self.n_sph else np.zeros(0, np.float32)
+                                  ).dtype.type
 
         def col(v):
-            return torch.as_tensor(np.asarray(v, dtype=np.float32)[None], device=dev)
+            return torch.as_tensor(np.asarray(v, dtype=float_t)[None], device=dev)
 
         self._tri = []
         for lo in range(0, self.n_tri, BLOCK):
             sl = slice(lo, lo + BLOCK)
-            p0, p1, p2 = (np.asarray(p[sl], np.float64 if self.unroll else np.float32)
+            p0, p1, p2 = (np.asarray(p[sl], np.float64 if self.unroll else float_t)
                           for p in (tri_data.p0, tri_data.p1, tri_data.p2))
             e1, e2 = p1 - p0, p2 - p0
             # det = e1 . pv and t = e2 . qv take trace-constant edges when
@@ -123,7 +133,7 @@ class SoABruteForceIntersector:
         translate-only on the unrolled path), translation, r^2, the clip
         bounds and which spheres clip (None where none does)."""
         w2o = np.asarray(sd.w2o[sl], np.float64)
-        radius, z_min, z_max, phi_max = (np.asarray(v[sl], np.float32)
+        radius, z_min, z_max, phi_max = (np.asarray(v[sl], self.float_t)
                                          for v in (sd.radius, sd.z_min, sd.z_max, sd.phi_max))
         if self.unroll:
             r64, zmin64, zmax64, phi64 = (v.astype(np.float64)
@@ -138,7 +148,7 @@ class SoABruteForceIntersector:
             clip = ~full
         else:
             rot = w2o[:, :3, :3]
-            eps = np.float32(1e-6)
+            eps = self.float_t(1e-6)
             consts = (radius * radius, z_min - eps, z_max + eps, phi_max + eps)
             rotate = True
             clip = np.ones(len(radius), bool)

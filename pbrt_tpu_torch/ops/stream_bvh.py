@@ -195,7 +195,10 @@ def tree_depth(nodes, root):
 
 def split_pad_rays(o, d, t_max, n):
     """Rays -> 7 contiguous [N'] f32 columns (ox oy oz dx dy dz t_max),
-    padded to whole 1024-ray blocks with dead lanes (t_max = 0).
+    padded to whole 1024-ray blocks with dead lanes (t_max = 0).  Under the
+    double policy this is where the float64 rays become float32, as the
+    reference casts them at its kernels (``pbrt_tpu/ops/stream_bvh.py:702``):
+    every walk (K1, K2, K4, K4b, K6) takes and returns float32.
     ``o``/``d`` may be [N, 3] tensors or 3-tuples of [N] columns."""
     if isinstance(o, (tuple, list)):
         ox, oy, oz = o

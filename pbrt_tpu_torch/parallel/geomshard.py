@@ -48,7 +48,6 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.ops.intersect import RAY_EPS
 from pbrt_tpu_torch.parallel.multihost import all_reduce_mesh, axis
 
@@ -73,7 +72,7 @@ def shard_triangle_arrays(tri_data, tri_mat, tri_light, n_shards: int, bvh: bool
     (the reference's ``shard_triangle_arrays``, whose last argument is
     called ``pallas``: here ``packed``, the streaming-kernel tables).
 
-    Keys p0 p1 p2 uv0 uv1 uv2 n0 n1 n2 (float32), mat and light (int32,
+    Keys p0 p1 p2 uv0 uv1 uv2 n0 n1 n2 (the scene's float), mat and light (int32,
     -1 pads), valid, gid (global triangle id, 2^30 pads).  ``bvh`` adds a
     per-shard binned-SAH tree with 4-triangle leaves and reorders each
     shard's triangles into its DFS-leaf order: ``bvh_min/bvh_max [S, M,
@@ -106,7 +105,8 @@ def shard_triangle_arrays(tri_data, tri_mat, tri_light, n_shards: int, bvh: bool
             a = np.concatenate([a, np.full((total - len(a),) + a.shape[1:], fill, a.dtype)])
         return a.reshape(n_shards, per, *a.shape[1:])
 
-    out = {k: pad(getattr(tri_data, k).astype(float_t)) for k in _REC_VEC}
+    # the record columns keep the scene's float (the policy's)
+    out = {k: pad(getattr(tri_data, k).astype(tri_data.p0.dtype)) for k in _REC_VEC}
     out["mat"] = pad(np.asarray(tri_mat, dtype=np.int32), fill=-1)
     out["light"] = pad(np.asarray(tri_light, dtype=np.int32), fill=-1)
     out["valid"] = pad(np.ones(t, dtype=bool), fill=False)

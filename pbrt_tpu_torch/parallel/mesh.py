@@ -172,7 +172,7 @@ class ShardedRenderer:
 
         r = self.r
         radiance = make_radiance_fn(r)
-        target = torch.as_tensor(np.asarray(target_image, dtype=np.float32), device=r.device)
+        target = torch.as_tensor(np.asarray(target_image), dtype=r.dtype, device=r.device)
         bx, by = r.film.cropped_pixel_bounds.p_min
 
         def value_and_grad(theta, pixel_xy):
@@ -188,7 +188,7 @@ class ShardedRenderer:
                 return leaves[-1]
 
             tracked = _map(theta, track)
-            acc = torch.zeros((per, 3), dtype=torch.float32, device=px.device)
+            acc = torch.zeros((per, 3), dtype=r.dtype, device=px.device)
             for s in range(spp):
                 sidx = torch.full((per,), s * self.sp + self.sp_index, dtype=torch.int64,
                                   device=px.device)

@@ -33,6 +33,10 @@ that own their budget (``custom_render``: MLT and SPPM) are
 handed the renderer before any chunking; only an explicit ``spp``
 overrides their budget (MLT's mutations per pixel, SPPM's iterations).
 
+Under the double policy (``options.double``) the film, the rays and the
+radiance are float64 (``Renderer.dtype``, from the scene's tables); the
+samples stay float32, as the reference's.
+
 ``render_scene`` is the scene file's path from ``WorldEnd``: build,
 render, write the image.  With ``options.sampled_spectrum`` it hands over
 to ``render_scene_spectral``: ``n_spectral_bins / 3`` passes, each
@@ -50,7 +54,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import Options, float_t
+from pbrt_tpu_torch import Options, float_type, torch_dtype
 from pbrt_tpu_torch.core import spectrum
 from pbrt_tpu_torch.integrators import make_integrator
 from pbrt_tpu_torch.scene.builder import build_scene
@@ -72,6 +76,8 @@ class Renderer:
         self.compiled = build_scene(desc, self.options, seed, device=self.device, walk=walk,
                                     sort=sort, stream_min_tris=stream_min_tris,
                                     key_obits=key_obits, deadbit=deadbit)
+        # the policy's float of the film, the rays and the radiance
+        self.dtype = torch_dtype(self.compiled.float_t)
         self.integrator = make_integrator(self.compiled, sorted_carry=sorted_carry,
                                           shadow_sort=shadow_sort)
         self.compiled.integrator_params.report_unused()
@@ -87,7 +93,7 @@ class Renderer:
         finite radiance [N, 3], splats: a list of (raster positions [N, 2],
         radiance [N, 3], mask [N]) from a splatting integrator)."""
         sampler = self.sampler.bounded(spp)
-        p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sample_index, 0)
+        p_film = pixel_xy.to(self.dtype) + sampler.get2(pixel_xy, sample_index, 0)
         u_lens = sampler.get2(pixel_xy, sample_index, 2)
         # a moving camera reads the lane's shutter time (dimension 4)
         u_time = (sampler.get(pixel_xy, sample_index, 4)
@@ -116,7 +122,7 @@ class Renderer:
         L = torch.where(lane_mask[..., None], L, 0.0)
         xyz = L @ self.film.rgb_to_xyz.T
         pix_xyz = xyz.reshape(pix_per_chunk, spp, 3).sum(dim=1)
-        pix_w = lane_mask.to(torch.float32).reshape(pix_per_chunk, spp).sum(dim=1)
+        pix_w = lane_mask.to(self.dtype).reshape(pix_per_chunk, spp).sum(dim=1)
         flat["fx"][pix_start:pix_start + pix_per_chunk] += pix_xyz
         flat["fw"][pix_start:pix_start + pix_per_chunk] += pix_w
 
@@ -189,8 +195,8 @@ class Renderer:
         b = self.film.cropped_pixel_bounds
         dev = self.device
         flat = {
-            "fx": torch.zeros((n_chunks * pix_per_chunk, 3), dtype=torch.float32, device=dev),
-            "fw": torch.zeros((n_chunks * pix_per_chunk,), dtype=torch.float32, device=dev),
+            "fx": torch.zeros((n_chunks * pix_per_chunk, 3), dtype=self.dtype, device=dev),
+            "fw": torch.zeros((n_chunks * pix_per_chunk,), dtype=self.dtype, device=dev),
         }
         for ci in range(n_chunks):
             self._chunk(flat, ci * pix_per_chunk, n_pix, pix_per_chunk, spp)
@@ -227,7 +233,7 @@ class Renderer:
         return state
 
     def image(self, state) -> np.ndarray:
-        """Film state -> [H, W, 3] float32 RGB on the host (the splat
+        """Film state -> [H, W, 3] RGB on the host, in the policy's float (the splat
         channel added as the film holds it)."""
         return self.film.to_rgb(state).cpu().numpy()
 
@@ -288,7 +294,8 @@ def render_scene_spectral(desc, options: Options | None = None, seed: int = 0,
     finally:
         spectrum.set_spectral_bins(None)
     xyz = xyz * (stride / spectrum._CIE_Y_INTEGRAL)
-    img = np.asarray(spectrum.xyz_to_rgb(xyz.astype(float_t)))
+    float_t = float_type(opt.double)
+    img = np.asarray(spectrum.xyz_to_rgb(xyz.astype(float_t), float_t))
     dt = time.time() - t0
     log.info("Spectral render (%d bins, %d passes) in %.2fs", n_bins, n_bins // 3, dt)
     if write and film is not None and film.filename:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import copy
 import logging
 
+import numpy as np
 import torch
 
 from pbrt_tpu_torch.core.lowdiscrepancy import (
@@ -38,14 +39,17 @@ def _pixel_code(pixel_xy):
 
 
 class Sampler:
-    """get(pixel_xy [N, 2] int, sample_index [N] int, dim) -> [N] float32."""
+    """get(pixel_xy [N, 2] int, sample_index [N] int, dim) -> [N] float32
+    under either float policy (``float_t``, which sets only the cap of
+    ``core/rng.u32_to_float``), as in the reference."""
 
     # static promise that every sample index passed in is < index_bound
     index_bound: int | None = None
 
-    def __init__(self, samples_per_pixel: int, seed: int = 0):
+    def __init__(self, samples_per_pixel: int, seed: int = 0, float_t=np.float32):
         self.samples_per_pixel = int(samples_per_pixel)
         self.seed = int(seed)
+        self.float_t = float_t
 
     def bounded(self, index_bound: int):
         """View whose callers promise ``sample_index < index_bound``:
@@ -58,7 +62,7 @@ class Sampler:
         """Uniform [0, 1) from the pcg3d hash of (pixel, sample, dim)."""
         a, _, _ = pcg3d(_pixel_code(pixel_xy) ^ (self.seed & MASK32), idx,
                         torch.full_like(idx, dim))
-        return u32_to_float(a)
+        return u32_to_float(a, self.float_t)
 
     def get(self, pixel_xy, sample_index, dim: int):
         raise NotImplementedError
@@ -82,8 +86,9 @@ class StratifiedSampler(Sampler):
     dimensions, 1D strata under a hashed per-(pixel, dim) permutation of
     the sample index past them."""
 
-    def __init__(self, xsamples=4, ysamples=4, jitter=True, seed: int = 0):
-        super().__init__(xsamples * ysamples, seed)
+    def __init__(self, xsamples=4, ysamples=4, jitter=True, seed: int = 0,
+                 float_t=np.float32):
+        super().__init__(xsamples * ysamples, seed, float_t)
         self.nx, self.ny = int(xsamples), int(ysamples)
         self.jitter = bool(jitter)
 
@@ -122,15 +127,16 @@ class HaltonSampler(Sampler):
         if dim >= self.QMC_DIM_LIMIT:
             return self._hash_u(pixel_xy, idx, dim)
         d = dim % 1024
-        rot = u32_to_float(hash_combine(_pixel_code(pixel_xy), d, self.seed & MASK32))
+        rot = u32_to_float(hash_combine(_pixel_code(pixel_xy), d, self.seed & MASK32),
+                           self.float_t)
         return scrambled_radical_inverse(d, idx, rot, self.index_bound)
 
 
 class SobolSampler(Sampler):
     """Owen-scrambled Sobol' with a per-(pixel, dim) scramble seed."""
 
-    def __init__(self, samples_per_pixel: int, seed: int = 0):
-        super().__init__(samples_per_pixel, seed)
+    def __init__(self, samples_per_pixel: int, seed: int = 0, float_t=np.float32):
+        super().__init__(samples_per_pixel, seed, float_t)
         self._v = sobol_matrices()
 
     def _scrambled(self, pixel_xy, sample_index, row: int, key: int):
@@ -160,21 +166,22 @@ class MaxMinDistSampler(ZeroTwoSequenceSampler):
 
 def make_sampler(name: str, params, seed: int = 0) -> Sampler:
     """Factory per pbrt-v3 MakeSampler names; unknown names take Halton,
-    as the reference does."""
+    as the reference does.  The parameters' float is the sampler's policy."""
     spp = params.find_one_int("pixelsamples", 16)
+    ft = params.float_t
     if name == "random":
-        return RandomSampler(spp, seed)
+        return RandomSampler(spp, seed, ft)
     if name == "stratified":
         return StratifiedSampler(params.find_one_int("xsamples", 4),
                                  params.find_one_int("ysamples", 4),
-                                 params.find_one_bool("jitter", True), seed)
+                                 params.find_one_bool("jitter", True), seed, ft)
     if name == "halton":
-        return HaltonSampler(spp, seed)
+        return HaltonSampler(spp, seed, ft)
     if name in ("sobol", "lowdiscrepancy"):
-        return SobolSampler(spp, seed)
+        return SobolSampler(spp, seed, ft)
     if name == "02sequence":
-        return ZeroTwoSequenceSampler(spp, seed)
+        return ZeroTwoSequenceSampler(spp, seed, ft)
     if name == "maxmindist":
-        return MaxMinDistSampler(spp, seed)
+        return MaxMinDistSampler(spp, seed, ft)
     log.warning("Sampler '%s' unknown; using halton.", name)
-    return HaltonSampler(spp, seed)
+    return HaltonSampler(spp, seed, ft)

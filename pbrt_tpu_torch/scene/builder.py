@@ -41,7 +41,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t, require_device
+from pbrt_tpu_torch import float_type, require_device
 from pbrt_tpu_torch.cameras import make_camera
 from pbrt_tpu_torch.core.animated import AnimatedTransform
 from pbrt_tpu_torch.core.film import Film
@@ -89,6 +89,7 @@ class CompiledScene:
     sph_data: Optional[SphereData]
     world_bounds: tuple
     device: torch.device
+    float_t: type  # the policy's float (pbrt_tpu_torch.float_type) of every table
     media: list = dataclasses.field(default_factory=list)
     media_names: dict = dataclasses.field(default_factory=dict)
     camera_medium: int = -1  # the medium id camera rays start in (-1: vacuum)
@@ -104,8 +105,8 @@ class CompiledScene:
         from pbrt_tpu_torch.materials import material_theta
         from pbrt_tpu_torch.textures.imagemap import ImageTexture
 
-        dev = self.device
-        theta = material_theta(self.materials, dev)
+        dev, float_t = self.device, self.float_t
+        theta = material_theta(self.materials, dev, float_t)
 
         def rows(vals):
             return torch.as_tensor(np.stack(vals) if vals else np.zeros((0, 3), float_t),
@@ -134,10 +135,12 @@ def image_textures(materials):
 
 
 def _tessellate_emitting_sphere(sph: SphereData, sub=24):
-    """Emitting spheres become triangles so area sampling is uniform (the
-    reference's ``_tessellate_emitting_sphere``)."""
+    """Emitting spheres become triangles, in the float of the spheres'
+    table (the policy's), so area sampling is uniform (the reference's
+    ``_tessellate_emitting_sphere``)."""
     from pbrt_tpu_torch.core.transform import Transform
 
+    float_t = sph.radius.dtype.type
     parts = []
     for i in range(sph.count):
         r = float(sph.radius[i])
@@ -147,8 +150,8 @@ def _tessellate_emitting_sphere(sph: SphereData, sub=24):
         pts = np.stack([r * np.sin(vv) * np.cos(uu), r * np.sin(vv) * np.sin(uu),
                         r * np.cos(vv)], axis=-1)
         t = Transform(sph.o2w[i])
-        pts_w = t.apply_p(pts.reshape(-1, 3)).reshape(pts.shape)
-        nrm_w = t.apply_n(pts.reshape(-1, 3)).reshape(pts.shape)
+        pts_w = t.apply_p(pts.reshape(-1, 3), float_t).reshape(pts.shape)
+        nrm_w = t.apply_n(pts.reshape(-1, 3), float_t).reshape(pts.shape)
         nn = np.linalg.norm(nrm_w, axis=-1, keepdims=True)
         nrm_w = nrm_w / np.where(nn == 0, 1, nn)
         corners = {k: [] for k in ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2")}
@@ -176,8 +179,15 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
     raises).  ``options.quick_render`` quarters the resolution and
     ``options.image_file`` overrides the film's filename.  ``walk``,
     ``sort``, ``stream_min_tris``, ``key_obits`` and ``deadbit`` go to the
-    BVH (``accel/bvh.py``)."""
+    BVH (``accel/bvh.py``).  The tables take the float of the
+    description's parameters (``desc.float_t``, the API's policy), which
+    must be that of ``options.double``."""
     device = require_device(device)
+    float_t = desc.float_t
+    if options is not None and float_type(options.double) != float_t:
+        raise ValueError(f"build_scene: the description was parsed in {float_t.__name__}, "
+                         f"options.double={options.double} asks for "
+                         f"{float_type(options.double).__name__}")
     filt = make_filter(desc.filter_name, desc.filter_params)
     desc.filter_params.report_unused()
     fp = desc.film_params
@@ -199,7 +209,7 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         fp.find_one_float("diagonal", 35.0), filename,
         fp.find_one_float("scale", 1.0),
         fp.find_one_float("maxsampleluminance", float("inf")),
-        device=device,
+        device=device, float_t=float_t,
     )
     fp.report_unused()
     camera = make_camera(desc.camera_name, desc.camera_params, desc.camera_to_world[0],
@@ -337,11 +347,11 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
             l_emit = promote_rgb(
                 ap.find_one_spectrum_raw("L", np.ones(3, dtype=float_t))
                 * ap.find_one_spectrum_raw("scale", np.ones(3, dtype=float_t)),
-                illuminant=True,
+                illuminant=True, float_t=float_t,
             )
             two_sided = ap.find_one_bool("twosided", False)
             area_lights.append(DiffuseAreaLight(
-                l_emit, two_sided, shape.p0, shape.p1, shape.p2, device=device
+                l_emit, two_sided, shape.p0, shape.p1, shape.p2, device=device, float_t=float_t
             ))
             ap.report_unused()
             light_idx = len(area_lights) - 1
@@ -456,7 +466,7 @@ def build_scene(desc, options=None, seed: int = 0, device="cuda", walk: str = "b
         accelerator_name=desc.accelerator_name,
         materials=materials, lights=lights, area_lights=area_lights,
         tables=tables, intersector=intersector, tri_data=tri_data, sph_data=sph_data,
-        world_bounds=_world_bounds(tri_data, sph_data), device=device,
+        world_bounds=_world_bounds(tri_data, sph_data), device=device, float_t=float_t,
         media=media, media_names=media_names, camera_medium=camera_medium,
     )
 
@@ -483,7 +493,8 @@ def _world_bounds(tri_data, sph_data):
 
 
 def _tri_cols(tr, need_normals=True, need_uv=True):
-    """Pack the triangle table into one [T, C] f32 matrix plus a name ->
+    """Pack the triangle table into one [T, C] matrix of the table's float
+    (ints are exact below 2^24) plus a name ->
     column-slice layout (the reference's ``_tri_cols``): p0 p1 p2 (9)
     [n0 n1 n2 (9)] [uv0 uv1 uv2 (6)] mat light med_in med_out (4)
     [tan0 tan1 tan2 (9)]."""
@@ -502,7 +513,7 @@ def _tri_cols(tr, need_normals=True, need_uv=True):
         v = tr[nm]
         if v.dim() == 1:
             v = v[:, None]
-        parts.append(v.to(torch.float32))
+        parts.append(v.to(tr["p0"].dtype))
         layout[nm] = slice(at, at + v.shape[1])
         at += v.shape[1]
     return torch.cat(parts, dim=1), layout
@@ -510,13 +521,13 @@ def _tri_cols(tr, need_normals=True, need_uv=True):
 
 def _sph_cols(sp):
     """Pack the sphere table: w2o rows (12) radius z_min z_max phi_max
-    reverse mat (6) -> [S, 18] f32."""
+    reverse mat (6) -> [S, 18] in the table's float."""
     parts = [
         sp["w2o"][:, :3, :4].reshape(sp["w2o"].shape[0], 12),
         sp["radius"][:, None], sp["z_min"][:, None], sp["z_max"][:, None],
         sp["phi_max"][:, None], sp["reverse"][:, None], sp["mat"][:, None],
     ]
-    return torch.cat([p.to(torch.float32) for p in parts], dim=1)
+    return torch.cat([p.to(sp["radius"].dtype) for p in parts], dim=1)
 
 
 def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
@@ -531,19 +542,19 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
     shading normals between the ``tri_keys`` tables of an animated scene.
     """
     n = o.shape[0]
-    dev = o.device
+    dev, dt = o.device, o.dtype
     t = hit["t"]
     p = o + d * t[..., None]
-    ng = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    ng = torch.zeros((n, 3), dtype=dt, device=dev)
     ng[:, 2] = 1.0
     ns = ng
     ng_raw = ng
-    uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    uv = torch.zeros((n, 2), dtype=dt, device=dev)
     minus1 = torch.full((n,), -1, dtype=torch.int32, device=dev)
     mat = light = med_in = med_out = minus1
-    duvdx = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-    duvdy = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-    tex_width = torch.zeros((n,), dtype=torch.float32, device=dev)
+    duvdx = torch.zeros((n, 2), dtype=dt, device=dev)
+    duvdy = torch.zeros((n, 2), dtype=dt, device=dev)
+    tex_width = torch.zeros((n,), dtype=dt, device=dev)
 
     def dot(a, b):
         return torch.sum(a * b, dim=-1)
@@ -573,7 +584,7 @@ def compute_interaction(tables, hit, o, d, ray_diff=None, time=None):
         krows = None
         if time is not None and "tri_keys" in tables:
             keys = tables["tri_keys"]
-            kw = time_weights(torch.broadcast_to(time, idx.shape).to(torch.float32), len(keys))
+            kw = time_weights(torch.broadcast_to(time, idx.shape).to(dt), len(keys))
             # rounded as the reference's compiled blend (and the walks)
             krows = blend(torch.stack([select_rows(k, idx) for k in keys], dim=1), kw)
             p0, p1, p2 = krows[:, 0:3], krows[:, 3:6], krows[:, 6:9]

@@ -18,8 +18,6 @@ from typing import Optional
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
-
 log = logging.getLogger("pbrt_tpu_torch")
 
 
@@ -76,13 +74,14 @@ def concat_sphere_data(parts):
 
 def _mesh_from_params(params, o2w, reverse):
     """Triangle mesh from ``Shape "trianglemesh"`` params (pbrt-v3 §3.6)."""
+    float_t = params.float_t
     indices = params.find_int("indices")
     pts = params.find_point3f("P")
     if indices is None or pts is None:
         log.error("trianglemesh missing 'indices' or 'P'; skipping")
         return None
     idx = np.asarray(indices, dtype=np.int64).reshape(-1, 3)
-    pts_w = o2w.apply_p(pts)
+    pts_w = o2w.apply_p(pts, float_t)
     uv = params.find_point2f("uv")
     if uv is None:
         uv = params.find_point2f("st")
@@ -94,7 +93,7 @@ def _mesh_from_params(params, o2w, reverse):
                 uv = np.asarray(fl, dtype=float_t).reshape(-1, 2)
     normals = params.find_normal3f("N")
     if normals is not None:
-        normals = o2w.apply_n(normals)
+        normals = o2w.apply_n(normals, float_t)
         norm = np.linalg.norm(normals, axis=-1, keepdims=True)
         normals = normals / np.where(norm == 0, 1.0, norm)
         if reverse:
@@ -121,7 +120,7 @@ def _mesh_from_params(params, o2w, reverse):
     )
 
 
-def _grid_triangles(pts_w, nrm_w, uvc, min_area):
+def _grid_triangles(pts_w, nrm_w, uvc, min_area, float_t):
     """Two triangles per grid cell, (i, j) row-major, corners (a, b, c)
     and (a, c, d) of the cell's quad a = (i, j), b = (i + 1, j),
     c = (i + 1, j + 1), d = (i, j + 1) (the reference's loop order);
@@ -146,23 +145,23 @@ def _grid_triangles(pts_w, nrm_w, uvc, min_area):
     return td
 
 
-def _grid_mesh(o2w, reverse, pz_fn, nrm_fn, nu, nv, u_range, v_range):
+def _grid_mesh(o2w, reverse, pz_fn, nrm_fn, nu, nv, u_range, v_range, float_t):
     """Tessellate a parametric surface (u, v) -> (point, normal) on an
-    nu x nv grid of cells."""
+    nu x nv grid of cells, in the policy's float ``float_t``."""
     us = np.linspace(u_range[0], u_range[1], nu + 1)
     vs = np.linspace(v_range[0], v_range[1], nv + 1)
     uu, vv = np.meshgrid(us, vs, indexing="ij")  # [nu + 1, nv + 1]
     pts = pz_fn(uu, vv)
     nrm = nrm_fn(uu, vv)
-    pts_w = o2w.apply_p(pts.reshape(-1, 3)).reshape(nu + 1, nv + 1, 3)
-    nrm_w = o2w.apply_n(nrm.reshape(-1, 3)).reshape(nu + 1, nv + 1, 3)
+    pts_w = o2w.apply_p(pts.reshape(-1, 3), float_t).reshape(nu + 1, nv + 1, 3)
+    nrm_w = o2w.apply_n(nrm.reshape(-1, 3), float_t).reshape(nu + 1, nv + 1, 3)
     nn = np.linalg.norm(nrm_w, axis=-1, keepdims=True)
     nrm_w = nrm_w / np.where(nn == 0, 1.0, nn)
     if reverse:
         nrm_w = -nrm_w
     u01 = (uu - u_range[0]) / (u_range[1] - u_range[0])
     v01 = (vv - v_range[0]) / (v_range[1] - v_range[0])
-    return _grid_triangles(pts_w, nrm_w, np.stack([u01, v01], axis=-1), 1e-12)
+    return _grid_triangles(pts_w, nrm_w, np.stack([u01, v01], axis=-1), 1e-12, float_t)
 
 
 TESS_U = 64
@@ -170,6 +169,7 @@ TESS_V = 32
 
 
 def _heightfield(params, o2w, reverse):
+    float_t = params.float_t
     nu = params.find_one_int("nu", 0)
     nv = params.find_one_int("nv", 0)
     pz = params.find_float("Pz")
@@ -190,7 +190,7 @@ def _heightfield(params, o2w, reverse):
         dzdv = (z[iv + 1, iu] - z[iv, iu]) * (nv - 1)
         return np.stack([-dzdu, -dzdv, np.ones_like(dzdu)], axis=-1)
 
-    return _grid_mesh(o2w, reverse, pfn, nfn, nu - 1, nv - 1, (0, 1), (0, 1))
+    return _grid_mesh(o2w, reverse, pfn, nfn, nu - 1, nv - 1, (0, 1), (0, 1), float_t)
 
 
 def _quadric(name, params, o2w, reverse):
@@ -210,7 +210,8 @@ def _quadric(name, params, o2w, reverse):
         def nfn(uu, vv):
             return np.broadcast_to(np.array([0.0, 0.0, 1.0]), uu.shape + (3,)).copy()
 
-        return _grid_mesh(o2w, reverse, pfn, nfn, TESS_U, 2, (0, phi_max), v_range)
+        return _grid_mesh(o2w, reverse, pfn, nfn, TESS_U, 2, (0, phi_max), v_range,
+                          params.float_t)
     if name == "cylinder":
         radius = params.find_one_float("radius", 1.0)
         z_min = params.find_one_float("zmin", -1.0)
@@ -266,7 +267,8 @@ def _quadric(name, params, o2w, reverse):
             p = pfn(uu, vv)
             return np.cross(pfn(uu + eps, vv) - p, pfn(uu, np.minimum(vv + eps, 1.0)) - p)
 
-    return _grid_mesh(o2w, reverse, pfn, nfn, TESS_U, TESS_V, (0, phi_max), v_range)
+    return _grid_mesh(o2w, reverse, pfn, nfn, TESS_U, TESS_V, (0, phi_max), v_range,
+                      params.float_t)
 
 
 def make_shape(name: str, params, o2w, reverse: bool):
@@ -275,6 +277,7 @@ def make_shape(name: str, params, o2w, reverse: bool):
     if name == "trianglemesh":
         return _mesh_from_params(params, o2w, reverse)
     if name == "sphere":
+        float_t = params.float_t
         radius = params.find_one_float("radius", 1.0)
         z_min = params.find_one_float("zmin", -radius)
         z_max = params.find_one_float("zmax", radius)

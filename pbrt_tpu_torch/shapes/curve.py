@@ -27,7 +27,6 @@ import logging
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
 
 log = logging.getLogger("pbrt_tpu_torch")
 
@@ -228,17 +227,18 @@ def make_curve(params, o2w, reverse: bool):
                         dst_t.append(tn[a])
                         dst_uv.append((u_glob[a], b / nv))
 
-    p0 = o2w.apply_p(np.asarray(p0s))
-    p1 = o2w.apply_p(np.asarray(p1s))
-    p2 = o2w.apply_p(np.asarray(p2s))
+    float_t = params.float_t
+    p0 = o2w.apply_p(np.asarray(p0s), float_t)
+    p1 = o2w.apply_p(np.asarray(p1s), float_t)
+    p2 = o2w.apply_p(np.asarray(p2s), float_t)
 
     def xform_n(ns):
-        nw = o2w.apply_n(np.asarray(ns))
+        nw = o2w.apply_n(np.asarray(ns), float_t)
         nw /= np.maximum(np.linalg.norm(nw, axis=-1, keepdims=True), 1e-12)
         return -nw if reverse else nw
 
     def xform_t(ts):
-        tw = o2w.apply_v(np.asarray(ts))
+        tw = o2w.apply_v(np.asarray(ts), float_t)
         tw /= np.maximum(np.linalg.norm(tw, axis=-1, keepdims=True), 1e-12)
         return tw
 

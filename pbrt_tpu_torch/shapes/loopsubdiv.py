@@ -13,7 +13,6 @@ from collections import defaultdict
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core.paramset import ParamSet
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -110,8 +109,8 @@ def loop_subdivide(params: ParamSet, o2w, reverse):
     norm = np.linalg.norm(n, axis=-1, keepdims=True)
     n = n / np.where(norm == 0, 1.0, norm)
 
-    ps = ParamSet()
+    ps = ParamSet(params.float_t)
     ps.add_int("indices", faces.reshape(-1).tolist())
-    ps.add_point3f("P", verts.astype(float_t))
-    ps.add_normal3f("N", n.astype(float_t))
+    ps.add_point3f("P", verts.astype(params.float_t))
+    ps.add_normal3f("N", n.astype(params.float_t))
     return _mesh_from_params(ps, o2w, reverse)

@@ -160,8 +160,8 @@ def make_nurbs(params, o2w, reverse: bool):
             ln = np.linalg.norm(n)
             nrm[i, j] = n / ln if ln > 1e-12 else np.array([0.0, 0.0, 1.0])
 
-    pts_w = o2w.apply_p(pts.reshape(-1, 3)).reshape(pts.shape)
-    nrm_w = o2w.apply_n(nrm.reshape(-1, 3)).reshape(nrm.shape)
+    pts_w = o2w.apply_p(pts.reshape(-1, 3), params.float_t).reshape(pts.shape)
+    nrm_w = o2w.apply_n(nrm.reshape(-1, 3), params.float_t).reshape(nrm.shape)
     nn = np.linalg.norm(nrm_w, axis=-1, keepdims=True)
     nrm_w = nrm_w / np.where(nn == 0, 1.0, nn)
     if reverse:
@@ -170,4 +170,4 @@ def make_nurbs(params, o2w, reverse: bool):
     v01 = (vs - v0) / max(v1 - v0, 1e-12)
     uvc = np.stack(np.meshgrid(u01, v01, indexing="ij"), axis=-1)
 
-    return _grid_triangles(pts_w, nrm_w, uvc, 1e-14)
+    return _grid_triangles(pts_w, nrm_w, uvc, 1e-14, params.float_t)

@@ -8,7 +8,6 @@ import logging
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core.paramset import ParamSet
 
 log = logging.getLogger("pbrt_tpu_torch")
@@ -25,9 +24,9 @@ _PLY_TYPES = {
 }
 
 
-def read_ply(path: str):
+def read_ply(path: str, float_t=np.float32):
     """Returns (vertices [V,3], normals [V,3] | None, uv [V,2] | None,
-    indices [F,3])."""
+    indices [F,3]), the vertex data in the policy's float ``float_t``."""
     with open(path, "rb") as f:
         data = f.read()
     header_end = data.find(b"end_header")
@@ -66,7 +65,7 @@ def read_ply(path: str):
                     for pname, ptype, is_list, _ in props:
                         row[pname] = float(toks[pos]); pos += 1
                     rows.append(row)
-                verts, norms, uvs = _vertex_arrays(rows)
+                verts, norms, uvs = _vertex_arrays(rows, float_t)
             elif name == "face":
                 for _ in range(count):
                     n = int(toks[pos]); pos += 1
@@ -90,7 +89,7 @@ def read_ply(path: str):
                 arr = np.frombuffer(body, dtype=dt, count=count, offset=pos)
                 pos += dt.itemsize * count
                 rows = arr
-                verts, norms, uvs = _vertex_arrays_np(arr)
+                verts, norms, uvs = _vertex_arrays_np(arr, float_t)
             elif name == "face" and (fast := _uniform_faces(body, pos, count, props, endian)):
                 fan, pos = fast
                 faces.extend(fan)
@@ -139,7 +138,7 @@ def _uniform_faces(body, pos, count, props, endian):
     return [tuple(f) for f in fan.tolist()], pos + rec.itemsize * count
 
 
-def _vertex_arrays(rows):
+def _vertex_arrays(rows, float_t):
     verts = np.array([[r["x"], r["y"], r["z"]] for r in rows], dtype=float_t)
     norms = uvs = None
     if rows and "nx" in rows[0]:
@@ -151,7 +150,7 @@ def _vertex_arrays(rows):
     return verts, norms, uvs
 
 
-def _vertex_arrays_np(arr):
+def _vertex_arrays_np(arr, float_t):
     names = arr.dtype.names
     verts = np.stack([arr["x"], arr["y"], arr["z"]], axis=-1).astype(float_t)
     norms = uvs = None
@@ -172,11 +171,11 @@ def mesh_from_ply(params: ParamSet, o2w, reverse):
         log.error("plymesh missing 'filename'")
         return None
     try:
-        verts, norms, uvs, faces = read_ply(filename)
+        verts, norms, uvs, faces = read_ply(filename, params.float_t)
     except (OSError, ValueError) as e:
         log.error("Unable to read PLY '%s': %s", filename, e)
         return None
-    ps = ParamSet()
+    ps = ParamSet(params.float_t)
     ps.add_int("indices", faces.reshape(-1).tolist())
     ps.add_point3f("P", verts)
     if norms is not None:

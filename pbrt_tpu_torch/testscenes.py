@@ -108,20 +108,24 @@ def cornell_description(xres=256, yres=256, spp=4, maxdepth=5, filename="cornell
 
 
 def cornell_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16, seed=0,
-                     device="cuda", walk="bvh8", sort="stable", environment=False):
+                     device="cuda", walk="bvh8", sort="stable", environment=False,
+                     double=False):
     """BASELINE scene 2 (or its ``environment`` variant) on ``device`` ->
-    Renderer.  ``walk`` and ``sort`` reach only a scene that takes the BVH
-    (``accel/bvh.py``)."""
+    Renderer (``double``: the float64 policy).  ``walk`` and ``sort``
+    reach only a scene that takes the BVH (``accel/bvh.py``)."""
     from pbrt_tpu_torch.render import Renderer
 
     desc, opts = cornell_description(xres, yres, spp, maxdepth,
-                                     options=Options(ray_batch=ray_batch),
+                                     options=Options(ray_batch=ray_batch, double=double),
                                      environment=environment)
     return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort)
 
 
-def _torus_mesh_params(nu=224, nv=112, major=1.0, minor=0.4, displace=0.08):
-    """Procedural displaced torus: 2*nu*nv triangles (host numpy)."""
+def _torus_mesh_params(nu=224, nv=112, major=1.0, minor=0.4, displace=0.08,
+                       float_t=np.float32):
+    """Procedural displaced torus: 2*nu*nv triangles (host numpy; its
+    vertices rounded to float32 under either policy, as the reference's
+    are, then held in the policy's float ``float_t``)."""
     u = np.linspace(0, 2 * np.pi, nu, endpoint=False)
     v = np.linspace(0, 2 * np.pi, nv, endpoint=False)
     uu, vv = np.meshgrid(u, v, indexing="ij")
@@ -145,7 +149,7 @@ def _torus_mesh_params(nu=224, nv=112, major=1.0, minor=0.4, displace=0.08):
     c = vid(gi + 1, gj + 1)
     dd = vid(gi, gj + 1)
     idx = np.stack([a, b, c, a, c, dd], axis=-1).reshape(-1).tolist()
-    ps = ParamSet()
+    ps = ParamSet(float_t)
     ps.add_int("indices", idx)
     ps.add_point3f("P", pts.astype(np.float32))
     ps.add_point2f("uv", uvs.astype(np.float32))
@@ -197,14 +201,16 @@ def _mesh_head(xres, yres, spp, maxdepth, integrator="path", extra=""):
 
 
 def mesh_scene_description(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16,
-                           nu=224, nv=112, sphere=False, integrator="path", extra=""):
+                           nu=224, nv=112, sphere=False, integrator="path", extra="",
+                           double=False):
     """Parse BASELINE config 3 (``sphere``: with :data:`MIRROR_SPHERE`;
     ``integrator`` with the ``extra`` parameters in place of ``path``) ->
-    (SceneDescription, Options, n_torus_tris)."""
-    api = PbrtAPI(Options(ray_batch=ray_batch), render_on_world_end=False)
+    (SceneDescription, Options, n_torus_tris); ``double``: the float64
+    policy."""
+    api = PbrtAPI(Options(ray_batch=ray_batch, double=double), render_on_world_end=False)
     api.init()
     api.parse_string(_mesh_head(xres, yres, spp, maxdepth, integrator, extra))
-    ps, n_tris = _torus_mesh_params(nu, nv)
+    ps, n_tris = _torus_mesh_params(nu, nv, float_t=api.float_t)
     api.shape("trianglemesh", ps)
     api.parse_string(FLOOR + (MIRROR_SPHERE if sphere else ""))
     api.scene.film_params.add_int("xresolution", [xres])
@@ -215,17 +221,17 @@ def mesh_scene_description(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 <<
 def mesh_scene_renderer(xres=256, yres=256, spp=4, maxdepth=5, ray_batch=1 << 16,
                         nu=224, nv=112, seed=0, device="cuda", walk="bvh8",
                         sort="stable", sphere=False, integrator="path", extra="",
-                        **switches):
+                        double=False, **switches):
     """BASELINE config 3 (``sphere``: with a mirror sphere; ``integrator``
     in place of ``path``) on ``device`` with the BVH walk ``walk`` and the
     ``co_sort`` network ``sort`` (``accel/bvh.py``); ``switches``: the
     rest of ``Renderer``'s (``sorted_carry``, ``shadow_sort``,
-    ``stream_min_tris``, ``key_obits``, ``deadbit``) -> (Renderer,
-    n_torus_tris)."""
+    ``stream_min_tris``, ``key_obits``, ``deadbit``; ``double``: the
+    float64 policy) -> (Renderer, n_torus_tris)."""
     from pbrt_tpu_torch.render import Renderer
 
     desc, opts, n_tris = mesh_scene_description(xres, yres, spp, maxdepth, ray_batch,
-                                                nu, nv, sphere, integrator, extra)
+                                                nu, nv, sphere, integrator, extra, double)
     return Renderer(desc, opts, seed=seed, device=device, walk=walk, sort=sort,
                     **switches), n_tris
 
@@ -424,11 +430,11 @@ WorldEnd
 """
 
 
-def text_renderer(text, ray_batch=1 << 16, seed=0, device="cuda"):
-    """Scene text -> Renderer on ``device``."""
+def text_renderer(text, ray_batch=1 << 16, seed=0, device="cuda", double=False):
+    """Scene text -> Renderer on ``device`` (``double``: the float64 policy)."""
     from pbrt_tpu_torch.render import Renderer
 
-    api = PbrtAPI(Options(ray_batch=ray_batch), render_on_world_end=False)
+    api = PbrtAPI(Options(ray_batch=ray_batch, double=double), render_on_world_end=False)
     api.init()
     api.parse_string(text)
     return Renderer(api.scene, api.opt, seed=seed, device=device)
@@ -815,6 +821,65 @@ def gi_box_text(integrator="bdpt", xres=24, yres=24, spp=8, maxdepth=4, extra=""
     parameters, e.g. ``'"float lensradius" 0.05'``)."""
     return GI_BOX.format(integrator=integrator, xres=xres, yres=yres, spp=spp,
                          maxdepth=maxdepth, extra=extra, camera=camera)
+
+
+# tests/test_refrender.py's GI box (a ceiling area light over a floor and a
+# back wall), for the scalar tracer ``refrender.py``
+REF_GI_BOX = """
+LookAt 0 1 3.2  0 1 0  0 1 0
+Camera "perspective" "float fov" 60
+Sampler "halton" "integer pixelsamples" {spp}
+Integrator "path" "integer maxdepth" {maxdepth}
+Film "image" "integer xresolution" [{xres}] "integer yresolution" [{yres}]
+WorldBegin
+AttributeBegin
+  AreaLightSource "diffuse" "rgb L" [6 6 6]
+  Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+    "point P" [ -0.5 2.49 -0.5   0.5 2.49 -0.5   0.5 2.49 0.5   -0.5 2.49 0.5 ]
+AttributeEnd
+Material "matte" "rgb Kd" [0.7 0.6 0.5]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ -2 0 -2   2 0 -2   2 0 2   -2 0 2 ]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [ -2 0 -2   2 0 -2   2 2.5 -2   -2 2.5 -2 ]
+WorldEnd
+"""
+
+
+def ref_gi_box(xres=16, yres=16, spp=4, maxdepth=4):
+    """:data:`REF_GI_BOX` -> (scene text, the scalar tracer's RefScene
+    arguments (spheres, triangles, materials, lights), its camera (eye,
+    look, up, fov))."""
+    def quad(p):
+        p = [np.asarray(q, np.float64) for q in p]
+        return [(p[0], p[1], p[2]), (p[0], p[2], p[3])]
+
+    lq = quad([[-0.5, 2.49, -0.5], [0.5, 2.49, -0.5], [0.5, 2.49, 0.5], [-0.5, 2.49, 0.5]])
+    floor = quad([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]])
+    wall = quad([[-2, 0, -2], [2, 0, -2], [2, 2.5, -2], [-2, 2.5, -2]])
+    tris = [(a, b, c, 0, 0) for a, b, c in lq] + [(a, b, c, 0, -1) for a, b, c in floor + wall]
+    args = ([], tris, [{"type": "matte", "kd": [0.7, 0.6, 0.5]}],
+            [{"type": "area", "L": [6, 6, 6], "tris": lq, "id": 0}])
+    text = REF_GI_BOX.format(xres=xres, yres=yres, spp=spp, maxdepth=maxdepth)
+    return text, args, ([0, 1, 3.2], [0, 1, 0], [0, 1, 0], 60.0)
+
+
+def sample_table(renderer, xres, yres, spp, n_dims):
+    """The renderer's sampler stream as a [lanes, n_dims] float64 table,
+    lane = (y xres + x) spp + s (``bounded(spp).get`` on the renderer's
+    device): the stream ``refrender.render_reference`` draws, so that it
+    walks the renderer's paths."""
+    import torch
+
+    sampler = renderer.sampler.bounded(spp)
+    ys, xs = np.mgrid[0:yres, 0:xres]
+    pix = np.repeat(np.stack([xs.ravel(), ys.ravel()], -1), spp, axis=0)
+    sidx = np.tile(np.arange(spp), xres * yres)
+    dev = renderer.device
+    pix = torch.as_tensor(pix.astype(np.int64), device=dev)
+    sidx = torch.as_tensor(sidx.astype(np.int64), device=dev)
+    return np.stack([sampler.get(pix, sidx, dim).cpu().numpy().astype(np.float64)
+                     for dim in range(n_dims)], axis=-1)
 
 
 def caustic_text(integrator="bdpt", xres=24, yres=24, spp=8, maxdepth=4, extra="", camera=""):

@@ -5,13 +5,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
-
 
 class ConstantTexture:
-    """Returns its value for every lane; value may be scalar or RGB."""
+    """Returns its value (in the policy's float ``float_t``) for every lane;
+    value may be scalar or RGB."""
 
-    def __init__(self, value):
+    def __init__(self, value, float_t=np.float32):
         self.value = np.asarray(value, dtype=float_t)
 
     @property

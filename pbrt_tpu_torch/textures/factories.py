@@ -9,7 +9,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.textures.checkerboard import Checkerboard3DTexture, CheckerboardTexture
 from pbrt_tpu_torch.textures.constant import ConstantTexture
 from pbrt_tpu_torch.textures.imagemap import ImageTexture
@@ -28,14 +27,14 @@ from pbrt_tpu_torch.textures.uv import UVTexture
 
 def _get_tex(tp, name, default, spectral):
     if spectral:
-        return tp.get_spectrum_texture(name, np.full(3, default, dtype=float_t))
+        return tp.get_spectrum_texture(name, np.full(3, default, dtype=tp.float_t))
     return tp.get_float_texture(name, float(default))
 
 
 def _constant(t2w, tp, spectral):
     if spectral:
-        return ConstantTexture(tp.find_spectrum("value", np.ones(3, dtype=float_t)))
-    return ConstantTexture(tp.find_float("value", 1.0))
+        return ConstantTexture(tp.find_spectrum("value", np.ones(3, dtype=tp.float_t)), tp.float_t)
+    return ConstantTexture(tp.find_float("value", 1.0), tp.float_t)
 
 
 def _scale(t2w, tp, spectral):
@@ -50,11 +49,11 @@ def _mix(t2w, tp, spectral):
 def _bilerp(t2w, tp, spectral):
     mapping = mapping_from_params(tp, t2w)
     if spectral:
-        corners = [tp.find_spectrum(n, np.zeros(3, dtype=float_t))
+        corners = [tp.find_spectrum(n, np.zeros(3, dtype=tp.float_t))
                    for n in ("v00", "v01", "v10", "v11")]
     else:
         corners = [tp.find_float(n, 0.0) for n in ("v00", "v01", "v10", "v11")]
-    return BilerpTexture(mapping, *corners)
+    return BilerpTexture(mapping, *corners, float_t=tp.float_t)
 
 
 def _checkerboard(t2w, tp, spectral):
@@ -62,7 +61,7 @@ def _checkerboard(t2w, tp, spectral):
     tex1 = _get_tex(tp, "tex1", 1.0, spectral)
     tex2 = _get_tex(tp, "tex2", 0.0, spectral)
     if dim == 3:
-        return Checkerboard3DTexture(TransformMapping3D(t2w.inverse()), tex1, tex2)
+        return Checkerboard3DTexture(TransformMapping3D(t2w.inverse(), tp.float_t), tex1, tex2)
     tp.find_string("aamode", "closedform")  # the closed form is the only filter
     return CheckerboardTexture(mapping_from_params(tp, t2w), tex1, tex2)
 
@@ -85,28 +84,29 @@ def _imagemap(t2w, tp, spectral):
         wrap=tp.find_string("wrap", "repeat"),
         scale=tp.find_float("scale", 1.0),
         gamma=tp.find_bool("gamma", filename.lower().endswith((".png", ".tga"))),
-        spectral=spectral,
+        spectral=spectral, float_t=tp.float_t,
     )
 
 
 def _fbm(t2w, tp, spectral):
-    return FBmTexture(TransformMapping3D(t2w.inverse()), tp.find_int("octaves", 8),
+    return FBmTexture(TransformMapping3D(t2w.inverse(), tp.float_t), tp.find_int("octaves", 8),
                       tp.find_float("roughness", 0.5))
 
 
 def _wrinkled(t2w, tp, spectral):
-    return WrinkledTexture(TransformMapping3D(t2w.inverse()), tp.find_int("octaves", 8),
+    return WrinkledTexture(TransformMapping3D(t2w.inverse(), tp.float_t),
+                           tp.find_int("octaves", 8),
                            tp.find_float("roughness", 0.5))
 
 
 def _windy(t2w, tp, spectral):
-    return WindyTexture(TransformMapping3D(t2w.inverse()))
+    return WindyTexture(TransformMapping3D(t2w.inverse(), tp.float_t))
 
 
 def _marble(t2w, tp, spectral):
-    return MarbleTexture(TransformMapping3D(t2w.inverse()), tp.find_int("octaves", 8),
+    return MarbleTexture(TransformMapping3D(t2w.inverse(), tp.float_t), tp.find_int("octaves", 8),
                          tp.find_float("roughness", 0.5), tp.find_float("scale", 1.0),
-                         tp.find_float("variation", 0.2))
+                         tp.find_float("variation", 0.2), tp.float_t)
 
 
 FACTORIES = {

@@ -17,7 +17,7 @@ import logging
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t, inverse_gamma_correct
+from pbrt_tpu_torch import inverse_gamma_correct, torch_dtype
 from pbrt_tpu_torch.core.imageio import read_image
 from pbrt_tpu_torch.core.mipmap import WRAP_NAMES, WRAP_REPEAT, MIPMap
 from pbrt_tpu_torch.core.spectrum import get_spectral_bins, promote_rgb
@@ -30,13 +30,13 @@ _TEX_ID_COUNTER = [0]
 
 class ImageTexture:
     def __init__(self, mapping, filename: str, do_trilinear=True, max_aniso=8.0,
-                 wrap="repeat", scale=1.0, gamma=None, spectral=True):
+                 wrap="repeat", scale=1.0, gamma=None, spectral=True, float_t=np.float32):
         self.mapping = mapping
         self.spectral = spectral
         self.tex_id = _TEX_ID_COUNTER[0]
         _TEX_ID_COUNTER[0] += 1
         try:
-            img, _ = read_image(filename)
+            img, _ = read_image(filename, float_t)
         except (OSError, ValueError) as e:
             log.error("Couldn't read image '%s' (%s); using constant 0.5", filename, e)
             img = np.full((1, 1, 3), 0.5, dtype=float_t)
@@ -44,15 +44,15 @@ class ImageTexture:
             gamma = filename.lower().endswith((".png", ".tga"))
         img = np.asarray(img, dtype=np.float64)
         if gamma:
-            img = inverse_gamma_correct(img.astype(float_t)).astype(np.float64)
+            img = inverse_gamma_correct(img.astype(float_t), float_t).astype(np.float64)
         img = img * float(scale)
         if not spectral:
             img = img.mean(axis=-1, keepdims=True)
         elif get_spectral_bins() is not None:
             # a spectral pass: the linear texel RGB becomes the pass's bins
-            img = promote_rgb(img).astype(np.float64)
+            img = promote_rgb(img, float_t=float_t).astype(np.float64)
         self.mipmap = MIPMap(img[::-1].astype(float_t), wrap=WRAP_NAMES.get(wrap, WRAP_REPEAT),
-                             do_trilinear=do_trilinear, max_anisotropy=max_aniso)
+                             do_trilinear=do_trilinear, max_anisotropy=max_aniso, float_t=float_t)
 
     def eval(self, si):
         s, t = self.mapping.map(si)
@@ -65,7 +65,7 @@ class ImageTexture:
             return self.mipmap.lookup(s, t, None, flat=flat)
         if not self.mipmap.do_trilinear and si.get("duvdx") is not None:
             wvec = torch.tensor(getattr(self.mapping, "width_vec", (1.0, 1.0)),
-                                dtype=torch.float32, device=s.device)
+                                dtype=torch_dtype(self.mipmap.float_t), device=s.device)
             return self.mipmap.lookup_aniso(s, t, si["duvdx"] * wvec, si["duvdy"] * wvec,
                                             flat=flat)
         return self.mipmap.lookup(s, t, width * getattr(self.mapping, "width_scale", 1.0),

@@ -1,7 +1,7 @@
 """Texture coordinate mappings (counterpart of
 ``pbrt_tpu/textures/mapping.py``): each 2D mapping takes the SoA
 interaction dict to (s, t) tensors [N]; ``TransformMapping3D`` gives
-texture-space points [N, 3].  Matrices are kept on the host in float32
+texture-space points [N, 3].  Matrices are kept on the host in the policy's float
 and copied to a lane's device once."""
 
 from __future__ import annotations
@@ -11,16 +11,17 @@ import logging
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import INV_2PI, INV_PI, float_t
+from pbrt_tpu_torch import INV_2PI, INV_PI
 from pbrt_tpu_torch.core.transform import apply_point
 
 log = logging.getLogger("pbrt_tpu_torch")
 
 
 class _OnDevice:
-    """Host float32 arrays handed out as tensors, one copy per device."""
+    """Host arrays in the policy's float ``float_t`` handed out as tensors,
+    one copy per device."""
 
-    def __init__(self, **arrays):
+    def __init__(self, float_t, **arrays):
         self._host = {k: np.asarray(v, dtype=float_t) for k, v in arrays.items()}
         self._dev = {}
 
@@ -48,8 +49,8 @@ class UVMapping2D:
 class TransformMapping3D:
     """World point -> texture-space point through ``world_to_texture``."""
 
-    def __init__(self, world_to_texture):
-        self._m = _OnDevice(w2t=world_to_texture.m)
+    def __init__(self, world_to_texture, float_t=np.float32):
+        self._m = _OnDevice(float_t, w2t=world_to_texture.m)
 
     def map(self, si):
         p = si["p"]
@@ -81,8 +82,8 @@ class CylindricalMapping2D(TransformMapping3D):
 class PlanarMapping2D:
     """(ds + p . vs, dt + p . vt) of the world point."""
 
-    def __init__(self, vs, vt, ds=0.0, dt=0.0):
-        self._v = _OnDevice(vs=vs, vt=vt)
+    def __init__(self, vs, vt, ds=0.0, dt=0.0, float_t=np.float32):
+        self._v = _OnDevice(float_t, vs=vs, vt=vt)
         self.ds, self.dt = float(ds), float(dt)
 
     def map(self, si):
@@ -103,15 +104,16 @@ def mapping_from_params(tp, tex2world):
             tp.find_float("vdelta", 0.0),
         )
     if map_type == "spherical":
-        return SphericalMapping2D(tex2world.inverse())
+        return SphericalMapping2D(tex2world.inverse(), tp.float_t)
     if map_type == "cylindrical":
-        return CylindricalMapping2D(tex2world.inverse())
+        return CylindricalMapping2D(tex2world.inverse(), tp.float_t)
     if map_type == "planar":
         return PlanarMapping2D(
             tp.find_vector3f("v1", np.array([1.0, 0.0, 0.0])),
             tp.find_vector3f("v2", np.array([0.0, 1.0, 0.0])),
             tp.find_float("udelta", 0.0),
             tp.find_float("vdelta", 0.0),
+            tp.float_t,
         )
     log.error("2D texture mapping '%s' unknown", map_type)
     return UVMapping2D()

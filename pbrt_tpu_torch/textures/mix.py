@@ -5,7 +5,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
 
 
 class MixTexture:
@@ -31,7 +30,7 @@ class MixTexture:
 class BilerpTexture:
     """Bilinear blend of four corner values (floats or RGB) over (s, t)."""
 
-    def __init__(self, mapping, v00, v01, v10, v11):
+    def __init__(self, mapping, v00, v01, v10, v11, float_t=np.float32):
         self.mapping = mapping
         self.v = np.stack([np.asarray(x, dtype=float_t) for x in (v00, v01, v10, v11)])
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch import float_t
 from pbrt_tpu_torch.core.geometry import fma
 from pbrt_tpu_torch.core.rng import MASK32, hash_u32, mul32, pcg3d, u32_to_float
 
@@ -118,10 +117,12 @@ class MarbleTexture:
 
     _C = np.array([[0.58, 0.58, 0.6], [0.58, 0.58, 0.6], [0.58, 0.58, 0.6],
                    [0.5, 0.5, 0.5], [0.6, 0.59, 0.58], [0.58, 0.58, 0.6],
-                   [0.58, 0.58, 0.6], [0.2, 0.2, 0.33], [0.58, 0.58, 0.6]], dtype=float_t)
+                   [0.58, 0.58, 0.6], [0.2, 0.2, 0.33], [0.58, 0.58, 0.6]])
 
-    def __init__(self, mapping3d, octaves=8, roughness=0.5, scale=1.0, variation=0.2):
+    def __init__(self, mapping3d, octaves=8, roughness=0.5, scale=1.0, variation=0.2,
+                 float_t=np.float32):
         self.mapping = mapping3d
+        self.palette = self._C.astype(float_t)
         self.octaves = int(octaves)
         self.roughness = float(roughness)
         self.scale = float(scale)
@@ -132,7 +133,7 @@ class MarbleTexture:
         marble = self.variation * fbm(p, self.roughness, self.octaves, scale=self.scale)
         y = p[..., 1] * self.scale
         t = 0.5 + 0.5 * torch.sin(fma(y, torch.full_like(y, self.scale), marble))
-        pal = torch.as_tensor(self._C, device=p.device)
+        pal = torch.as_tensor(self.palette, device=p.device)
         nc = pal.shape[0]
         f = torch.clamp(t, 0.0, 1.0) * (nc - 3)
         i = torch.clamp(torch.floor(f).to(torch.int32), 0, nc - 4).long()
