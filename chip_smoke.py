@@ -234,8 +234,10 @@ Phases (any failure raises and the script exits non-zero):
    closest + 3 any-hit), nothing else; the image finite and not black),
    every 5th (every 4th before phase 19) of a recorded frame's sweeps through K7 against
    ``anim_walk_plain`` run on the card (hit masks equal, t within rtol
-   1e-6, prims equal except on exact t ties, b0 and b1 within 2e-5), K7's
-   time per sweep beside its bound (rays in and out once, distinct node
+   1e-6, prims equal except on exact t ties, b0 and b1 within 2e-5; the
+   prepass's live count equal to the live lanes), K7's time per sweep
+   with its live rays, rays per task and lanes a ray
+   (``anim_walk.task_stats``) beside its bound (rays in and out once, distinct node
    and keyframe rows once, 25 ops a box test and 59 + 27 a blended
    triangle test: the blend reads only the two keys of non-zero weight,
    9 products and 9 fused multiply-adds), frame seconds (median of three after the first), the
@@ -341,8 +343,10 @@ Phases (any failure raises and the script exits non-zero):
    chunks), the counters zeroed before and read after (K7's double
    instance x 14, nothing else), every 5th recorded sweep through it and
    its plain version (masks equal, t within rtol 1e-12, prims equal but
-   on exact ties, b0 and b1 within 1e-9), every sweep timed beside its
-   bound (bytes over 3.35 TB/s, FP64 operations over 33.5 TFLOP/s), and
+   on exact ties, b0 and b1 within 1e-9; the lane of the largest |b0|,
+   |b1| difference logged with its det and the triangle's keyframe rows),
+   every sweep timed with its live rays, rays per task and lanes a ray
+   beside its bound (bytes over 3.35 TB/s, FP64 operations over 33.5 TFLOP/s), and
    its time against phase 16 (a)'s float instance's in a whole run; (c) Cornell in double at
    phase 7's size (no kernel; frame seconds, median of three) and at
    32x32, 2 spp, maxdepth 5 on the card against the CPU to phase 5's
@@ -2518,7 +2522,8 @@ CAMERA_LINES = {
 
 def record_anim_walks(renderer):
     """Render one frame, keeping what the keyframed intersector hands K7 on
-    every sweep: (nodes_f, nodes_i, keys, 7 ray columns, time, any_hit)."""
+    every sweep: (nodes_f, nodes_i, keys, packed keys, 7 ray columns, time,
+    any_hit)."""
     import torch
 
     from pbrt_tpu_torch.ops import animated_intersect
@@ -2526,10 +2531,10 @@ def record_anim_walks(renderer):
     calls = []
     orig = animated_intersect.anim_walk
 
-    def wrapped(nodes_f, nodes_i, keys, comps, time_, any_hit=False):
-        calls.append((nodes_f, nodes_i, keys, tuple(c.clone() for c in comps), time_.clone(),
-                      any_hit))
-        return orig(nodes_f, nodes_i, keys, comps, time_, any_hit)
+    def wrapped(nodes_f, nodes_i, keys, packed, comps, time_, any_hit=False):
+        calls.append((nodes_f, nodes_i, keys, packed, tuple(c.clone() for c in comps),
+                      time_.clone(), any_hit))
+        return orig(nodes_f, nodes_i, keys, packed, comps, time_, any_hit)
 
     animated_intersect.anim_walk = wrapped
     try:
@@ -2549,16 +2554,18 @@ def check_anim(label, call, rtol=1e-6):
     distinct node rows (48 bytes) and triangles' keyframe rows (K x 9
     values) once, 25 ops a box test and 59 + ``blend_ops(K)`` a blended
     triangle test; the plain version's ms: this one run, with its work
-    counters on, by CUDA events; max |db| where both hit the same prim)."""
+    counters on, by CUDA events; max |db| where both hit the same prim,
+    and :func:`worst_b_lane` of the lane where it is largest)."""
     import numpy as np
     import torch
 
     from pbrt_tpu_torch.kernels import anim_walk
     from pbrt_tpu_torch.kernels.bvh8_walk import counted
 
-    nodes_f, nodes_i, keys, comps, tm, any_hit = call
-    kern = anim_walk.anim_walk(nodes_f, nodes_i, keys, comps, tm, any_hit)
+    nodes_f, nodes_i, keys, packed, comps, tm, any_hit = call
+    kern = anim_walk.anim_walk(nodes_f, nodes_i, keys, packed, comps, tm, any_hit)
     torch.cuda.synchronize()
+    stats = anim_walk.task_stats()
     counters, out = {}, []
     plain_ms = cuda_ms(lambda: out.append(anim_walk.anim_walk_plain(
         nodes_f, nodes_i, keys, comps, tm, any_hit, counters)), 1, warmup=False)
@@ -2575,16 +2582,78 @@ def check_anim(label, call, rtol=1e-6):
     err = 0.0 if any_hit or not hit.any() else float(np.abs(got[0][hit] - want[0][hit]).max())
     db = 0.0 if any_hit else anim_walk.max_b_diff(got, want)
     live = int((t_max > 1e-4).sum())
+    if stats["live_rays"] != live:
+        raise AssertionError(f"anim_walk {label}: the prepass listed {stats['live_rays']} of "
+                             f"{live} live lanes")
     log(f"  anim_walk {label} {'any-hit' if any_hit else 'closest'}: {len(t_max)} rays, "
-        f"{live} live, {int(hit.sum())} hit, max |dt| {err:.3e}, max |db| {db:.3e}, "
-        f"plain {plain_ms:.1f} ms")
+        f"{live} live, R {stats['rays_per_task']} rays a task, {stats['lanes_per_ray']} lanes "
+        f"a ray on {stats['resident_warps']} resident warps, {int(hit.sum())} hit, max |dt| "
+        f"{err:.3e}, max |db| {db:.3e}, plain {plain_ms:.1f} ms")
+    worst = None if any_hit or db == 0.0 else worst_b_lane(call, got, want)
     c = counted(counters)
     k, size = keys.shape[1], keys.element_size()
     # 7 ray columns and the time in; t, b0, b1 and the int32 prim out
     n_bytes = (len(t_max) * (11 * size + 4) + c["node_rows"] * 48
                + c["leaf_rows"] * k * 9 * size)
     n_ops = c["slab_tests"] * SLAB_OPS + c["tri_tests"] * (TRI_OPS + blend_ops(k))
-    return err, (n_bytes, n_ops), plain_ms, db
+    return err, (n_bytes, n_ops), plain_ms, db, worst
+
+
+def worst_b_lane(call, got, want):
+    """Of two K7 results on a recorded sweep, the lane where b0 or b1
+    differ the most among lanes that hit the same prim: its |db|, the
+    lane's time and hat weights, the triangle's K keyframe rows, and the
+    Moller-Trumbore terms of the plain version's blend there (det, the
+    numerators of b0 and b1, |e1| |d x e2|, the scale that det cancels
+    from)."""
+    import numpy as np
+    import torch
+
+    from pbrt_tpu_torch.kernels.anim_walk import blend, time_weights
+
+    nodes_f, nodes_i, keys, packed, comps, tm, any_hit = call
+    same = (want[1] >= 0) & (got[1] == want[1])
+    diff = np.where(same, np.maximum(np.abs(got[2] - want[2]), np.abs(got[3] - want[3])), -1.0)
+    lane = int(np.argmax(diff))
+    prim = int(want[1][lane])
+    o = torch.stack([c[lane] for c in comps[0:3]]).cpu()
+    d = torch.stack([c[lane] for c in comps[3:6]]).cpu()
+    k = keys[prim].cpu()
+    w = time_weights(tm[lane:lane + 1].cpu(), k.shape[0])
+    v = blend(k[None], w)[0]
+    e1, e2 = v[3:6] - v[0:3], v[6:9] - v[0:3]
+    pv = torch.linalg.cross(d, e2)
+    det = float(torch.dot(e1, pv))
+    tv = o - v[0:3]
+    qv = torch.linalg.cross(tv, e1)
+    return {"lane": lane, "prim": prim, "db": float(diff[lane]), "time": float(tm[lane]),
+            "weights": w[0].tolist(), "keys": k.tolist(), "det": det,
+            "b0_num": float(torch.dot(tv, pv)), "b1_num": float(torch.dot(d, qv)),
+            "scale": float(torch.linalg.norm(e1) * torch.linalg.norm(pv)),
+            "b": [float(got[2][lane]), float(got[3][lane]), float(want[2][lane]),
+                  float(want[3][lane])]}
+
+
+def time_anim_sweeps(calls):
+    """K7 on each recorded sweep: (ms by CUDA events, mean of 20 after a
+    warm-up; the launch's task_stats) per sweep."""
+    from pbrt_tpu_torch.kernels import anim_walk
+
+    out = []
+    for c in calls:
+        ms = cuda_ms(lambda: anim_walk.anim_walk(*c[:6], any_hit=c[6]), 20)
+        out.append((ms, anim_walk.task_stats()))
+    return out
+
+
+def sweep_stats_line(timed_sweeps):
+    """live rays, R and lanes a ray per sweep, and the sweeps with fewer
+    live rays than resident warps."""
+    stats = [st for _, st in timed_sweeps]
+    few = [i for i, st in enumerate(stats) if st["live_rays"] < st["resident_warps"]]
+    per = [(st["live_rays"], st["rays_per_task"], st["lanes_per_ray"]) for st in stats]
+    return (f"live rays / R / lanes a ray per sweep {per} on {stats[0]['resident_warps']} "
+            f"resident warps; sweeps with fewer live rays than resident warps: {few or 'none'}")
 
 
 def eager_ops(r):
@@ -2675,13 +2744,13 @@ def phase_motion(card):
         raise AssertionError(f"the motion frame: recorded {len(calls)} K7 sweeps")
     works, plain, err = [], [], 0.0
     for i, call in enumerate(calls[::MOTION_STRIDE]):
-        e, work, p_ms, _ = check_anim(f"motion sweep {i * MOTION_STRIDE}", call)
+        e, work, p_ms, _, _ = check_anim(f"motion sweep {i * MOTION_STRIDE}", call)
         err = max(err, e)
         works.append(work)
         plain.append(p_ms)
-    from pbrt_tpu_torch.kernels.anim_walk import anim_walk as k7
-
-    ms = [cuda_ms(lambda: k7(*c[:5], any_hit=c[5]), 20) for c in calls]
+    swept = time_anim_sweeps(calls)
+    ms = [t for t, _ in swept]
+    log("  " + sweep_stats_line(swept))
     del calls
     b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]))
     ms_checked = float(np.mean(ms[::MOTION_STRIDE]))
@@ -2700,6 +2769,7 @@ def phase_motion(card):
                          busy_share=prof["device_s"] / median, card=card)
     k7_res = dict(max_abs_err=err, ms=float(np.mean(ms)), plain_ms=float(np.mean(plain)),
                   bound_ms=b_ms, bound_by=b_by, library_ms=None, sweep_ms=ms,
+                  sweep_stats=[st for _, st in swept],
                   ms_at_plain_sweeps=ms_checked, plain_stride=MOTION_STRIDE,
                   launches_per_frame=launches["anim_walk"])
     del got, r
@@ -3541,7 +3611,6 @@ def phase_double(card):
 
     from pbrt_tpu_torch import Options
     from pbrt_tpu_torch.core.api import PbrtAPI
-    from pbrt_tpu_torch.kernels.anim_walk import anim_walk as k7
     from pbrt_tpu_torch.refrender import RefScene, look_at, render_reference
     from pbrt_tpu_torch.render import Renderer
     from pbrt_tpu_torch.testscenes import (config3_scenefile, cornell_renderer,
@@ -3609,13 +3678,24 @@ def phase_double(card):
     if len(calls) != MOTION_SWEEPS or calls[0][2].dtype != torch.float64:
         raise AssertionError(f"the double motion frame: {len(calls)} K7 sweeps, keys "
                              f"{calls[0][2].dtype}")
-    works, plain, err, db = [], [], 0.0, 0.0
+    works, plain, err, db, worst = [], [], 0.0, 0.0, None
     for i, call in enumerate(calls[::MOTION_STRIDE]):
-        e, work, p_ms, b = check_anim(f"double sweep {i * MOTION_STRIDE}", call, DOUBLE_RTOL)
-        err, db = max(err, e), max(db, b)
+        e, work, p_ms, b, w = check_anim(f"double sweep {i * MOTION_STRIDE}", call,
+                                         DOUBLE_RTOL)
+        err = max(err, e)
+        if w is not None and b > db:
+            db, worst = b, dict(w, sweep=i * MOTION_STRIDE)
         works.append(work)
         plain.append(p_ms)
-    ms = [cuda_ms(lambda: k7(*c[:5], any_hit=c[5]), 20) for c in calls]
+    if worst is not None:
+        log(f"  the largest |db|, {worst['db']:.3e}: sweep {worst['sweep']}, lane "
+            f"{worst['lane']}, prim {worst['prim']}, time {worst['time']!r}, weights "
+            f"{worst['weights']}, det {worst['det']!r} (|e1| |d x e2| {worst['scale']!r}), "
+            f"b0 / b1 numerators {worst['b0_num']!r} / {worst['b1_num']!r}, b0 b1 kernel / "
+            f"plain {worst['b']}, keys {worst['keys']}")
+    swept = time_anim_sweeps(calls)
+    ms = [t for t, _ in swept]
+    log("  " + sweep_stats_line(swept))
     del calls, got, r
     b_ms, b_by = bound(np.mean([w[0] for w in works]), np.mean([w[1] for w in works]),
                        F64_OPS_PER_S)
@@ -3624,9 +3704,10 @@ def phase_double(card):
         f"({ms_checked:.4f} over the checked sweeps, bound {b_ms:.5f} ms ({b_by}), "
         f"{b_ms / ms_checked:.2%} of it); plain on the card {[round(t, 1) for t in plain]} ms; "
         f"max |dt| {err:.3e}, max |db| {db:.3e}; on {card}")
-    k7_double = dict(max_abs_err=err, max_abs_db=db, ms=float(np.mean(ms)),
+    k7_double = dict(max_abs_err=err, max_abs_db=db, worst_b_lane=worst, ms=float(np.mean(ms)),
                      plain_ms=float(np.mean(plain)), bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None, sweep_ms=ms, ms_at_plain_sweeps=ms_checked,
+                     library_ms=None, sweep_ms=ms, sweep_stats=[st for _, st in swept],
+                     ms_at_plain_sweeps=ms_checked,
                      plain_stride=MOTION_STRIDE, launches_per_frame=launches["anim_walk_f64"])
     res["motion"] = dict(build_s=build_s, first_frame_s=first_s, image_mean=float(img.mean()),
                          card=card)

@@ -112,7 +112,7 @@ class VolPathIntegrator(PathIntegrator):
             # full-length transmittance
             occ = self._occluded(cur_o, wi_w, remaining, time)
             if self.media:
-                rng_seg = make_track_rng(pixel_xy, sample_index, 1024 + bounce)
+                rng_seg = make_track_rng(pixel_xy, sample_index, 1024 + bounce, c.float_t)
                 tr = self._medium_transmittance(cur_med, cur_o, wi_w, remaining, rng_seg)
             return tr, occ
         occ = torch.zeros(n, dtype=torch.bool, device=wi_w.device)
@@ -120,7 +120,8 @@ class VolPathIntegrator(PathIntegrator):
             h = self._intersect(cur_o, wi_w, remaining, sort=True, time=time)
             seg_len = torch.where(h["hit"], h["t"], remaining)
             if self.media:
-                rng_seg = make_track_rng(pixel_xy, sample_index, 1024 + bounce * segs + seg)
+                rng_seg = make_track_rng(pixel_xy, sample_index, 1024 + bounce * segs + seg,
+                                         c.float_t)
                 tr = tr * self._medium_transmittance(cur_med, cur_o, wi_w, seg_len, rng_seg)
             if seg == segs - 1:
                 return tr, occ | h["hit"]
@@ -218,7 +219,7 @@ class VolPathIntegrator(PathIntegrator):
             t_hit = torch.where(h["hit"], h["t"], INF_T)
             if self.media:
                 rng_track = make_track_rng(pixel_xy, sample_index,
-                                           2048 + bounce * steps + step)
+                                           2048 + bounce * steps + step, c.float_t)
                 if step == 0:
                     u_med = sampler.get(pixel_xy, sample_index, base + 7)
                 else:

@@ -1,14 +1,20 @@
 """The keyframed skip-link walk of motion blur: a CUDA kernel and its plain
 PyTorch version.
 
-:func:`anim_walk` (K7) wraps ``anim_walk_kernel`` in
-``csrc/anim_walk.cu``, which does what
+:func:`anim_walk` (K7) wraps ``anim_prep_kernel`` and
+``anim_walk_kernel`` in ``csrc/anim_walk.cu``, which do what
 ``pbrt_tpu/ops/animated_intersect.py:176 _bvh_walk`` does (a
-``jax.lax.while_loop``; the reference has no Pallas kernel for it): one
-thread per ray walks the skip-link BVH of shutter-union boxes
+``jax.lax.while_loop``; the reference has no Pallas kernel for it): each
+ray walks the skip-link BVH of shutter-union boxes
 (``ops/pallas_bvh.pack_skip_tables``' node layout: box rows [M, 8] f32,
 (skip, first, count) rows [M, 4] i32) and tests each leaf triangle
-blended from its [K, 9] keyframe row with the lane's hat weights.
+blended from its K keyframe rows with the lane's hat weights.  The prepass
+answers the dead lanes and lists the live ones; a persistent grid walks
+the list, R rays a warp's task (:func:`task_stats` reads what the last
+launch found; a sparse sweep gives each ray a group of lanes that test a
+leaf's triangles at once), and reads the keyframe rows from the packed table of
+:func:`pack_keys` (each key padded to whole 16-byte vectors), which an
+intersector makes once.
 
 The kernel has two instances (``anim_walk_kernel<T>``): float for the
 default policy, double for the double policy, where the keyframe rows, the
@@ -46,8 +52,12 @@ from pbrt_tpu_torch.kernels import build
 from pbrt_tpu_torch.kernels.bvh8_walk import RAY_EPS, check_rays, init_counters, safe_inv
 
 LAUNCHES = {"anim_walk": 0, "anim_walk_f64": 0}  # K7<float>, K7<double>
+# values a key's row of the packed table holds: 9, padded to whole 16-byte
+# vectors (three float4, five double2)
+ROW_PAD = {torch.float32: 12, torch.float64: 10}
 
 _lib = None
+_last_scratch = None  # (scratch, rays) of the last launch (task_stats)
 
 
 def reset_launch_counts() -> None:
@@ -62,7 +72,7 @@ def load_library():
         lib = build.load("anim_walk")
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.launch_anim_walk, lib.launch_anim_walk_f64):
-            fn.argtypes = [p] * 15 + [i] * 5 + [p]
+            fn.argtypes = [p] * 16 + [i] * 5 + [p]
             fn.restype = i
         _lib = lib
     return _lib
@@ -76,16 +86,52 @@ def time_weights(time_norm, n_keys: int):
     return torch.clamp(1.0 - torch.abs(x[:, None] - k), min=0.0)
 
 
-def anim_walk(nodes_f, nodes_i, keys, comps, time, any_hit=False):
+def key_pair(time_norm, n_keys: int):
+    """The kernel's search for a lane's keys of non-zero hat weight, in
+    PyTorch: [N] normalized times -> (ka [N] int64, wa, wb): the keys
+    floor(x) (clamped to K - 1) and floor(x) + 1 either side of x = t (K -
+    1), with :func:`time_weights`' expression for each (wb = 0 where key
+    ka + 1 is past the last); every other key's weight is 0."""
+    x = torch.clamp(time_norm, 0.0, 1.0) * (n_keys - 1)
+    ka = torch.clamp(torch.floor(x), max=n_keys - 1)
+    wa = torch.clamp(1.0 - torch.abs(x - ka), min=0.0)
+    wb = torch.where(ka + 1 < n_keys, torch.clamp(1.0 - torch.abs(x - (ka + 1)), min=0.0), 0.0)
+    return ka.long(), wa, wb
+
+
+def pack_keys(keys):
+    """[T, K, 9] keyframe rows -> the kernel's table [T, K, ROW_PAD]: each
+    key's 9 values, then zeros to whole 16-byte vectors (12 float32 or 10
+    float64), contiguous, so that the two adjacent keys of a lane are one
+    aligned run of bytes.  ``keys[..., :9]`` of it is ``keys``."""
+    pad = ROW_PAD[keys.dtype]
+    packed = torch.zeros(keys.shape[:2] + (pad,), dtype=keys.dtype, device=keys.device)
+    packed[..., :9] = keys
+    return packed
+
+
+def task_stats():
+    """What the last :func:`anim_walk` launch found on the card: its live
+    rays, the resident warps of its grid, and the rays per task and lanes
+    per ray it chose (synchronises)."""
+    scratch, n = _last_scratch
+    live, _, warps, rays, lanes = scratch[n:n + 5].tolist()
+    return {"live_rays": live, "resident_warps": warps, "rays_per_task": rays,
+            "lanes_per_ray": lanes}
+
+
+def anim_walk(nodes_f, nodes_i, keys, packed, comps, time, any_hit=False):
     """Keyframed skip-link walk (K7): nodes_f [M, 8] f32, nodes_i [M, 4]
     i32 (skip, first, count), keys [T, K, 9] f32 or f64 (each triangle's
-    p0 p1 p2 at the K keyframes, in the tree's order), comps = 7 [N] ray
-    columns (ox oy oz dx dy dz t_max) and time [N] in [0, 1], all of the
-    keys' dtype.  Returns (t, prim, b0, b1) [N] (t, b0, b1 in the keys'
-    dtype): prim the triangle's index in the tree's order, -1 = miss; a
-    miss keeps its t_max.  ``any_hit``: stop at the first hit (only the
-    mask is then meaningful).  f64 keys take the kernel's double
-    instance."""
+    p0 p1 p2 at the K keyframes, in the tree's order) and ``packed``, its
+    :func:`pack_keys` table (what the kernel reads; the plain version
+    reads ``keys``), comps = 7 [N] ray columns (ox oy oz dx dy dz t_max)
+    and time [N] in [0, 1], all of the keys' dtype.  Returns (t, prim, b0,
+    b1) [N] (t, b0, b1 in the keys' dtype): prim the triangle's index in
+    the tree's order, -1 = miss; a miss keeps its t_max.  ``any_hit``:
+    stop at the first hit (only the mask is then meaningful).  f64 keys
+    take the kernel's double instance."""
+    global _last_scratch
     if nodes_f.device.type == "cpu":
         return anim_walk_plain(nodes_f, nodes_i, keys, comps, time, any_hit)
     dev = nodes_f.device
@@ -97,16 +143,20 @@ def anim_walk(nodes_f, nodes_i, keys, comps, time, any_hit=False):
     build.check_tensor("nodes_f", nodes_f, torch.float32, dev, 2)
     build.check_tensor("nodes_i", nodes_i, torch.int32, dev, 2)
     build.check_tensor("keys", keys, dt, dev, 3)
+    build.check_tensor("packed", packed, dt, dev, 3)
     build.check_tensor("time", time, dt, dev, 1)
     n = check_rays(comps, dev, dt)
     m, (t, k, nine) = nodes_f.shape[0], keys.shape
     if nodes_f.shape[1] != 8 or nodes_i.shape != (m, 4) or nine != 9 or t == 0:
         raise ValueError("anim_walk: expected [M,8] nodes_f, [M,4] nodes_i, [T,K,9] keys")
+    if packed.shape != (t, k, ROW_PAD[dt]):
+        raise ValueError(f"anim_walk: expected the [T,K,{ROW_PAD[dt]}] packed table of keys, "
+                         f"got {tuple(packed.shape)}")
     if k < 1:
         raise ValueError("anim_walk: no keyframes")
     if time.shape[0] != n:
         raise ValueError(f"anim_walk: expected {n} times, got {time.shape[0]}")
-    for name, x in (("nodes_f", nodes_f), ("nodes_i", nodes_i)):
+    for name, x in (("nodes_f", nodes_f), ("nodes_i", nodes_i), ("packed", packed)):
         build.check_aligned(name, x)
     lib = load_library()
     double = dt == torch.float64
@@ -114,13 +164,15 @@ def anim_walk(nodes_f, nodes_i, keys, comps, time, any_hit=False):
     prim_out = torch.empty(n, dtype=torch.int32, device=dev)
     b0_out = torch.empty(n, dtype=dt, device=dev)
     b1_out = torch.empty(n, dtype=dt, device=dev)
+    scratch = torch.empty(n + 5, dtype=torch.int32, device=dev)  # the list, the header
     build.launch_checked(
         lib, lib.launch_anim_walk_f64 if double else lib.launch_anim_walk,
-        nodes_f.data_ptr(), nodes_i.data_ptr(), keys.data_ptr(),
+        nodes_f.data_ptr(), nodes_i.data_ptr(), packed.data_ptr(),
         *[c.data_ptr() for c in comps], time.data_ptr(), t_out.data_ptr(),
-        prim_out.data_ptr(), b0_out.data_ptr(), b1_out.data_ptr(), n, m, t, k, int(any_hit),
-        torch.cuda.current_stream(dev).cuda_stream,
+        prim_out.data_ptr(), b0_out.data_ptr(), b1_out.data_ptr(), scratch.data_ptr(), n, m,
+        t, k, int(any_hit), torch.cuda.current_stream(dev).cuda_stream,
     )
+    _last_scratch = (scratch, n)
     LAUNCHES["anim_walk_f64" if double else "anim_walk"] += 1
     return t_out, prim_out, b0_out, b1_out
 

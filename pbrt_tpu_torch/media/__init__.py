@@ -40,11 +40,14 @@ _PCG_M, _PCG_A = 1664525, 1013904223
 MAX_STEPS = 64
 
 
-def make_track_rng(pixel_xy, sample_index, salt: int):
+def make_track_rng(pixel_xy, sample_index, salt: int, float_t=np.float32):
     """Stateless uniform stream ``rng(slot) -> [N] float32`` for the
     tracking loops: the first output of ``pcg3d(hash(pixel), sample_index
     ^ salt << 20, slot)``.  ``salt`` separates the per-bounce distance
-    and shadow streams; ``slot`` is a Python int."""
+    and shadow streams; ``slot`` is a Python int.  The uniforms are
+    float32 under either policy, capped as ``u32_to_float`` caps them
+    under ``float_t`` (1.0 is reachable under the double policy, as in
+    the reference's)."""
     x = pixel_xy[..., 0].long() & MASK32
     y = pixel_xy[..., 1].long() & MASK32
     pc = hash_u32(mul32(x, 0x9E3779B1) ^ ((y + 0x85EBCA77) & MASK32))
@@ -61,7 +64,7 @@ def make_track_rng(pixel_xy, sample_index, salt: int):
         v0 = v0 ^ (v0 >> 16)
         v1 = v1 ^ (v1 >> 16)
         v2 = v2 ^ (v2 >> 16)
-        return u32_to_float((v0 + mul32(v1, v2)) & MASK32)
+        return u32_to_float((v0 + mul32(v1, v2)) & MASK32, float_t)
 
     return rng
 
@@ -127,7 +130,9 @@ class GridDensityMedium(HomogeneousMedium):
                         "using channel mean %g", self.sigma_t_gray)
 
     def density_at(self, p_world):
-        """Trilinear density at world points [..., 3]; 0 outside the cube."""
+        """Trilinear density at world points [..., 3]; 0 outside the cube.
+        In the points' float: float32 under the default policy, float64
+        under the double policy."""
         pm = apply_point(self.w2m, p_world)
         nz, ny, nx = self.density.shape
         gx = pm[..., 0] * nx - 0.5
@@ -146,9 +151,21 @@ class GridDensityMedium(HomogeneousMedium):
         flat = self.density.reshape(-1)
 
         # the reference's compiled code fuses one product of each lerp into
-        # its add: the far corner's along x, the near one's along y and z.
-        # One rounding as core.geometry.fma gives it (float64 holds the
-        # float32 product exactly), with each factor cast once
+        # its add: the far corner's along x, the near one's along y and z
+        if pm.dtype == torch.float64:  # core.geometry.fma: two roundings
+            def lerp_x_f64(z, y):
+                row = (z * ny + y) * nx
+                return fma(flat[row + x1], fx, flat[row + x0] * (1 - fx))
+
+            def lerp_yz_f64(a, b, f):
+                return fma(a, 1 - f, b * f)
+
+            c0 = lerp_yz_f64(lerp_x_f64(z0, y0), lerp_x_f64(z0, y1), fy)
+            c1 = lerp_yz_f64(lerp_x_f64(z1, y0), lerp_x_f64(z1, y1), fy)
+            return torch.where(inside, lerp_yz_f64(c0, c1, fz), 0.0)
+
+        # float32: one rounding, as core.geometry.fma gives it (float64
+        # holds the float32 product exactly), with each factor cast once
         omfx, fx64 = 1 - fx, fx.double()
 
         def lerp_x(z, y):
@@ -166,12 +183,16 @@ class GridDensityMedium(HomogeneousMedium):
 
     @staticmethod
     def _flight(u, t, sig_bar):
-        """t plus an exponential step of rate sig_bar.  The reference's
-        compiled code divides by the constant as a product with its float32
-        reciprocal, fused into the add (one rounding, as in lerps)."""
+        """t plus an exponential step of rate sig_bar, in t's float.  The
+        reference's compiled code divides the float32 log by the constant
+        as a product with its float32 reciprocal: under float32 fused into
+        the add (one rounding, as in lerps); under float64 the float32
+        product rounds, then widens into the float64 add."""
         lg = torch.log(torch.clamp(1.0 - u, min=1e-10))
-        return torch.add(t.double(), lg.double(),
-                         alpha=-float(np.float32(1.0) / np.float32(sig_bar))).float()
+        step = -float(np.float32(1.0) / np.float32(sig_bar))
+        if t.dtype == torch.float64:
+            return t + (lg * step).double()
+        return torch.add(t.double(), lg.double(), alpha=step).float()
 
     def sample(self, o, d, u, t_hit, rng):
         """Delta tracking: exponential flights under the gray majorant

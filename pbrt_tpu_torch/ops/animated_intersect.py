@@ -17,8 +17,9 @@ Two arithmetic paths, as in the reference:
   keyframe), built by ``build_bvh(bb_min, bb_max, bb_max, leaf_size=4)``
   with the box corners as the three "vertices", as the reference builds
   it, so the tree and its permutation are the reference's.  The walk is
-  ``kernels/anim_walk.anim_walk`` (K7, CUDA on the card; its plain
-  version on CPU tensors).
+  ``kernels/anim_walk.anim_walk`` (K7, CUDA on the card, which reads the
+  keyframe rows packed once here by ``pack_keys``; its plain version on
+  CPU tensors).
 
 Both blend and test with ``kernels/anim_walk``'s ``blend`` and
 ``tri_test``, whose products fuse into their sums as the reference's
@@ -35,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pbrt_tpu_torch.kernels.anim_walk import anim_walk, blend, time_weights, tri_test
+from pbrt_tpu_torch.kernels.anim_walk import (anim_walk, blend, pack_keys, time_weights,
+                                              tri_test)
 from pbrt_tpu_torch.ops.intersect import KIND_NONE, KIND_SPHERE, KIND_TRI
 from pbrt_tpu_torch.ops.intersect_soa import SoABruteForceIntersector
 
@@ -73,6 +75,8 @@ class AnimatedTriIntersector:
                         "nodes_i": torch.as_tensor(nodes_i, device=device),
                         "perm": torch.as_tensor(perm.astype(np.int64), device=device)}
         self.cols = torch.as_tensor(np.ascontiguousarray(cols), device=device)
+        # K7's table: each key's row padded to whole 16-byte vectors
+        self.packed = pack_keys(self.cols) if self.bvh is not None else None
 
     def _weights(self, time, n, dt, dev):
         """Hat weights of the lanes' times, in the rays' float ``dt`` (the
@@ -91,8 +95,8 @@ class AnimatedTriIntersector:
         comps = tuple(c.to(dt).contiguous()
                       for c in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], t_max))
         time = torch.broadcast_to(time, (n,)).to(dt).contiguous()
-        return anim_walk(self.bvh["nodes_f"], self.bvh["nodes_i"], self.cols, comps, time,
-                         any_hit)
+        return anim_walk(self.bvh["nodes_f"], self.bvh["nodes_i"], self.cols, self.packed, comps,
+                         time, any_hit)
 
     def intersect(self, o, d, t_max, time=None):
         n = o.shape[0]

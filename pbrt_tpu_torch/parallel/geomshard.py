@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from pbrt_tpu_torch import torch_dtype
 from pbrt_tpu_torch.ops.intersect import RAY_EPS
 from pbrt_tpu_torch.parallel.multihost import all_reduce_mesh, axis
 
@@ -301,7 +302,8 @@ def _brute_hit(shard, o, d, tmax, chunk):
     rows = torch.arange(n, device=o.device)
     for c0 in range(0, p0s.shape[0], chunk):
         p0, p1, p2 = p0s[c0:c0 + chunk], p1s[c0:c0 + chunk], p2s[c0:c0 + chunk]
-        e1, e2 = p1 - p0, p2 - p0
+        # edges in the table's float, then the rays' (the reference's promotion)
+        e1, e2 = (p1 - p0).to(o.dtype), (p2 - p0).to(o.dtype)
         pvec = torch.cross(d[:, None, :].expand(-1, len(p0), -1),
                            e2[None].expand(n, -1, -1), dim=-1)
         det = torch.sum(e1[None] * pvec, dim=-1)
@@ -545,7 +547,9 @@ def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l, max_depth
     ``kd_table`` [M, 3] and a constant environment ``env_l`` [3], no NEE:
     the scaling harness of BASELINE config 5, as the reference's.  The
     partial films sum over the mesh; under "allreduce" the tp replicas
-    traced the same rays, so the sum is divided by tp."""
+    traced the same rays, so the sum is divided by tp.  The film
+    positions, rays and carried radiance take the camera's float (float64
+    under the double policy), as the reference's take ``float_t``."""
     if formulation not in ("allreduce", "ring"):
         raise ValueError(f"unknown formulation {formulation!r}")
     ring = formulation == "ring"
@@ -553,19 +557,20 @@ def make_sharded_path_fn(mesh, camera, sampler, film, kd_table, env_l, max_depth
 
     def fn(state, shard, pixels, sidx):
         dev = state["xyz"].device
-        kd_t = torch.as_tensor(np.asarray(kd_table, np.float32), device=dev)
-        env = torch.as_tensor(np.asarray(env_l, np.float32), device=dev)
+        dt = torch_dtype(camera.float_t)
+        kd_t = torch.as_tensor(np.asarray(kd_table), dtype=dt, device=dev)
+        env = torch.as_tensor(np.asarray(env_l), dtype=dt, device=dev)
         sl = _lane_slice(pixels.shape[0], mesh, dp_axis, tp_axis, ring)
         pixel_xy, sidx = pixels[sl], sidx[sl]
         n = pixel_xy.shape[0]
         with torch.no_grad():
-            p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sidx, 0)
+            p_film = pixel_xy.to(dt) + sampler.get2(pixel_xy, sidx, 0)
             o, d, w = camera.generate_rays(p_film, sampler.get2(pixel_xy, sidx, 2))
-            L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-            beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+            L = torch.zeros((n, 3), dtype=dt, device=dev)
+            beta = torch.ones((n, 3), dtype=dt, device=dev)
             alive = torch.ones(n, dtype=torch.bool, device=dev)
             for bounce in range(max_depth):
-                t_inf = torch.full((n,), INF_T, dtype=torch.float32, device=dev)
+                t_inf = torch.full((n,), INF_T, dtype=dt, device=dev)
                 if ring:
                     hit = ring_closest_hit(shard, o, d, t_inf, tp_size, tp_group)
                 else:
@@ -606,17 +611,20 @@ def make_sharded_grad_fn(mesh, camera, sampler, film, target, max_depth=3, dp_ax
     Each rank backpropagates its own lanes, and the gradients are
     all-reduced once over the mesh: the gradient of the loss.  (The
     reference differentiates through ``shard_map``, whose psum transposes
-    to a psum: its gradient is that times the number of devices.)"""
+    to a psum: its gradient is that times the number of devices.)  The
+    radiance, its carry and the target take the camera's float."""
     tp_group, tp_size, _ = axis(mesh, tp_axis)
+
+    dt = torch_dtype(camera.float_t)
 
     def radiance(theta, shard, pixel_xy, sidx):
         n = pixel_xy.shape[0]
         dev = pixel_xy.device
-        p_film = pixel_xy.to(torch.float32) + sampler.get2(pixel_xy, sidx, 0)
+        p_film = pixel_xy.to(dt) + sampler.get2(pixel_xy, sidx, 0)
         o, d, w = camera.generate_rays(p_film, sampler.get2(pixel_xy, sidx, 2))
 
         def bounce_body(bounce, L, beta, alive, o, d):
-            t_far = torch.where(alive, INF_T, 0.0)
+            t_far = torch.where(alive, INF_T, 0.0).to(dt)
             hit = allreduce_closest(shard, *local_closest_hit(shard, o, d, t_far), tp_group)
             esc = alive & ~hit["hit"]
             L = L + torch.where(esc[..., None], beta * theta["env_l"], 0.0)
@@ -628,8 +636,8 @@ def make_sharded_grad_fn(mesh, camera, sampler, film, target, max_depth=3, dp_ax
             beta = torch.where(alive[..., None], beta * kd, beta)
             return L, beta, alive, o, d
 
-        carry = (torch.zeros((n, 3), dtype=torch.float32, device=dev),
-                 torch.ones((n, 3), dtype=torch.float32, device=dev),
+        carry = (torch.zeros((n, 3), dtype=dt, device=dev),
+                 torch.ones((n, 3), dtype=dt, device=dev),
                  torch.ones(n, dtype=torch.bool, device=dev), o, d)
         for bounce in range(max_depth):
             if remat:
@@ -641,7 +649,7 @@ def make_sharded_grad_fn(mesh, camera, sampler, film, target, max_depth=3, dp_ax
 
     def fn(theta, shard, pixels, sidx):
         dev = pixels.device
-        tgt = torch.as_tensor(np.asarray(target, np.float32), device=dev)
+        tgt = torch.as_tensor(np.asarray(target), dtype=dt, device=dev)
         sl = _lane_slice(pixels.shape[0], mesh, dp_axis, tp_axis, ring=False)
         pixel_xy, sidx = pixels[sl], sidx[sl]
         leaves = {k: torch.as_tensor(v, device=dev).detach().clone().requires_grad_(True)

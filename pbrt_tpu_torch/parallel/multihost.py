@@ -111,7 +111,8 @@ def axis(mesh, name):
 def all_reduce_mesh(tensors: dict, mesh) -> dict:
     """{name: tensor} summed over every axis of ``mesh`` in turn (the
     reference's psum over all axes), as one all-reduce of their
-    concatenation an axis -> {name: sum}, shapes kept."""
+    concatenation an axis (in the widest of their floats) -> {name: sum},
+    shapes and dtypes kept."""
     keys = list(tensors)
     flat = torch.cat([tensors[k].reshape(-1) for k in keys])
     for name in mesh.mesh_dim_names:
@@ -121,7 +122,7 @@ def all_reduce_mesh(tensors: dict, mesh) -> dict:
     out, at = {}, 0
     for k in keys:
         n = tensors[k].numel()
-        out[k] = flat[at:at + n].reshape(tensors[k].shape)
+        out[k] = flat[at:at + n].reshape(tensors[k].shape).to(tensors[k].dtype)
         at += n
     return out
 

@@ -91,20 +91,21 @@ def heightfield(n=40):
 
 
 def harness(res, spp, device, eye=(0.0, 0.0, -4.0), look=(0.0, 0.0, 0.0), up=(0, 1, 0),
-            fov=50.0):
+            fov=50.0, float_t=np.float32):
     """(camera, sampler, film) of the geometry-sharded harness: the
     reference test's perspective camera, Halton sampler, box-filtered
-    film at ``res`` x ``res``."""
+    film at ``res`` x ``res``, under the policy's float ``float_t``."""
     from pbrt_tpu_torch.cameras import PerspectiveCamera
     from pbrt_tpu_torch.core.film import Film
     from pbrt_tpu_torch.core.filters import BoxFilter
     from pbrt_tpu_torch.core.transform import Transform
     from pbrt_tpu_torch.samplers import HaltonSampler
 
-    film = Film((res, res), ((0, 0), (1, 1)), BoxFilter((0.5, 0.5)), device=device)
+    film = Film((res, res), ((0, 0), (1, 1)), BoxFilter((0.5, 0.5)), device=device,
+                float_t=float_t)
     cam = PerspectiveCamera(Transform.look_at(list(eye), list(look), list(up)).inverse(),
-                            fov, (res, res), device=device)
-    return cam, HaltonSampler(spp), film
+                            fov, (res, res), device=device, float_t=float_t)
+    return cam, HaltonSampler(spp, float_t=float_t), film
 
 
 def lanes(film, spp, ray_shards):
@@ -285,7 +286,7 @@ def heightfield_scene(n=40):
 
 def rank_geomshard(rank, world_size, device, cases, grad_cases=(), scene=None, res=16, spp=2,
                    max_depth=3, shard_files=None, repeats=1, record_rank=None, camera=None,
-                   n_mats=1):
+                   n_mats=1, float_t=np.float32):
     """The geometry-sharded harness on this rank.
 
     ``cases``: (dp, tp, kind, formulation) with dp * tp = world size, kind
@@ -302,11 +303,12 @@ def rank_geomshard(rank, world_size, device, cases, grad_cases=(), scene=None, r
     shard sweep of the first case of each walked kind are recorded and
     returned under ``sweeps`` ({kind: [(o, d, t_max) numpy]}), so that
     the parent can hold that shard's kernel against its plain version
-    and time it once the world has exited."""
+    and time it once the world has exited.  ``float_t``: the harness's
+    policy (its camera, sampler and film)."""
     from pbrt_tpu_torch.parallel import geomshard as G
     from pbrt_tpu_torch.parallel.multihost import axis, global_mesh
 
-    cam, sampler, film = harness(res, spp, device, **(camera or {}))
+    cam, sampler, film = harness(res, spp, device, **(camera or {}), float_t=float_t)
     kd = np.tile(np.array([[0.6, 0.5, 0.4]], dtype=np.float32), (n_mats, 1))
     env = np.array([0.8, 0.9, 1.0], dtype=np.float32)
     shards = {}

@@ -5,9 +5,13 @@ card.  The file imports no JAX:
     PBRT_TPU_TEST_TPU=1 python -m pytest tests/test_torch_cuda_motion.py -m cuda -q
 
 Gates: K7 (``kernels/anim_walk.anim_walk``) against its plain version run
-on the card on a 3-key rotating soup of 3000 triangles, closest and any
-hit, by phase 3's rules (hit masks equal, t within rtol 1e-6, prims
-equal except on exact t ties, b0 and b1 within 2e-5 absolute); images on
+on the card on rotating soups of 3000 triangles in 1, 2 and 4 keys, on
+sweeps of 1%, 50% and all lanes live and times on the keys, closest and
+any hit, by phase 3's rules (hit masks equal, t within rtol 1e-6, prims
+equal except on exact t ties, b0 and b1 within 2e-5 absolute), the dead
+lanes answered by the prepass and the packed keyframe table equal to
+the rows (:func:`check_k7_sweeps`, which the double file runs on the
+double instance); images on
 the card against the CPU to ``tests/test_torch_slice.py``'s tolerance
 (image-mean relative difference <= 1e-3, >= 99% of pixels within rtol
 1e-3 / atol 1e-4); MLT over the moving quad as
@@ -47,44 +51,85 @@ def _render(text, dev):
     return r.image(r.render(progress=False))
 
 
-@pytest.mark.cuda
-def test_anim_walk_kernel_matches_plain():
-    torch = _need_card()
+def check_k7_sweeps(torch, float_t, rtol):
+    """K7's instance for ``float_t`` against its plain version run on the
+    card, on a rotating soup of 3000 triangles in K = 1, 2 and 4 keys (over
+    30 degrees; one key stands still): the packed table read back equal to
+    the [T, K, 9] rows; sweeps of 16,384 rays (K = 1, 2) and 524,288 (K =
+    4, so that the dense sweeps walk a ray a lane and the sparse ones 4
+    lanes a ray: both occur) with 1%, 50% and 100% of the lanes live,
+    every 5th lane's time exactly on a key (0 and 1 among them), the dead
+    lanes at t_max 0, RAY_EPS, 5e-5 and -1; closest and any hit: one launch
+    of that instance a sweep, its prepass listing exactly the live lanes,
+    each dead lane answered (t_max, -1, 0, 0), and the results within
+    ``anim_disagreement``'s rules (t within ``rtol``)."""
     from pbrt_tpu_torch.kernels import anim_walk
     from pbrt_tpu_torch.ops.animated_intersect import AnimatedTriIntersector
     from pbrt_tpu_torch.shapes import TriangleData
 
+    dt = torch.float64 if float_t == np.float64 else torch.float32
+    name = "anim_walk_f64" if float_t == np.float64 else "anim_walk"
     rng = np.random.default_rng(0)
     c = rng.uniform(-1, 1, (3000, 3))
     tri = [c, c + rng.uniform(-0.1, 0.1, (3000, 3)), c + rng.uniform(-0.1, 0.1, (3000, 3))]
-    keys = []
-    for a in np.radians([0.0, 15.0, 30.0]):
-        m = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
-        p = [(v @ m.T).astype(np.float32) for v in tri]
-        z = np.zeros((3000, 2), np.float32)
-        keys.append(TriangleData(p[0], p[1], p[2], z, z, z))
-    itx = AnimatedTriIntersector(keys, device="cuda")
-    n = 1 << 16
-    o = torch.as_tensor(rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32), device="cuda")
-    d = torch.nn.functional.normalize(torch.randn(n, 3, device="cuda"), dim=-1)
-    t_max = torch.as_tensor(rng.uniform(0.05, 4.0, n).astype(np.float32), device="cuda")
-    t_max[::97] = 0.0
-    time = torch.as_tensor(rng.uniform(0, 1, n).astype(np.float32), device="cuda")
-    comps = tuple(x.contiguous() for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                                           d[:, 2], t_max))
-    args = (itx.bvh["nodes_f"], itx.bvh["nodes_i"], itx.cols, comps, time)
-    host = [x.cpu().numpy() for x in (o, d, time)]
-    for any_hit in (False, True):
-        anim_walk.reset_launch_counts()
-        got = anim_walk.anim_walk(*args, any_hit=any_hit)
-        torch.cuda.synchronize()
-        assert anim_walk.LAUNCHES["anim_walk"] == 1
-        want = anim_walk.anim_walk_plain(*args, any_hit=any_hit)
-        problem = anim_walk.anim_disagreement(
-            [x.cpu().numpy() for x in got], [x.cpu().numpy() for x in want],
-            itx.cols.cpu().numpy(), *host, any_hit)
-        assert problem is None, (any_hit, problem)
-        assert 0.1 < float((want[1] >= 0).float().mean()) < 0.9
+    lanes_seen = set()
+    for n_keys in (1, 2, 4):
+        n = 1 << 19 if n_keys == 4 else 1 << 14
+        keys = []
+        for a in np.radians(np.linspace(0.0, 30.0, n_keys)):
+            m = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+            p = [(v @ m.T).astype(float_t) for v in tri]
+            z = np.zeros((3000, 2), float_t)
+            keys.append(TriangleData(p[0], p[1], p[2], z, z, z))
+        itx = AnimatedTriIntersector(keys, device="cuda")
+        assert itx.cols.dtype == itx.packed.dtype == dt and itx.cols.shape[1] == n_keys
+        assert itx.packed.shape == (3000, n_keys, anim_walk.ROW_PAD[dt])
+        assert torch.equal(itx.packed[..., :9], itx.cols) and not itx.packed[..., 9:].any()
+        for share in (0.01, 0.5, 1.0):
+            o = torch.as_tensor(rng.uniform(-1.5, 1.5, (n, 3)).astype(float_t), device="cuda")
+            d = torch.nn.functional.normalize(torch.randn(n, 3, device="cuda", dtype=dt), dim=-1)
+            t_max = rng.uniform(0.05, 4.0, n).astype(float_t)
+            dead = rng.uniform(size=n) >= share
+            t_max[dead] = rng.choice(np.array([0.0, 1e-4, 5e-5, -1.0], float_t), int(dead.sum()))
+            time = rng.uniform(0, 1, n).astype(float_t)
+            time[::5] = rng.integers(0, n_keys, len(time[::5])) / max(n_keys - 1, 1)
+            time[:2] = (0.0, 1.0)
+            t_max, time = (torch.as_tensor(x, device="cuda") for x in (t_max, time))
+            comps = tuple(x.contiguous() for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                                                   d[:, 2], t_max))
+            host = [x.cpu().numpy() for x in (o, d, time)]
+            live = int((t_max > 1e-4).sum())
+            for any_hit in (False, True):
+                anim_walk.reset_launch_counts()
+                got = anim_walk.anim_walk(itx.bvh["nodes_f"], itx.bvh["nodes_i"], itx.cols,
+                                          itx.packed, comps, time, any_hit)
+                torch.cuda.synchronize()
+                assert anim_walk.LAUNCHES == {k: int(k == name) for k in anim_walk.LAUNCHES}
+                stats = anim_walk.task_stats()
+                assert stats["live_rays"] == live
+                lanes_seen.add(stats["lanes_per_ray"])
+                assert got[0].dtype == dt
+                want = anim_walk.anim_walk_plain(itx.bvh["nodes_f"], itx.bvh["nodes_i"],
+                                                 itx.cols, comps, time, any_hit)
+                got, want = ([x.cpu().numpy() for x in v] for v in (got, want))
+                label = (n_keys, share, any_hit)
+                problem = anim_walk.anim_disagreement(got, want, itx.cols.cpu().numpy(), *host,
+                                                      any_hit, rtol=rtol)
+                assert problem is None, (label, problem)
+                gone = ~(t_max > 1e-4).cpu().numpy()
+                np.testing.assert_array_equal(got[0][gone], t_max.cpu().numpy()[gone])
+                assert (got[1][gone] == -1).all() and not got[2][gone].any()
+                assert not got[3][gone].any()
+                if share == 1.0:
+                    assert 0.1 < float((want[1] >= 0).mean()) < 0.9, label
+    assert lanes_seen == {1, 4}, lanes_seen
+
+
+@pytest.mark.cuda
+def test_anim_walk_kernel_matches_plain():
+    """:func:`check_k7_sweeps` on the float instance (t within rtol 1e-6,
+    b0 and b1 within 2e-5)."""
+    check_k7_sweeps(_need_card(), np.float32, 1e-6)
 
 
 @pytest.mark.cuda

@@ -32,6 +32,11 @@ this process with the ``double`` argument.
   seeded rays over a 3-key rotating soup of 100 triangles: hit masks and
   prims equal, t within rtol 1e-12 (measured 1.9e-15), b0 and b1 within
   1e-9 (``anim_walk.B_ATOL``), occlusion equal.
+* A grid medium filling a room under volpath (16x16, 2 spp, maxdepth 3):
+  the density, the tracking's t and the transmittance float64, the image
+  within ``IMAGE_BOUNDS``; the geometry-sharded matte harness (render and
+  gradient step) in a 2-rank gloo world against the reference's harness,
+  which the same subprocess runs on the conftest's virtual CPU devices.
 
 torch and pbrt_tpu_torch are imported inside the tests.
 """
@@ -101,7 +106,51 @@ out.update({"k7/keys": np.stack([np.stack([k.p0, k.p1, k.p2], 1) for k in keys])
             "k7/o": o, "k7/d": d, "k7/t_max": t_max, "k7/time": time})
 for k in ("t", "hit", "prim", "b0", "b1"):
     out["k7/" + k] = np.asarray(hit[k])
+
+from pbrt_tpu import Options
+from pbrt_tpu.core.api import PbrtAPI
+from pbrt_tpu.render import render_scene
+
+api = PbrtAPI(Options(ray_batch=1 << 16), render_on_world_end=False)
+api.init()
+api.parse_string(sys.argv[2])
+out["smoke"] = np.asarray(render_scene(api.scene, api.opt, write=False)["image"])
+sys.path.insert(0, "tests")  # the reference's own harness (its virtual CPU devices)
+from test_geomshard import _grad_with, render_with
+
+# skip-link shards: its brute-force shards fail to trace under x64 (an
+# int32 scan carry meets an int64 index)
+out["sharded/image"] = render_with(dp=1, tp=2, bvh=True)
+out["sharded/loss"], grads = _grad_with(dp=1, tp=2)
+for k, v in grads.items():
+    out["sharded/grad/" + k] = v
 np.savez(sys.argv[1], **out)
+"""
+
+# a grid medium filling a room (tests/test_torch_media.py's smoke room),
+# 16x16, 2 spp, maxdepth 3: every camera and shadow ray tracks through it
+SMOKE_ROOM = """
+MakeNamedMedium "smoke" "string type" "heterogeneous"
+    "rgb sigma_a" [0.05 0.05 0.05] "rgb sigma_s" [0.2 0.2 0.2] "float g" 0.3
+    "integer nx" 2 "integer ny" 2 "integer nz" 2 "point p0" [-5 -1 -7] "point p1" [5 6 5]
+    "float density" [0.2 1 0.5 0.1 0.8 0.3 1 0.6]
+MediumInterface "" "smoke"
+LookAt 0 3 -6  0 0 0  0 1 0
+Camera "perspective" "float fov" 45
+Sampler "halton" "integer pixelsamples" 2
+Integrator "volpath" "integer maxdepth" 3
+Film "image" "integer xresolution" [16] "integer yresolution" [16]
+WorldBegin
+LightSource "point" "rgb I" [60 60 60] "point from" [0 5 0]
+MediumInterface "smoke" "smoke"
+Material "matte" "rgb Kd" [0.7 0.7 0.7]
+Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
+  "point P" [-4 0 -4  4 0 -4  4 0 4  -4 0 4]
+AttributeBegin
+  Translate 0 2.5 0
+  Shape "sphere" "float radius" 1
+AttributeEnd
+WorldEnd
 """
 
 
@@ -112,8 +161,8 @@ def reference(tmp_path_factory):
     path = tmp_path_factory.mktemp("double") / "reference.npz"
     env = dict(os.environ, PBRT_TPU_DOUBLE="1", JAX_PLATFORMS="cpu",
                PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    run = subprocess.run([sys.executable, "-c", REFERENCE, str(path)], env=env, cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
+    run = subprocess.run([sys.executable, "-c", REFERENCE, str(path), SMOKE_ROOM], env=env,
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-4000:]
     return dict(np.load(path))
 
@@ -179,9 +228,13 @@ def test_math_core_in_both_policies(reference):
 
 # per scene: (bound on the image-mean relative difference from the
 # reference's double image, least share of pixels within rtol 1e-7 of it);
-# measured: Cornell 7.5e-10 and 98.0%, the torus 1.5e-8 and 96.5%; the
-# port's float32 images: 7.5e-4 and 9.4%, 3.1e-8 and 61.3%
-IMAGE_BOUNDS = {"cornell": (1e-8, 0.97), "torus": (1e-7, 0.95)}
+# measured: Cornell 7.5e-10 and 98.0%, the torus 1.5e-8 and 96.5%, the
+# smoke room 3.5e-9 and 93.0%; the port's float32 images: 7.5e-4 and
+# 9.4%, 3.1e-8 and 61.3%, 2.2e-8 and 13.3%.  The smoke room's tracking
+# takes its logs in float32, where XLA's and torch's differ by an ulp on
+# 14% of inputs; with its density and flights in float32 (before) it
+# measured 3.7e-9 and 89.8%
+IMAGE_BOUNDS = {"cornell": (1e-8, 0.97), "torus": (1e-7, 0.95), "smoke": (1e-8, 0.92)}
 
 
 def _float_leaves(obj, path="r", seen=None):
@@ -312,3 +365,71 @@ def test_double_gradient_and_keyframed_walk_against_reference(reference):
     assert problem is None, problem
     print(f"K7 plain in double against the reference: max |db| {max_b_diff(*res):.3e}")
     np.testing.assert_array_equal(port.occluded(*args).numpy(), hit)
+
+
+def test_double_grid_medium_and_sharded_harness_against_reference(reference):
+    """The grid medium and the sharded matte harness in double.  The smoke
+    room under volpath: the density and every tracking t float64 (they
+    rounded to float32 before), the image within IMAGE_BOUNDS of the
+    reference's and every pixel within rtol 1e-6.  Then
+    ``make_sharded_path_fn`` on brute-force shards and
+    ``make_sharded_grad_fn`` on skip-link shards of the heightfield at
+    (dp, tp) = (1, 2), on a double harness in one gloo world of 2 ranks
+    (the brute-force shards failed in double before): the film float64
+    and within 1e-12 of the reference's (``render_with(dp=1, tp=2,
+    bvh=True)``: its brute-force shards do not trace under x64), the loss
+    within rtol 1e-9 and the gradients, in the leaves' float32, within
+    rtol 1e-6 of its ``_grad_with(1, 2)`` divided by its device count
+    (its ``shard_map`` psum transposes to a psum:
+    tests/test_torch_geomshard.py).  Measured: image and loss within
+    2.2e-16 and 6.7e-16, the gradients equal."""
+    import torch
+
+    from pbrt_tpu_torch import Options
+    from pbrt_tpu_torch.core.api import PbrtAPI
+    from pbrt_tpu_torch.media import GridDensityMedium, make_track_rng
+    from pbrt_tpu_torch.parallel.multihost import run_local_world
+    from pbrt_tpu_torch.parallel.worlds import rank_geomshard, rank_tasks
+    from pbrt_tpu_torch.render import render_scene
+
+    api = PbrtAPI(Options(ray_batch=1 << 16, double=True), render_on_world_end=False,
+                  device="cpu")
+    api.init()
+    api.parse_string(SMOKE_ROOM)
+    got = render_scene(api.scene, api.opt, write=False, device="cpu")
+    (grid,) = [m for m in got["renderer"].compiled.media if isinstance(m, GridDensityMedium)]
+    rs = np.random.default_rng(5)
+    o = torch.as_tensor(rs.uniform(-2, 2, (64, 3)))
+    d = torch.nn.functional.normalize(torch.as_tensor(rs.normal(size=(64, 3))), dim=1)
+    t_max = torch.as_tensor(rs.uniform(1, 8, 64))
+    rng = make_track_rng(torch.zeros((64, 2), dtype=torch.int64),
+                         torch.arange(64), 9, np.float64)
+    t, _, beta = grid.sample(o, d, rng(0), t_max, rng)
+    assert grid.density_at(o).dtype == t.dtype == beta.dtype == torch.float64
+    assert grid.tr(o, d, t_max, rng).dtype == torch.float64
+    assert not torch.equal(t, t.float().double())  # t is not a float32 value
+    img, want = got["image"], reference["smoke"]
+    assert img.dtype == want.dtype == np.float64 and np.isfinite(img).all() and img.max() > 0
+    rel = np.abs(img - want) / np.abs(want).clip(min=1e-300)
+    rel_mean = abs(img.mean() - want.mean()) / want.mean()
+    within = float((rel <= 1e-7).all(axis=-1).mean())
+    print(f"smoke room: mean rel diff {rel_mean:.3e}, {within:.4f} of pixels within rtol 1e-7")
+    mean_bound, share_bound = IMAGE_BOUNDS["smoke"]
+    assert (rel <= 1e-6).all() and rel_mean <= mean_bound and within >= share_bound
+
+    world = run_local_world(rank_tasks, 2, backend="gloo", device="cpu", timeout_s=120,
+                            args=([(rank_geomshard, dict(
+                                cases=[(1, 2, "brute", "allreduce")],
+                                grad_cases=[(1, 2, "skip", False)],
+                                float_t=np.float64))],))
+    (a,), (b,) = world
+    image = a["images"][(1, 2, "brute", "allreduce")]
+    step = a["grads"][(1, 2, "skip", False)]
+    np.testing.assert_array_equal(b["images"][(1, 2, "brute", "allreduce")], image)
+    assert image.dtype == np.float64 and image.max() > 0.05
+    np.testing.assert_allclose(image, reference["sharded/image"], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(step["loss"], float(reference["sharded/loss"]), rtol=1e-9)
+    for k in ("kd", "env_l"):
+        g, w = step["grads"][k], reference[f"sharded/grad/{k}"] / 2
+        assert g.dtype == w.dtype == np.float32 and np.abs(g).max() > 0
+        np.testing.assert_allclose(g, w, rtol=1e-6)

@@ -13,6 +13,11 @@
   reference's ``AnimatedTriIntersector``: hit masks equal, t within rtol
   1e-5, prims equal except on exact t ties, b0 and b1 within 2e-5
   absolute; occlusion masks equal.
+* K7's host-side pieces, with no reference: ``pack_keys``' table read back
+  equal to the [T, K, 9] rows with zero padding (float32 and float64), and
+  the kernel's two-key search (``key_pair``) giving ``time_weights``'
+  weights bit for bit at K = 1, 2, 3, 4 and 7, times on the keys and the
+  ends included, every other key's weight 0.
 * 16x16 renders of tests/test_motion_integrators.py's moving quad under
   ``path`` and ``sppm`` and of a moving camera under ``path``, to the
   image tolerance of the other scene tests (image-mean relative
@@ -218,3 +223,34 @@ def test_motion_mlt_evaluate_against_reference():
     print(f"b: port {pi.last_b:.7f} reference {want_b:.7f}; acceptance {pi.last_acceptance}")
     np.testing.assert_allclose(pi.last_b, want_b, rtol=1e-4)
     assert np.isfinite(img).all() and img.max() > 0
+
+
+def test_anim_walk_packing_and_key_search():
+    """``pack_keys`` round-trips; ``key_pair``'s floor search gives
+    ``time_weights``' two non-zero weights bit for bit (no reference)."""
+    import torch
+
+    from pbrt_tpu_torch.kernels.anim_walk import ROW_PAD, key_pair, pack_keys, time_weights
+
+    rng = np.random.default_rng(3)
+    for dt in (torch.float32, torch.float64):
+        keys = torch.as_tensor(rng.normal(size=(37, 4, 9))).to(dt)
+        packed = pack_keys(keys)
+        assert packed.dtype == dt and packed.shape == (37, 4, ROW_PAD[dt])
+        assert packed.is_contiguous() and packed.element_size() * ROW_PAD[dt] % 16 == 0
+        assert torch.equal(packed[..., :9], keys) and not packed[..., 9:].any()
+        for n_keys in (1, 2, 3, 4, 7):
+            t = torch.as_tensor(rng.uniform(-0.1, 1.1, 4096)).to(dt)
+            t[::3] = torch.as_tensor(rng.integers(0, n_keys, len(t[::3]))).to(dt) / max(
+                n_keys - 1, 1)
+            t[:4] = torch.tensor([0.0, 1.0, -0.0, 0.5], dtype=dt)
+            w = time_weights(t, n_keys)
+            ka, wa, wb = key_pair(t, n_keys)
+            rows = torch.arange(len(t))
+            assert torch.equal(wa, w[rows, ka]) and bool((wa > 0).all())
+            kb = torch.clamp(ka + 1, max=n_keys - 1)
+            assert torch.equal(wb, torch.where(ka + 1 < n_keys, w[rows, kb], 0.0))
+            rest = w.clone()
+            rest[rows, ka] = 0.0
+            rest[rows, kb] = 0.0
+            assert not rest.any(), (dt, n_keys)
